@@ -4,20 +4,32 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. the card, the torch and CUDA versions, and the nvcc build of the
-     kernels in dglke_tpu_torch/ops/csrc/rows.cu, timed;
-  2. each kernel against its plain PyTorch version at the flagship shapes
-     (FB15k width: 14,951 x 400 entity table, 1,345 x 400 relation table,
-     3,000 entity ids and 1,000 relation ids per step), with its time, the
-     plain version's time, one PyTorch call as yardstick, and its bound;
-  3. the main path: dglke_tpu_torch.cli.train.main on an FB15k-shaped
-     synthetic dataset with the flagship flags and --test, with the launch
-     counts of both kernels read around that run only; then two flagship
-     steps on the card against the CPU's plain path; then the time of a
-     flagship step on the host clock, and under torch.profiler the
-     device's busy share and the kernels by device time;
-  4. the planted TransE_l2 quality gate on the card (MRR >= 0.85);
-  5. the kernel summary: a `kernels:` line, one JSON line of per-kernel
+  1. the card, the torch and CUDA versions, and the nvcc builds of the
+     kernel sources in dglke_tpu_torch/ops/csrc/ (one nvcc per source, all
+     started together), timed;
+  2. each kernel against its plain PyTorch version at the shapes its main
+     path gives it, with its time, the plain version's time, one PyTorch
+     call as yardstick where one computes the same function, and its bound:
+     K1 and K2 at the TransE_l2 flagship shapes (FB15k width: 14,951 x 400
+     entity table, 1,345 x 400 relation table, 3,000 entity ids and 1,000
+     relation ids per step); K3 at RESCAL's FB15k shapes (1,345 x 250,000
+     relation table, 1,000 ids, 500-wide factors), beside the stock route
+     for the same update (the gradient materialized, then K2), K2 on that
+     route and K1 on the 1 MB relation rows;
+  3. the TransE_l2 main path: dglke_tpu_torch.cli.train.main on an
+     FB15k-shaped synthetic dataset with the flagship flags and --test,
+     with the launch counts read around that run only; then two flagship
+     steps on the card against the CPU's plain path; then a flagship step
+     on the host clock, and under torch.profiler the device's busy share
+     and the kernels by device time;
+  4. the RESCAL main path, the same three parts: the CLI with the flags of
+     examples/fb15k.sh (hidden 500), --max_step 1000 and --test on the same
+     data, its launch counts read around that run only (the relation update
+     must go through K3 and never K2); two full-width steps on the card
+     against the CPU; the step profile;
+  5. the planted quality gate of every family on the card (MRR >= 0.85,
+     HITS@10 >= 0.99, the JAX package's calibrated configs);
+  6. the kernel summary: a `kernels:` line, one JSON line of per-kernel
      numbers, the card's name and power limit, and the result line.
 
 Everything it writes goes under build/chip_smoke/ and is removed at the
@@ -52,12 +64,30 @@ BATCH, NEG = 1000, 200
 N_ENT_IDS = 2 * BATCH + (BATCH // NEG) * NEG      # [h | t | neg] = 3,000
 LR = 0.25
 
+# The two main paths' configurations: TransE_l2 as bench.py:188-201 runs
+# it, RESCAL as examples/fb15k.sh:29-31 runs it (default regularization,
+# coef 2e-6 and norm 3).
+TRANSE = dict(model_name="TransE_l2", hidden_dim=DIM, gamma=19.9, lr=LR,
+              batch_size=BATCH, neg_sample_size=NEG,
+              neg_adversarial_sampling=True, regularization_coef=1e-9)
+RESCAL = dict(model_name="RESCAL", hidden_dim=500, gamma=24.0, lr=0.03,
+              batch_size=BATCH, neg_sample_size=NEG,
+              neg_adversarial_sampling=True, regularization_coef=2e-6,
+              regularization_norm=3)
+RESCAL_WIDTH = RESCAL["hidden_dim"] ** 2             # 250,000 per relation
+RESCAL_EVAL_BATCH = 500
+MAIN_STEPS = 1000
+
 # Stated tolerances.  K1 moves bits: exact.  K2 sums each id's segment in
 # a fixed order, the plain version adds per occurrence:
 # fp32 within rtol 1e-5 / atol 1e-6.  With a bf16 table both sum each
 # touched row in fp32 and round once: within one bf16 ulp (plus atol 1e-6,
 # for fp32 sums that cancel near zero).
 K2_RTOL, K2_ATOL = 1e-5, 1e-6
+# K3 sums each id's segment in a fixed order and subtracts once; its plain
+# version adds per occurrence (index_add_): fp32 within rtol 1e-5 / atol
+# 1e-6, and two runs bit-identical.
+K3_RTOL, K3_ATOL = 1e-5, 1e-6
 
 
 def fail(msg: str) -> None:
@@ -135,17 +165,21 @@ def bf16_ulps(got, want, atol: float = K2_ATOL) -> float:
 
 def phase_build():
     import torch
-    from dglke_tpu_torch.ops import rows
+    from dglke_tpu_torch.ops import outer_update, rows
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
-    rows.load_library()
-    print(f"kernel build + load: {time.time() - t0:.2f} s")
-    for line in rows.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"  nvcc: {line.strip()}")
+    rows.build_libraries(rows.SOURCE, outer_update.SOURCE)
+    rows.load_library(rows.SOURCE, rows.SIGNATURES)
+    rows.load_library(outer_update.SOURCE, outer_update.SIGNATURES)
+    print(f"kernel builds (in parallel) + load: {time.time() - t0:.2f} s")
+    for src, log in rows.build_logs.items():
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "error",
+                                        "warning")):
+                print(f"  nvcc {src}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -291,8 +325,142 @@ def phase_kernels():
     ]
 
 
+def phase_outer():
+    """K3 against its plain version at RESCAL's FB15k shapes, two runs
+    bit-identical; its time beside the plain version's, the bound, and the
+    stock route for the same update (the gradient materialized, then K2),
+    which is also held to its plain version here.  K1 timed on the 1 MB
+    relation rows.  Returns K3's numbers for the JSON line."""
+    import torch
+    from dglke_tpu_torch.ops import outer_update, rows
+    from dglke_tpu_torch.ops.embedding import EmbeddingState
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(1)
+    d = RESCAL["hidden_dim"]
+    lr, coef, norm = (RESCAL[k] for k in ("lr", "regularization_coef",
+                                          "regularization_norm"))
+    table = torch.empty((N_REL, RESCAL_WIDTH), device=dev).uniform_(
+        -0.052, 0.052, generator=gen)       # RESCAL's emb_init (24 + 2) / 500
+    ss0 = torch.rand((N_REL,), generator=gen, device=dev)
+    ids = torch.randint(0, N_REL, (BATCH,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    a = torch.randn((BATCH, d), generator=gen, device=dev) * 0.1
+    b = torch.randn((BATCH, d), generator=gen, device=dev) * 0.1
+    n_unique = int(torch.unique(ids).numel())
+    print(f"K3 shapes: relation table {N_REL} x {RESCAL_WIDTH} fp32, {BATCH} "
+          f"ids ({n_unique} distinct), factors {BATCH} x {d} twice, coef "
+          f"{coef}, norm {norm}")
+
+    def k3(kernel: bool):
+        t = EmbeddingState(table.clone(), ss0.clone())
+        if kernel:
+            outer_update.outer_adagrad_update(t, ids, a, b, lr, coef, norm)
+        else:
+            outer_update.outer_adagrad_plain(t.emb, t.state_sum, ids, a, b,
+                                             lr, coef, norm)
+        torch.cuda.synchronize()
+        return t
+
+    got, want = k3(True), k3(False)
+    k3_err = 0.0
+    for what, x, y in (("table", got.emb, want.emb),
+                       ("state_sum", got.state_sum, want.state_sum)):
+        if not torch.allclose(x, y, rtol=K3_RTOL, atol=K3_ATOL):
+            fail(f"K3 outer_adagrad_update {what}: max |diff| "
+                 f"{float((x - y).abs().max())} outside rtol {K3_RTOL} atol "
+                 f"{K3_ATOL}")
+        k3_err = max(k3_err, float((x - y).abs().max()))
+    again = k3(True)
+    if not (torch.equal(got.emb, again.emb)
+            and torch.equal(got.state_sum, again.state_sum)):
+        fail("K3 outer_adagrad_update: two runs differ")
+    untouched = torch.ones(N_REL, dtype=torch.bool, device=dev)
+    untouched[ids.long()] = False
+    if not torch.equal(got.emb[untouched], table[untouched]):
+        fail("K3 outer_adagrad_update: a row no id names changed")
+    print(f"K3 outer_adagrad_update: within rtol {K3_RTOL} / atol {K3_ATOL} "
+          f"of plain (max |diff| {k3_err:.3g}); two runs bit-identical; "
+          f"untouched rows unchanged")
+    del got, want, again
+
+    # The stock route: the [B, 250,000] gradient materialized (outer
+    # product + the regularization gradient), then K2 on 1 MB rows.
+    def stock_grad():
+        g = torch.einsum("bi,bj->bij", a, b).reshape(BATCH, -1)
+        return g + outer_update.reg_grad(table[ids.long()], coef, norm)
+
+    g = stock_grad()
+    ek, sk = table.clone(), ss0.clone()
+    rows.sparse_adagrad_rows(ek, sk, ids, g, lr)
+    ep, sp = table.clone(), ss0.clone()
+    rows.sparse_adagrad_plain(ep, sp, ids, g, lr)
+    torch.cuda.synchronize()
+    k2_err = float((ek - ep).abs().max())
+    if not (torch.allclose(ek, ep, rtol=K2_RTOL, atol=K2_ATOL)
+            and torch.allclose(sk, sp, rtol=K2_RTOL, atol=K2_ATOL)):
+        fail(f"K2 sparse_adagrad_rows on RESCAL rows: max |diff| {k2_err} "
+             f"from plain")
+    k2_ms = device_ms(lambda: rows.sparse_adagrad_rows(ek, sk, ids, g, lr),
+                      iters=10)
+    print(f"K2 sparse_adagrad_rows on {BATCH} RESCAL rows of "
+          f"{RESCAL_WIDTH}: within rtol {K2_RTOL} / atol {K2_ATOL} of plain "
+          f"(max |diff| {k2_err:.3g}); device ms {k2_ms:.4f} on the "
+          f"materialized gradient")
+    del ek, ep, g
+
+    state = EmbeddingState(table.clone(), ss0.clone())
+    k3_ms = device_ms(lambda: outer_update.outer_adagrad_update(
+        state, ids, a, b, lr, coef, norm), iters=20)
+    k3_call = call_ms(lambda: outer_update.outer_adagrad_update(
+        state, ids, a, b, lr, coef, norm), iters=20, warmup=2)
+    plain_ms = device_ms(lambda: outer_update.outer_adagrad_plain(
+        state.emb, state.state_sum, ids, a, b, lr, coef, norm), iters=3)
+    stock_ms = device_ms(lambda: rows.sparse_adagrad_rows(
+        state.emb, state.state_sum, ids, stock_grad(), lr), iters=5)
+    sort_ms = device_ms(lambda: torch.sort(ids, stable=True))
+    # Bytes: each distinct row read and written once, state_sum likewise,
+    # ids and factors read once.  Operations: per occurrence and element,
+    # g = a*b + reg', g^2 summed, g summed (5); per distinct element reg'
+    # (5) and the update (3).
+    k3_bytes = (2 * n_unique * RESCAL_WIDTH * 4 + 2 * n_unique * 4
+                + BATCH * 4 + 2 * BATCH * d * 4)
+    k3_ops = 5 * BATCH * RESCAL_WIDTH + 8 * n_unique * RESCAL_WIDTH
+    k3_bound, k3_by = bound_ms(k3_bytes, k3_ops)
+    print(f"K3 outer_adagrad_update, device ms: kernel {k3_ms:.4f} (its id "
+          f"sort alone {sort_ms:.4f}; {k3_call:.4f} per call with host "
+          f"overhead), plain {plain_ms:.4f}, stock route (gradient "
+          f"materialized, then K2) {stock_ms:.4f}; bound {k3_bound:.4f} "
+          f"({k3_by}, {k3_bytes / 1e9:.3f} GB, {k3_ops / 1e9:.2f} GFLOP); "
+          f"no single PyTorch call computes this update")
+
+    # K1 on the main path's relation gather: 1,000 rows of 1 MB.
+    got = rows.gather_rows(state.emb, ids)
+    if not torch.equal(got, rows.gather_rows_plain(state.emb, ids,
+                                                   RESCAL_WIDTH)):
+        fail("K1 gather_rows on RESCAL rows: differs from its plain version")
+    del got
+    k1_ms = device_ms(lambda: rows.gather_rows(state.emb, ids), iters=20)
+    k1_lib = device_ms(lambda: torch.index_select(state.emb, 0, ids),
+                       iters=20)
+    k1_bytes = BATCH * 4 + (n_unique + BATCH) * RESCAL_WIDTH * 4
+    k1_bound, k1_by = bound_ms(k1_bytes, 0)
+    print(f"K1 gather_rows on {BATCH} RESCAL rows of {RESCAL_WIDTH} fp32: "
+          f"exact; device ms {k1_ms:.4f}, index_select {k1_lib:.4f}; bound "
+          f"{k1_bound:.4f} ({k1_by}, {k1_bytes / 1e9:.3f} GB), "
+          f"{100 * k1_bound / k1_ms:.1f}% of it")
+    del state, table
+    torch.cuda.empty_cache()
+    return {"name": "outer_adagrad_update", "route": "cuda",
+            "source": "dglke_tpu_torch/ops/csrc/outer_update.cu",
+            "replaces": "dglke_tpu/ops/pallas/outer_update.py:118",
+            "launches": None, "max_abs_err": k3_err, "ms": k3_ms,
+            "plain_ms": plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+            "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
-# Phase 3
+# Phases 3 and 4: the main paths
 
 
 def _write_fb15k_shaped(path: str, n_train: int) -> None:
@@ -316,23 +484,33 @@ def _floats(pattern: str, text: str):
     return [float(x) for x in re.findall(pattern, text)]
 
 
-def phase_main_path(steps: int = 1000):
-    """dglke_tpu_torch-train on the card with the flagship flags; returns
-    the launch counts of the run."""
+def _recipe_flags(recipe: dict):
+    flags = ["--model_name", recipe["model_name"],
+             "--hidden_dim", str(recipe["hidden_dim"]),
+             "--gamma", str(recipe["gamma"]), "--lr", str(recipe["lr"]),
+             "--batch_size", str(recipe["batch_size"]),
+             "--neg_sample_size", str(recipe["neg_sample_size"]),
+             "-rc", str(recipe["regularization_coef"])]
+    return flags + (["-adv"] if recipe["neg_adversarial_sampling"] else [])
+
+
+def phase_main_path(recipe: dict, batch_size_eval: int,
+                    steps: int = MAIN_STEPS):
+    """dglke_tpu_torch-train on the card with the recipe's flags on the
+    FB15k-shaped data; returns the launch counts of that run only."""
     from dglke_tpu_torch.cli import train as train_cli
     from dglke_tpu_torch.ops import rows
+    name = recipe["model_name"]
     data = os.path.join(WORK, "data")
-    _write_fb15k_shaped(data, n_train=300_000)
-    argv = ["--model_name", "TransE_l2", "--dataset", "fb15k_shaped",
-            "--data_path", data, "--format", "udd_hrt", "--data_files",
-            "entities.tsv", "relations.tsv", "train.tsv", "valid.tsv",
-            "test.tsv", "--hidden_dim", str(DIM), "--gamma", "19.9",
-            "--lr", str(LR), "--batch_size", str(BATCH),
-            "--neg_sample_size", str(NEG), "-adv", "-rc", "1e-9",
+    if not os.path.isdir(data):
+        _write_fb15k_shaped(data, n_train=300_000)
+    argv = ["--dataset", "fb15k_shaped", "--data_path", data, "--format",
+            "udd_hrt", "--data_files", "entities.tsv", "relations.tsv",
+            "train.tsv", "valid.tsv", "test.tsv", *_recipe_flags(recipe),
             "--max_step", str(steps), "--log_interval", str(steps // 4),
-            "--batch_size_eval", "500", "--test",
+            "--batch_size_eval", str(batch_size_eval), "--test",
             "--save_path", os.path.join(WORK, "ckpts")]
-    print("main path: dglke_tpu_torch-train " + " ".join(argv))
+    print(f"{name} main path: dglke_tpu_torch-train " + " ".join(argv))
     out = io.StringIO()
     rows.reset_launches()
     with contextlib.redirect_stdout(out):
@@ -341,84 +519,86 @@ def phase_main_path(steps: int = 1000):
     text = out.getvalue()
     print(text.rstrip())
     if rc != 0:
-        fail(f"main path: train CLI returned {rc}")
+        fail(f"{name} main path: train CLI returned {rc}")
     losses = _floats(r"average loss: (\S+)", text)
     mrr = _floats(r"\[0\]Test average MRR: (\S+)", text)
     train_s = _floats(r"training takes (\S+) seconds", text)
     eval_s = _floats(r"\[0\]Test takes (\S+) seconds", text)
     if not losses or not all(math.isfinite(x) for x in losses):
-        fail(f"main path: loss not finite: {losses}")
+        fail(f"{name} main path: loss not finite: {losses}")
     if len(mrr) != 1 or not 0.0 < mrr[0] <= 1.0:
-        fail(f"main path: test MRR {mrr} outside (0, 1]")
+        fail(f"{name} main path: test MRR {mrr} outside (0, 1]")
     for k in ("gather_rows", "sparse_adagrad_rows"):
         if counts[k] <= 0:
-            fail(f"main path: kernel {k} was never launched")
-    print(f"main path: {steps} steps, {steps * BATCH / train_s[0]:.1f} "
-          f"triples/s (host clock over the whole loop, first step "
-          f"included), test eval {eval_s[0]:.3f} s, MRR {mrr[0]:.4f}, "
-          f"last loss {losses[-1]:.4f}; launches {counts}")
+            fail(f"{name} main path: kernel {k} was never launched")
+    print(f"{name} main path: {steps} steps, "
+          f"{steps * BATCH / train_s[0]:.1f} triples/s (host clock over the "
+          f"whole loop, first step included), test eval {eval_s[0]:.3f} s, "
+          f"MRR {mrr[0]:.4f}, last loss {losses[-1]:.4f}; launches {counts}")
     return counts
 
 
-def phase_step_parity():
-    """One flagship train step in each corruption direction on the card
-    and on the CPU (the plain versions), from identical tables and ids:
-    tables, Adagrad state and loss within rtol 1e-4 / atol 1e-5 (cuBLAS
-    and the CPU sum in other orders; the first Adagrad step scales each
-    gradient row to unit RMS, so it carries those differences into the
-    tables at full size)."""
+def phase_step_parity(recipe: dict):
+    """One step in each corruption direction on the card and on the CPU
+    (the plain versions), from identical tables and ids, at the recipe's
+    full width: every table, Adagrad state and the loss within rtol 1e-4 /
+    atol 1e-5 (cuBLAS and the CPU sum in other orders; the first Adagrad
+    step scales each gradient row to unit RMS, so it carries those
+    differences into the tables at full size)."""
     import torch
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.models.ke_model import KEModel
     from dglke_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
-    cfg = KGEConfig(model_name="TransE_l2", hidden_dim=DIM, gamma=19.9,
-                    lr=LR, batch_size=BATCH, neg_sample_size=NEG,
-                    neg_adversarial_sampling=True, regularization_coef=1e-9)
+    name = recipe["model_name"]
+    cfg = KGEConfig(**recipe)
     rng = np.random.default_rng(1)
     gpu_model = KEModel(cfg, N_ENT, N_REL, device="cuda")
     cpu_model = KEModel(cfg, N_ENT, N_REL, device="cpu")
     arrays = state_to_numpy(gpu_model.init_state())
     state = state_from_numpy(arrays, device="cpu")
     gpu_state = state_from_numpy(arrays, device="cuda")
+    del arrays
+    cpu_s = 0.0
     for neg_head in (True, False):
         ids = [rng.integers(0, n, size).astype(np.int32) for n, size in
                ((N_ENT, BATCH), (N_REL, BATCH), (N_ENT, BATCH),
                 (N_ENT, N_ENT_IDS - 2 * BATCH))]
+        t0 = time.time()
         _, clog = cpu_model.train_step(
             state, *(torch.from_numpy(x) for x in ids), None,
             neg_head=neg_head)
+        cpu_s += time.time() - t0
         _, glog = gpu_model.train_step(
             gpu_state, *(torch.from_numpy(x).cuda() for x in ids), None,
             neg_head=neg_head)
-        for what, a, b in (
-                ("loss", glog["loss"], clog["loss"]),
-                ("entity emb", gpu_state.entity.emb, state.entity.emb),
-                ("entity state_sum", gpu_state.entity.state_sum,
-                 state.entity.state_sum),
-                ("relation emb", gpu_state.relation.emb,
-                 state.relation.emb)):
+        pairs = [("loss", glog["loss"], clog["loss"])]
+        for table in ("entity", "relation"):
+            g, c = getattr(gpu_state, table), getattr(state, table)
+            pairs += [(f"{table} emb", g.emb, c.emb),
+                      (f"{table} state_sum", g.state_sum, c.state_sum)]
+        for what, a, b in pairs:
             a = a.cpu()
             if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
-                fail(f"step parity ({'head' if neg_head else 'tail'}): "
-                     f"{what} on the card differs from the CPU by "
+                fail(f"{name} step parity ({'head' if neg_head else 'tail'})"
+                     f": {what} on the card differs from the CPU by "
                      f"{float((a - b).abs().max())}")
-    print("step parity: two flagship steps on the card match the CPU's "
-          "plain path within rtol 1e-4 / atol 1e-5")
+    print(f"{name} step parity: two full-width steps (batch {BATCH}) on the "
+          f"card match the CPU's plain path within rtol 1e-4 / atol 1e-5 "
+          f"(CPU side {cpu_s:.1f} s)")
 
 
-def phase_step_profile(steps: int = 50):
-    """Where a flagship train step's time goes: the host clock over
-    `steps` DevicePipeline steps, then torch.profiler over the same number
-    for the device's busy share and the kernels by device time."""
+def phase_step_profile(recipe: dict, steps: int):
+    """Where a step's time goes: the host clock over `steps`
+    DevicePipeline steps, then torch.profiler over the same number for the
+    device's busy share and the kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.data.dataset import synthetic_dataset
     from dglke_tpu_torch.models.ke_model import KEModel
     from dglke_tpu_torch.trainer import DevicePipeline
-    cfg = KGEConfig(model_name="TransE_l2", hidden_dim=DIM, gamma=19.9,
-                    lr=LR, batch_size=BATCH, neg_sample_size=NEG,
-                    neg_adversarial_sampling=True, regularization_coef=1e-9)
+    name = recipe["model_name"]
+    cfg = KGEConfig(**recipe)
     ds = synthetic_dataset(N_ENT, N_REL, n_train=100_000, seed=0)
     model = KEModel(cfg, N_ENT, N_REL, device="cuda")
     state = model.init_state()
@@ -439,7 +619,7 @@ def phase_step_profile(steps: int = 50):
         run(steps)
     kern = _kernel_events(prof)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
-    print(f"step profile: {step_ms:.4f} ms per flagship step on the host "
+    print(f"{name} step profile: {step_ms:.4f} ms per step on the host "
           f"clock ({BATCH * 1e3 / step_ms:.1f} triples/s); device busy "
           f"{busy:.4f} ms per step ({100 * busy / step_ms:.1f}%, idle "
           f"{100 - 100 * busy / step_ms:.1f}%); "
@@ -450,26 +630,47 @@ def phase_step_profile(steps: int = 50):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4
+# Phase 5
+
+# tests/test_planted_quality.py:27-46: (model, structure, overrides)
+PLANTED_BASE = dict(hidden_dim=32, gamma=6.0, lr=0.25, batch_size=128,
+                    neg_sample_size=32, max_step=1500, batch_size_eval=16,
+                    log_interval=10**9, neg_adversarial_sampling=True,
+                    regularization_coef=1e-9, seed=7, dataset="synthetic")
+PLANTED = [
+    ("TransE_l2", "line", dict(gamma=4.0, max_step=2000)),
+    ("TransE_l1", "line", dict(gamma=8.0)),
+    ("TransR", "line", dict(hidden_dim=16, lr=0.15)),
+    ("RotatE", "line", dict(double_ent=True, lr=0.1)),
+    ("DistMult", "cliques", dict(neg_adversarial_sampling=False,
+                                 regularization_coef=2e-6, lr=0.15)),
+    ("ComplEx", "cycle", dict(neg_adversarial_sampling=False,
+                              regularization_coef=2e-6, lr=0.15)),
+    ("SimplE", "cycle", dict(neg_adversarial_sampling=False,
+                             regularization_coef=2e-6, lr=0.15)),
+    ("RESCAL", "cycle", dict(hidden_dim=16, lr=0.1,
+                             neg_adversarial_sampling=False)),
+]
 
 
 def phase_planted():
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.data.dataset import planted_dataset
     from dglke_tpu_torch.trainer import evaluate, train
-    ds = planted_dataset("line", n_clusters=10)
-    cfg = KGEConfig(model_name="TransE_l2", hidden_dim=32, gamma=4.0,
-                    lr=0.25, batch_size=128, neg_sample_size=32,
-                    max_step=2000, batch_size_eval=16, log_interval=10**9,
-                    neg_adversarial_sampling=True, regularization_coef=1e-9,
-                    seed=7, dataset="synthetic")
     quiet = lambda *a: None  # noqa: E731
-    model, state, _ = train(cfg, ds, log=quiet)
-    m = evaluate(cfg, ds, model, state, "test", log=quiet)
-    if m["MRR"] < 0.85 or m["HITS@10"] < 0.99:
-        fail(f"planted TransE_l2 gate failed on the card: {m}")
-    print(f"planted TransE_l2 gate: MRR {m['MRR']:.4f}, HITS@10 "
-          f"{m['HITS@10']:.4f} (gate MRR >= 0.85, HITS@10 >= 0.99)")
+    for name, structure, overrides in PLANTED:
+        ds = planted_dataset(structure,
+                             n_clusters=8 if structure == "cycle" else 10)
+        cfg = KGEConfig(**{**PLANTED_BASE, "model_name": name, **overrides})
+        t0 = time.time()
+        model, state, _ = train(cfg, ds, log=quiet)
+        m = evaluate(cfg, ds, model, state, "test", log=quiet)
+        if m["MRR"] < 0.85 or m["HITS@10"] < 0.99:
+            fail(f"planted {name} gate failed on the card: {m}")
+        print(f"planted {name} ({structure}) gate: MRR {m['MRR']:.4f}, "
+              f"HITS@10 {m['HITS@10']:.4f} (gate MRR >= 0.85, HITS@10 >= "
+              f"0.99), {cfg.max_step} steps + eval in "
+              f"{time.time() - t0:.1f} s")
 
 
 def main() -> int:
@@ -482,17 +683,33 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         phase_build()
-        kernels = phase_kernels()
-        counts = phase_main_path()
-        phase_step_parity()
-        phase_step_profile()
+        kernels = phase_kernels() + [phase_outer()]
+        paths = {"TransE_l2": phase_main_path(TRANSE, batch_size_eval=500)}
+        phase_step_parity(TRANSE)
+        phase_step_profile(TRANSE, steps=50)
+        counts = phase_main_path(RESCAL, batch_size_eval=RESCAL_EVAL_BATCH)
+        # The entity update is the only K2 launch of a RESCAL step: the
+        # relation update goes through K3 on every step, never through K2.
+        if not counts["outer_adagrad_update"] == \
+                counts["sparse_adagrad_rows"] == MAIN_STEPS:
+            fail(f"RESCAL main path: expected one K3 and one K2 launch per "
+                 f"step, got {counts}")
+        paths["RESCAL"] = counts
+        phase_step_parity(RESCAL)
+        phase_step_profile(RESCAL, steps=20)
         phase_planted()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    # launches: the sum over the two main-path runs, each read around its
+    # own run only
     for k in kernels:
-        k["launches"] = counts[k["name"]]
-    print("kernels: " + ", ".join(f"{k['name']} ({k['route']}, launches "
-                                  f"{k['launches']})" for k in kernels))
+        k["launches"] = sum(c[k["name"]] for c in paths.values())
+        if k["launches"] <= 0:
+            fail(f"kernel {k['name']} was launched on no main path")
+    print("kernels: " + ", ".join(
+        f"{k['name']} ({k['route']}, launches "
+        + " + ".join(f"{c[k['name']]} {p}" for p, c in paths.items()) + ")"
+        for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

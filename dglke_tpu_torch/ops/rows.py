@@ -1,11 +1,13 @@
 """Row gather and row-sparse Adagrad write-back: CUDA kernels and their
-plain PyTorch versions.
+plain PyTorch versions; and the build, load and launch count shared by
+every kernel module of the package.
 
 Counterpart of dglke_tpu/ops/pallas/rows.py.  The CUDA sources are in
-``csrc/rows.cu`` (see the note at its top: what each kernel replaces, what
-bounds it and what its design does about that).  They are built with
+``csrc/`` (see the note at the top of each: what each kernel replaces, what
+bounds it and what its design does about that).  Each source is built with
 ``nvcc`` for ``sm_90a`` at first use into ``build/dglke_tpu_torch/`` at the
-root of the checkout and loaded with ``ctypes``.
+root of the checkout, under a name carrying the digest of its text and the
+flags, and loaded with ``ctypes``.
 
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises.  ``launches`` counts kernel
@@ -19,20 +21,24 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "rows.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "rows.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dglke_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches per wrapper since the last reset_launches().
-launches = {"gather_rows": 0, "sparse_adagrad_rows": 0, "scatter_add_rows": 0}
+# Kernel launches per wrapper since the last reset_launches(); every kernel
+# wrapper of the package counts here.
+launches = {"gather_rows": 0, "sparse_adagrad_rows": 0, "scatter_add_rows": 0,
+            "outer_adagrad_update": 0}
 
-_lib = None
-build_log = ""   # nvcc's output of the build this process ran, if any
+_libs: dict = {}       # source path -> loaded library
+build_logs: dict = {}  # source file name -> nvcc's output of a build run here
 
 
 def reset_launches() -> None:
@@ -49,39 +55,72 @@ def _nvcc() -> str:
     return path
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def _library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"rows_{digest}.so"
-    if not so.exists():
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR / f"{source.stem}_{digest}.so"
+
+
+def build_libraries(*sources: Path) -> None:
+    """Compile each source whose library is not built yet: one ``nvcc`` per
+    source, all started together.  Raises if any build fails."""
+    todo = [(src, _library_path(src)) for src in sources]
+    todo = [(src, so) for src, so in todo if not so.exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for src, so in todo:
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        log = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=log, stderr=subprocess.STDOUT,
+                                text=True)
+        running.append((src, so, tmp, log, proc))
+    failed = []
+    for src, so, tmp, log, proc in running:
+        with log:
+            proc.wait()
+            log.seek(0)
+            build_logs[src.name] = log.read()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-        os.replace(tmp, so)   # atomic: a concurrent build never sees half
-    lib = ctypes.CDLL(str(so))
-    p, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.dglke_gather_rows.argtypes = [p, c_int, i64, i64, p, i64, p, i64, p]
-    lib.dglke_gather_rows.restype = c_int
-    lib.dglke_segment_update.argtypes = [p, c_int, i64, i64, i64, p, p, p, p,
-                                         i64, ctypes.c_float, p]
-    lib.dglke_segment_update.restype = c_int
-    _lib = lib
+            failed.append(f"nvcc failed on {src}:\n{build_logs[src.name]}")
+        else:
+            os.replace(tmp, so)   # atomic: a concurrent build never sees half
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(source: Path, signatures: dict) -> ctypes.CDLL:
+    """Build (once per source version) and load the kernel library of
+    ``source``; ``signatures`` maps each C function to its (argtypes,
+    restype)."""
+    lib = _libs.get(source)
+    if lib is None:
+        build_libraries(source)
+        lib = ctypes.CDLL(str(_library_path(source)))
+        for name, (argtypes, restype) in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _libs[source] = lib
     return lib
+
+
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+SIGNATURES = {
+    "dglke_gather_rows": ([_P, _INT, _I64, _I64, _P, _I64, _P, _I64, _P],
+                          _INT),
+    "dglke_segment_update": ([_P, _INT, _I64, _I64, _I64, _P, _P, _P, _P,
+                              _I64, ctypes.c_float, _P], _INT),
+}
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_launch(err: int, what: str) -> None:
+def check_launch(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
@@ -95,7 +134,7 @@ def _check_table(table: torch.Tensor, name: str) -> int:
     return _DTYPE_CODE[table.dtype]
 
 
-def _check_ids(ids: torch.Tensor, device, name: str) -> None:
+def check_ids(ids: torch.Tensor, device, name: str) -> None:
     if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"{name}: ids must be a 1-D int32/int64 tensor")
     if ids.device != device:
@@ -124,7 +163,7 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
     if not 0 < dim <= table.shape[1]:
         raise ValueError(f"gather_rows: dim {dim} outside the table's "
                          f"width {table.shape[1]}")
-    _check_ids(ids, table.device, "gather_rows")
+    check_ids(ids, table.device, "gather_rows")
     if table.device.type == "cpu":
         return gather_rows_plain(table, ids, dim)
     ids32 = ids.to(torch.int32).contiguous()
@@ -132,13 +171,13 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
                       device=table.device)
     if ids32.shape[0] == 0:
         return out
-    lib = load_library()
+    lib = load_library(SOURCE, SIGNATURES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.dglke_gather_rows(
             table.data_ptr(), code, table.shape[0], table.stride(0),
             ids32.data_ptr(), ids32.shape[0], out.data_ptr(), dim, stream)
-    _check_launch(err, "gather_rows")
+    check_launch(err, "gather_rows")
     launches["gather_rows"] += 1
     return out
 
@@ -180,7 +219,7 @@ def scatter_add_plain(table: torch.Tensor, ids: torch.Tensor,
 
 def _check_update(emb, state_sum, ids, grads, name) -> int:
     code = _check_table(emb, name)
-    _check_ids(ids, emb.device, name)
+    check_ids(ids, emb.device, name)
     n = ids.shape[0]
     if grads.dtype != torch.float32 or not grads.is_contiguous():
         raise TypeError(f"{name}: rows must be contiguous float32")
@@ -208,7 +247,7 @@ def _segment_update(code, emb, state_sum, ids, grads, lr, name) -> bool:
     # counterpart of the JAX package computing window_conflicts outside
     # its kernel).
     sids, order = torch.sort(ids.to(torch.int32), stable=True)
-    lib = load_library()
+    lib = load_library(SOURCE, SIGNATURES)
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
         err = lib.dglke_segment_update(
@@ -216,7 +255,7 @@ def _segment_update(code, emb, state_sum, ids, grads, lr, name) -> bool:
             None if state_sum is None else state_sum.data_ptr(),
             sids.data_ptr(), order.data_ptr(), grads.data_ptr(), n,
             float(lr), stream)
-    _check_launch(err, name)
+    check_launch(err, name)
     return True
 
 

@@ -3,13 +3,14 @@
 ``state_from_numpy`` takes the JAX package's TrainState with its arrays on
 the host (``jax.device_get(state)``), or anything with the same attribute
 layout (``entity.emb``, ``entity.state_sum``, ``relation.emb``,
-``relation.state_sum``, ``step``), and builds this package's TrainState.
+``relation.state_sum``, ``step``, and TransR's ``projection.emb`` and
+``projection.state_sum``), and builds this package's TrainState.
 ``state_to_numpy`` returns that layout as numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ class NumpyState(NamedTuple):
     entity: NumpyTable
     relation: NumpyTable
     step: np.ndarray        # int32 scalar
+    projection: Optional[NumpyTable] = None   # TransR only
 
 
 def _to_tensor(arr, device) -> torch.Tensor:
@@ -44,9 +46,6 @@ def _to_tensor(arr, device) -> torch.Tensor:
 def state_from_numpy(arrays, device=None) -> TrainState:
     """The port's TrainState from host arrays (see module docstring).
     Tables keep their dtype (fp32 or bf16); state_sum becomes fp32."""
-    if getattr(arrays, "projection", None) is not None:
-        raise NotImplementedError("TransR projection tables are not ported "
-                                  "yet (ROADMAP item A7)")
     dev = resolve_device(device)
 
     def table(t) -> EmbeddingState:
@@ -54,8 +53,10 @@ def state_from_numpy(arrays, device=None) -> TrainState:
             _to_tensor(t.emb, dev),
             _to_tensor(t.state_sum, dev).to(torch.float32))
 
+    proj = getattr(arrays, "projection", None)
     return TrainState(table(arrays.entity), table(arrays.relation),
-                      step=int(np.asarray(arrays.step)))
+                      step=int(np.asarray(arrays.step)),
+                      projection=None if proj is None else table(proj))
 
 
 def state_to_numpy(state: TrainState) -> NumpyState:
@@ -67,4 +68,6 @@ def state_to_numpy(state: TrainState) -> NumpyState:
                           t.state_sum.cpu().numpy())
 
     return NumpyState(table(state.entity), table(state.relation),
-                      np.asarray(state.step, np.int32))
+                      np.asarray(state.step, np.int32),
+                      None if state.projection is None
+                      else table(state.projection))

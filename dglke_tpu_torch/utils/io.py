@@ -4,7 +4,10 @@ The same npy contract as the JAX package, so either package reads the
 other's checkpoints: ``{dataset}_{model}_entity.npy`` / ``_relation.npy``
 (fp32, logical width) next to a ``config.json``, plus the Adagrad extras
 ``*_entity_state.npy`` / ``*_relation_state.npy`` and ``*_step.npy`` for
-resuming.
+resuming.  TransR's projection table is written as
+``{dataset}_{model}projection.npy`` (dgl-ke's spelling, without the
+underscore, as the JAX package writes it) with
+``*_projection_state.npy``; it is read under either spelling.
 """
 
 from __future__ import annotations
@@ -43,11 +46,17 @@ def save_model(config: KGEConfig, model: KEModel, state: TrainState,
         :model.n_entities, :model.entity_dim].float().cpu().numpy())
     _atomic_save(prefix + "relation.npy", state.relation.emb[
         :model.n_relations, :model.relation_dim].float().cpu().numpy())
+    if state.projection is not None:
+        _atomic_save(prefix[:-1] + "projection.npy",
+                     state.projection.emb.float().cpu().numpy())
     if save_opt_state:
         _atomic_save(prefix + "entity_state.npy",
                      state.entity.state_sum.cpu().numpy())
         _atomic_save(prefix + "relation_state.npy",
                      state.relation.state_sum.cpu().numpy())
+        if state.projection is not None:
+            _atomic_save(prefix + "projection_state.npy",
+                         state.projection.state_sum.cpu().numpy())
         _atomic_save(prefix + "step.npy", np.asarray(state.step, np.int32))
     config.save(path, emap_file, rmap_file)
     return path
@@ -57,7 +66,10 @@ def table_artifact_arrays(config: KGEConfig, path: str, name: str):
     """Read one table's npy artifacts as host arrays: (emb, state_sum); a
     checkpoint without the Adagrad extra gets a zero state_sum."""
     prefix = os.path.join(path, f"{config.dataset}_{config.model_name}_")
-    emb = np.load(prefix + f"{name}.npy")
+    fname = prefix + f"{name}.npy"
+    if name == "projection" and not os.path.exists(fname):
+        fname = prefix[:-1] + "projection.npy"
+    emb = np.load(fname)
     state_file = prefix + f"{name}_state.npy"
     if os.path.exists(state_file):
         ss = np.load(state_file)
@@ -84,7 +96,9 @@ def load_model_state(config: KGEConfig, model: KEModel,
             torch.as_tensor(ss, dtype=torch.float32, device=model.device))
 
     return TrainState(load_table("entity"), load_table("relation"),
-                      step=saved_step(config, path))
+                      step=saved_step(config, path),
+                      projection=(load_table("projection")
+                                  if model.is_transr else None))
 
 
 def load_config(path: str) -> KGEConfig:

@@ -16,7 +16,8 @@ from dglke_tpu_torch import trainer as pt_trainer
 from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import synthetic_dataset
 from dglke_tpu_torch.models.ke_model import KEModel
-from dglke_tpu_torch.ops import rows
+from dglke_tpu_torch.ops import outer_update, rows
+from dglke_tpu_torch.ops.embedding import EmbeddingState
 from dglke_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
 torch.set_num_threads(2)
@@ -113,18 +114,24 @@ def test_kernel_module_runs_on_the_cpu_without_nvcc(monkeypatch):
     monkeypatch.setenv("PATH", "")
     monkeypatch.setattr(rows.shutil, "which", lambda name: None)
     monkeypatch.setattr(rows.os.path, "exists", lambda p: False)
-    monkeypatch.setattr(rows, "_lib", None)
+    monkeypatch.setattr(rows, "_libs", {})
     table = torch.arange(24, dtype=torch.float32).reshape(6, 4)
     ids = torch.tensor([5, 0, 5], dtype=torch.int32)
     assert torch.equal(rows.gather_rows(table, ids), table[[5, 0, 5]])
     ss = torch.zeros(6)
     rows.sparse_adagrad_rows(table, ss, ids, torch.ones((3, 4)), 0.5)
     assert float(ss[5]) == 2.0 and float(ss[0]) == 1.0
-    assert rows._lib is None            # nothing was built or loaded
+    outer_update.outer_adagrad_update(
+        EmbeddingState(table, ss), ids, torch.ones((3, 2)),
+        torch.ones((3, 2)), 0.5)
+    assert float(ss[5]) == 4.0 and float(ss[0]) == 2.0
+    assert rows._libs == {}             # nothing was built or loaded
     with pytest.raises(RuntimeError, match="nvcc not found"):
         rows._nvcc()
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert os.path.isfile(rows.SOURCE)
-    assert rows.SOURCE.suffix == ".cu"
+    for source in (rows.SOURCE, outer_update.SOURCE):
+        assert os.path.isfile(source)
+        assert source.suffix == ".cu"
+        assert source.parent == rows.CSRC

@@ -226,8 +226,6 @@ def test_eval_cli_refuses_sampled_eval(raw_udd, tmp_path):
                    "--neg_sample_size_eval", "10"])
 
 
-@pytest.mark.parametrize("model_name", ["TransR", "RESCAL", "DistMult",
-                                        "ComplEx", "RotatE", "SimplE"])
-def test_other_score_families_name_their_roadmap_item(model_name):
-    with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
-        make_score_function(model_name, 12.0, 16)
+def test_unknown_model_name_raises():
+    with pytest.raises(ValueError, match="unknown model TransQ"):
+        make_score_function("TransQ", 12.0, 16)
