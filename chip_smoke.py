@@ -12,21 +12,30 @@ Phases (any failure exits non-zero and prints no result line):
      call as yardstick where one computes the same function, and its bound:
      K1 and K2 at the TransE_l2 flagship shapes (FB15k width: 14,951 x 400
      entity table, 1,345 x 400 relation table, 3,000 entity ids and 1,000
-     relation ids per step); K3 at RESCAL's FB15k shapes (1,345 x 250,000
-     relation table, 1,000 ids, 500-wide factors), beside the stock route
-     for the same update (the gradient materialized, then K2), K2 on that
-     route and K1 on the 1 MB relation rows;
+     relation ids per step), K1 in its one-warp-per-row shape there; K1's
+     two launch shapes exact and timed in turns across widths 256-16,384
+     (the measurement behind rows.GATHER_WIDE_MIN); K3 at RESCAL's FB15k
+     shapes (1,345 x 250,000 relation table, 1,000 ids, 500-wide factors)
+     on its cluster route, with the cluster size chosen, the other size and
+     the tiles route held to the plain version and timed in turns, the max
+     active clusters, and the stock route for the same update (the gradient
+     materialized, then K2); K1 on the 1 MB relation rows, both shapes and
+     dtypes exact at a width that is and one that is not a multiple of 4,
+     timed in three rounds beside torch.index_select; K3's routes away from
+     hidden 500: the cluster route at hidden 32 and at a ragged 7 x 13
+     width, each with one segment longer than the staged factors hold, and
+     the tiles route at hidden 1,000;
   3. the TransE_l2 main path: dglke_tpu_torch.cli.train.main on an
      FB15k-shaped synthetic dataset with the flagship flags and --test,
-     with the launch counts read around that run only; then two flagship
-     steps on the card against the CPU's plain path; then a flagship step
-     on the host clock, and under torch.profiler the device's busy share
-     and the kernels by device time;
+     with the launch counts read around that run only and held to
+     EXPECTED_LAUNCHES; then two flagship steps on the card against the
+     CPU's plain path; then a flagship step on the host clock, and under
+     torch.profiler the device's busy share and the kernels by device time;
   4. the RESCAL main path, the same three parts: the CLI with the flags of
      examples/fb15k.sh (hidden 500), --max_step 1000 and --test on the same
-     data, its launch counts read around that run only (the relation update
-     must go through K3 and never K2); two full-width steps on the card
-     against the CPU; the step profile;
+     data, its launch counts read around that run only and held to
+     EXPECTED_LAUNCHES (the relation update goes through K3, never K2);
+     two full-width steps on the card against the CPU; the step profile;
   5. the planted quality gate of every family on the card (MRR >= 0.85,
      HITS@10 >= 0.99, the JAX package's calibrated configs);
   6. the kernel summary: a `kernels:` line, one JSON line of per-kernel
@@ -48,6 +57,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -77,6 +87,16 @@ RESCAL = dict(model_name="RESCAL", hidden_dim=500, gamma=24.0, lr=0.03,
 RESCAL_WIDTH = RESCAL["hidden_dim"] ** 2             # 250,000 per relation
 RESCAL_EVAL_BATCH = 500
 MAIN_STEPS = 1000
+# Launches in each main path's run alone (1,000 steps, then the test eval):
+# K1 twice per step (entity and relation rows) and 32 times in the eval; K2
+# once per step for each table it updates.  RESCAL's relation update goes
+# through K3 on every step and never through K2.
+EXPECTED_LAUNCHES = {
+    "TransE_l2": {"gather_rows": 2032, "sparse_adagrad_rows": 2000,
+                  "outer_adagrad_update": 0},
+    "RESCAL": {"gather_rows": 2032, "sparse_adagrad_rows": 1000,
+               "outer_adagrad_update": 1000},
+}
 
 # Stated tolerances.  K1 moves bits: exact.  K2 sums each id's segment in
 # a fixed order, the plain version adds per occurrence:
@@ -88,6 +108,9 @@ K2_RTOL, K2_ATOL = 1e-5, 1e-6
 # version adds per occurrence (index_add_): fp32 within rtol 1e-5 / atol
 # 1e-6, and two runs bit-identical.
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
+# outer_update.cu with its phase stamps compiled in (k3_phases).
+K3_STAMPED = Path(ROOT, "dglke_tpu_torch", "ops", "csrc",
+                  "outer_update_stamps.cu")
 
 
 def fail(msg: str) -> None:
@@ -171,7 +194,7 @@ def phase_build():
           f"python {sys.version.split()[0]}, "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
-    rows.build_libraries(rows.SOURCE, outer_update.SOURCE)
+    rows.build_libraries(rows.SOURCE, outer_update.SOURCE, K3_STAMPED)
     rows.load_library(rows.SOURCE, rows.SIGNATURES)
     rows.load_library(outer_update.SOURCE, outer_update.SIGNATURES)
     print(f"kernel builds (in parallel) + load: {time.time() - t0:.2f} s")
@@ -206,6 +229,8 @@ def phase_kernels():
           f"{BATCH} ({n_rel_unique} distinct)")
 
     # -- K1: row gather ------------------------------------------------------
+    if rows.gather_shape(DIM) != "warp":
+        fail(f"K1 at the flagship width {DIM} must keep one warp per row")
     for name, tab, ids in (("entity fp32", table, ent_ids),
                            ("entity bf16", table.to(torch.bfloat16), ent_ids),
                            ("relation fp32", rel_table, rel_ids)):
@@ -227,12 +252,13 @@ def phase_kernels():
     bf = table.to(torch.bfloat16)
     k1_bf = device_ms(lambda: rows.gather_rows(bf, ent_ids, DIM))
     k1_rel = device_ms(lambda: rows.gather_rows(rel_table, rel_ids, DIM))
-    print(f"K1 gather_rows entity fp32, device ms (ms per call with host "
-          f"overhead): " + ", ".join(f"{n} {d:.4f} ({c:.4f})"
-                                     for n, (d, c) in k1.items())
-          + f"; bound {k1_bound:.4f} ({k1_by}, {k1_bytes / 1e6:.2f} MB); "
-          f"kernel on entity bf16 {k1_bf:.4f}, on relation fp32 "
-          f"[{BATCH} ids] {k1_rel:.4f}")
+    print(f"K1 gather_rows entity fp32 (warp shape), device ms (ms per call "
+          f"with host overhead): " + ", ".join(f"{n} {d:.4f} ({c:.4f})"
+                                               for n, (d, c) in k1.items())
+          + f"; bound {k1_bound:.4f} ({k1_by}, {k1_bytes / 1e6:.2f} MB), "
+          f"{100 * k1_bound / k1['kernel'][0]:.1f}% of it, "
+          f"{k1_bytes / k1['kernel'][0] / 1e9:.3f} TB/s; kernel on entity "
+          f"bf16 {k1_bf:.4f}, on relation fp32 [{BATCH} ids] {k1_rel:.4f}")
 
     # -- K2: row-sparse Adagrad write-back -------------------------------------
     grads = torch.randn((N_ENT_IDS, DIM), generator=gen, device=dev) * 0.1
@@ -325,12 +351,166 @@ def phase_kernels():
     ]
 
 
+def phase_gather_shapes():
+    """K1's two launch shapes across widths, each exact against the plain
+    version, timed in turns (warp, wide, wide, warp): the measurement
+    behind rows.GATHER_WIDE_MIN.  3,000 ids into a 4,096-row fp32 table."""
+    import torch
+    from dglke_tpu_torch.ops import rows
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(2)
+    ids = torch.randint(0, 4096, (N_ENT_IDS,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    print(f"K1 shape sweep [{N_ENT_IDS} ids, 4,096-row fp32 table], device "
+          f"ms warp / wide (threshold {rows.GATHER_WIDE_MIN}):")
+    for width in (256, 512, 1024, 2048, 4096, 8192, 16384):
+        table = torch.randn((4096, width), generator=gen, device=dev)
+        want = rows.gather_rows_plain(table, ids, width)
+        ms = {"warp": [], "wide": []}
+        for shape in ("warp", "wide", "wide", "warp"):
+            run = lambda s=shape: rows.launch_gather(table, ids, width, s)  # noqa: E731
+            if not torch.equal(run(), want):
+                fail(f"K1 {shape} shape at width {width}: differs from its "
+                     f"plain version")
+            ms[shape].append(device_ms(run, iters=20))
+        warp, wide = (sum(v) / 2 for v in ms.values())
+        print(f"  width {width}: warp {warp:.5f}, wide {wide:.5f}; chosen "
+              f"{rows.gather_shape(width)}, faster "
+              f"{'wide' if wide < warp else 'warp'}")
+        del table, want
+
+
+def k3_phases(state, ids, a, b, lr, coef, norm) -> None:
+    """Where a segment's time goes on K3's cluster route: the stamped build
+    of outer_update.cu (thread 0 of each CTA reads %globaltimer at six
+    points of each of its first 128 segments) run on the same inputs."""
+    import ctypes
+    import torch
+    from dglke_tpu_torch.ops import outer_update, rows
+    lib = rows.load_library(K3_STAMPED, {
+        **outer_update.SIGNATURES,
+        "dglke_outer_stamps": ([ctypes.c_void_p, ctypes.c_void_p],
+                               ctypes.c_int)})
+    main_source, outer_update.SOURCE = outer_update.SOURCE, K3_STAMPED
+    try:
+        for _ in range(3):
+            outer_update.outer_adagrad_update(state, ids, a, b, lr, coef, norm)
+        torch.cuda.synchronize()
+    finally:
+        outer_update.SOURCE = main_source
+    stamps = np.zeros((1024, 128, 6), np.uint64)
+    segs = np.zeros(1024, np.uint32)
+    rows.check_launch(lib.dglke_outer_stamps(stamps.ctypes.data,
+                                             segs.ctypes.data), "stamps")
+    ctas = int((segs > 0).sum())
+    per = [stamps[i, :min(int(segs[i]), 128)].astype(np.int64)
+           for i in range(ctas)]
+    us = np.concatenate([np.diff(p, axis=1) for p in per]) / 1e3
+    gap = np.concatenate([p[1:, 0] - p[:-1, 5] for p in per]) / 1e3
+    names = ("load issued, factors staged", "slice's bulk load waited",
+             "pass 1 and block sum", "partial exchange (barrier, next ids)",
+             "pass 2, new slice stored", "to the next segment")
+    cols = [us[:, k] for k in range(5)] + [gap]
+    first = np.array([p[0, 0] for p in per], np.int64)
+    last = np.array([p[-1, 5] for p in per], np.int64)
+    t0 = first.min()
+    print(f"K3 cluster route by phase, from the stamped build: {ctas} CTAs, "
+          f"{int(segs[:ctas].min())}-{int(segs[:ctas].max())} segments each "
+          f"(mean {float(segs[:ctas].mean()):.1f}); us per segment, mean "
+          f"(median): " + ", ".join(
+              f"{n} {float(c.mean()):.3f} ({float(np.median(c)):.3f})"
+              for n, c in zip(names, cols))
+          + f"; sum of means {float(sum(c.mean() for c in cols)):.3f}; "
+          f"first segments start within {(first.max() - t0) / 1e3:.1f} us, "
+          f"last ones end {(last.min() - t0) / 1e3:.1f}-"
+          f"{(last.max() - t0) / 1e3:.1f} us after the first start")
+
+
+def check_k3(label, table, ss0, ids, a, b, lr, coef, norm, plan=None):
+    """K3 (along `plan`, or the wrapper's own route) against its plain
+    version within K3_RTOL / K3_ATOL, two runs bit-identical, rows no id
+    names unchanged.  Returns the max |diff|."""
+    import torch
+    from dglke_tpu_torch.ops import outer_update
+    from dglke_tpu_torch.ops.embedding import EmbeddingState
+
+    def run(kernel: bool):
+        t = EmbeddingState(table.clone(), ss0.clone())
+        if not kernel:
+            outer_update.outer_adagrad_plain(t.emb, t.state_sum, ids, a, b,
+                                             lr, coef, norm)
+        elif plan is None:
+            outer_update.outer_adagrad_update(t, ids, a, b, lr, coef, norm)
+        else:
+            outer_update.launch_outer(t, ids, a, b, lr, coef, norm, plan)
+        torch.cuda.synchronize()
+        return t
+
+    got, want = run(True), run(False)
+    err = 0.0
+    for what, x, y in (("table", got.emb, want.emb),
+                       ("state_sum", got.state_sum, want.state_sum)):
+        if not torch.allclose(x, y, rtol=K3_RTOL, atol=K3_ATOL):
+            fail(f"K3 {label} {what}: max |diff| "
+                 f"{float((x - y).abs().max())} outside rtol {K3_RTOL} atol "
+                 f"{K3_ATOL}")
+        err = max(err, float((x - y).abs().max()))
+    again = run(True)
+    if not (torch.equal(got.emb, again.emb)
+            and torch.equal(got.state_sum, again.state_sum)):
+        fail(f"K3 {label}: two runs differ")
+    untouched = torch.ones(table.shape[0], dtype=torch.bool,
+                           device=table.device)
+    untouched[ids.long()] = False
+    if not bool(untouched.any()) or not (
+            torch.equal(got.emb[untouched], table[untouched])
+            and torch.equal(got.state_sum[untouched], ss0[untouched])):
+        fail(f"K3 {label}: no untouched row, or one changed")
+    print(f"K3 {label}: within rtol {K3_RTOL} / atol {K3_ATOL} of plain "
+          f"(max |diff| {err:.3g}); two runs bit-identical; untouched rows "
+          f"unchanged")
+    return err
+
+
+def phase_outer_routes():
+    """K3's routes away from RESCAL's FB15k width, each held to its plain
+    version: the cluster route at hidden 32 (as in the planted gates) with
+    one segment longer than the staged factors hold, at a ragged 7 x 13
+    width (no 16-byte path), and the tiles route at hidden 1,000."""
+    import torch
+    from dglke_tpu_torch.ops import outer_update
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(3)
+    lr, coef, norm = (RESCAL[k] for k in ("lr", "regularization_coef",
+                                          "regularization_norm"))
+    for da, db, n_rows, n_ids in ((32, 32, 64, 1000), (7, 13, 64, 300),
+                                  (1000, 1000, 64, 100)):
+        plan = outer_update.plan_outer(da, db)
+        table = torch.empty((n_rows, da * db), device=dev).uniform_(
+            -0.2, 0.2, generator=gen)
+        ss0 = torch.rand((n_rows,), generator=gen, device=dev)
+        ids = torch.randint(0, n_rows - 4, (n_ids,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        hot = plan.stage_occ + 8         # a segment longer than the staging
+        ids[:hot] = 5
+        a = torch.randn((n_ids, da), generator=gen, device=dev) * 0.3
+        b = torch.randn((n_ids, db), generator=gen, device=dev) * 0.3
+        check_k3(f"{plan.route} route at {da} x {db} [{n_rows} rows, {n_ids} "
+                 f"ids, one id {hot + int((ids[hot:] == 5).sum())} times; "
+                 f"{plan}]", table, ss0, ids, a, b, lr, coef, norm)
+        del table
+
+
 def phase_outer():
     """K3 against its plain version at RESCAL's FB15k shapes, two runs
-    bit-identical; its time beside the plain version's, the bound, and the
-    stock route for the same update (the gradient materialized, then K2),
-    which is also held to its plain version here.  K1 timed on the 1 MB
-    relation rows.  Returns K3's numbers for the JSON line."""
+    bit-identical; its time beside the plain version's, the bound, the
+    tiles route, both cluster sizes that hold the row, and the stock route
+    for the same update (the gradient materialized, then K2), which is also
+    held to its plain version here.  K1 on the 1 MB relation rows in both
+    shapes and dtypes.  Returns K3's numbers for the JSON line and K1's
+    wide-row numbers."""
     import torch
     from dglke_tpu_torch.ops import outer_update, rows
     from dglke_tpu_torch.ops.embedding import EmbeddingState
@@ -352,37 +532,25 @@ def phase_outer():
           f"ids ({n_unique} distinct), factors {BATCH} x {d} twice, coef "
           f"{coef}, norm {norm}")
 
-    def k3(kernel: bool):
-        t = EmbeddingState(table.clone(), ss0.clone())
-        if kernel:
-            outer_update.outer_adagrad_update(t, ids, a, b, lr, coef, norm)
-        else:
-            outer_update.outer_adagrad_plain(t.emb, t.state_sum, ids, a, b,
-                                             lr, coef, norm)
-        torch.cuda.synchronize()
-        return t
-
-    got, want = k3(True), k3(False)
-    k3_err = 0.0
-    for what, x, y in (("table", got.emb, want.emb),
-                       ("state_sum", got.state_sum, want.state_sum)):
-        if not torch.allclose(x, y, rtol=K3_RTOL, atol=K3_ATOL):
-            fail(f"K3 outer_adagrad_update {what}: max |diff| "
-                 f"{float((x - y).abs().max())} outside rtol {K3_RTOL} atol "
-                 f"{K3_ATOL}")
-        k3_err = max(k3_err, float((x - y).abs().max()))
-    again = k3(True)
-    if not (torch.equal(got.emb, again.emb)
-            and torch.equal(got.state_sum, again.state_sum)):
-        fail("K3 outer_adagrad_update: two runs differ")
-    untouched = torch.ones(N_REL, dtype=torch.bool, device=dev)
-    untouched[ids.long()] = False
-    if not torch.equal(got.emb[untouched], table[untouched]):
-        fail("K3 outer_adagrad_update: a row no id names changed")
-    print(f"K3 outer_adagrad_update: within rtol {K3_RTOL} / atol {K3_ATOL} "
-          f"of plain (max |diff| {k3_err:.3g}); two runs bit-identical; "
-          f"untouched rows unchanged")
-    del got, want, again
+    plan = outer_update.plan_outer(d, d)
+    if plan.route != "cluster":
+        fail(f"K3 at hidden {d} must take the cluster route, got {plan}")
+    alt = outer_update.plan_outer(d, d, cluster=8 if plan.cluster == 16
+                                  else 16)
+    for p in (plan, alt):
+        print(f"K3 cluster route at hidden {d}{'' if p is plan else ' (alternative)'}: "
+              f"{p.cluster} CTAs x {p.slice} elements ({4 * p.slice} B), "
+              f"factors of up to {p.stage_occ} occurrences staged, "
+              f"{p.smem_bytes} B of shared memory per CTA; max active "
+              f"clusters {outer_update.cluster_occupancy(p)}")
+    k3_err = check_k3(f"outer_adagrad_update, cluster route at hidden {d} "
+                      f"[{N_REL} rows, {BATCH} ids]", table, ss0, ids, a, b,
+                      lr, coef, norm)
+    tiles = outer_update.OuterPlan("tiles")
+    for p in (alt, tiles):
+        check_k3(f"{p.route} route{f' of {p.cluster} CTAs' if p.cluster else ''}"
+                 f" at hidden {d}", table, ss0, ids, a, b, lr, coef, norm,
+                 plan=p)
 
     # The stock route: the [B, 250,000] gradient materialized (outer
     # product + the regularization gradient), then K2 on 1 MB rows.
@@ -414,6 +582,15 @@ def phase_outer():
         state, ids, a, b, lr, coef, norm), iters=20)
     k3_call = call_ms(lambda: outer_update.outer_adagrad_update(
         state, ids, a, b, lr, coef, norm), iters=20, warmup=2)
+    # The routes in turns on the same inputs (chosen, alternative, tiles,
+    # tiles, alternative, chosen).
+    routes = {f"cluster of {plan.cluster} (chosen)": plan,
+              f"cluster of {alt.cluster}": alt, "tiles (three launches)": tiles}
+    route_ms = {k: [] for k in routes}
+    for k in (*routes, *reversed(routes)):
+        route_ms[k].append(device_ms(
+            lambda p=routes[k]: outer_update.launch_outer(
+                state, ids, a, b, lr, coef, norm, p), iters=20))
     plain_ms = device_ms(lambda: outer_update.outer_adagrad_plain(
         state.emb, state.state_sum, ids, a, b, lr, coef, norm), iters=3)
     stock_ms = device_ms(lambda: rows.sparse_adagrad_rows(
@@ -427,36 +604,79 @@ def phase_outer():
                 + BATCH * 4 + 2 * BATCH * d * 4)
     k3_ops = 5 * BATCH * RESCAL_WIDTH + 8 * n_unique * RESCAL_WIDTH
     k3_bound, k3_by = bound_ms(k3_bytes, k3_ops)
-    print(f"K3 outer_adagrad_update, device ms: kernel {k3_ms:.4f} (its id "
-          f"sort alone {sort_ms:.4f}; {k3_call:.4f} per call with host "
-          f"overhead), plain {plain_ms:.4f}, stock route (gradient "
-          f"materialized, then K2) {stock_ms:.4f}; bound {k3_bound:.4f} "
-          f"({k3_by}, {k3_bytes / 1e9:.3f} GB, {k3_ops / 1e9:.2f} GFLOP); "
-          f"no single PyTorch call computes this update")
+    print(f"K3 outer_adagrad_update, device ms: kernel {k3_ms:.4f} "
+          f"({100 * k3_bound / k3_ms:.1f}% of the bound, "
+          f"{k3_bytes / k3_ms / 1e9:.3f} TB/s; its id sort alone "
+          f"{sort_ms:.4f}; {k3_call:.4f} per call with host overhead), plain "
+          f"{plain_ms:.4f}, stock route (gradient materialized, then K2) "
+          f"{stock_ms:.4f}; bound {k3_bound:.4f} ({k3_by}, "
+          f"{k3_bytes / 1e9:.3f} GB, {k3_ops / 1e9:.2f} GFLOP); no single "
+          f"PyTorch call computes this update")
+    print("K3 routes in turns, device ms: " + ", ".join(
+        f"{k} {' / '.join(f'{t:.4f}' for t in v)}"
+        for k, v in route_ms.items()))
+    k3_phases(state, ids, a, b, lr, coef, norm)
 
-    # K1 on the main path's relation gather: 1,000 rows of 1 MB.
-    got = rows.gather_rows(state.emb, ids)
-    if not torch.equal(got, rows.gather_rows_plain(state.emb, ids,
-                                                   RESCAL_WIDTH)):
-        fail("K1 gather_rows on RESCAL rows: differs from its plain version")
-    del got
-    k1_ms = device_ms(lambda: rows.gather_rows(state.emb, ids), iters=20)
-    k1_lib = device_ms(lambda: torch.index_select(state.emb, 0, ids),
-                       iters=20)
+    # K1 on the main path's relation gather: 1,000 rows of 1 MB, both
+    # shapes and dtypes exact; a width that is not a multiple of 4 or of
+    # the wide chunk.
+    if rows.gather_shape(RESCAL_WIDTH) != "wide":
+        fail(f"K1 at width {RESCAL_WIDTH} must take the wide shape")
+    bf = state.emb.to(torch.bfloat16)
+    for name, tab in (("fp32", state.emb), ("bf16", bf)):
+        for dim in (RESCAL_WIDTH, RESCAL_WIDTH - 3):
+            want = rows.gather_rows_plain(tab, ids, dim)
+            for shape in rows.GATHER_SHAPES:
+                if not torch.equal(rows.launch_gather(tab, ids, dim, shape),
+                                   want):
+                    fail(f"K1 {shape} shape on RESCAL rows ({name}, dim "
+                         f"{dim}): differs from its plain version")
+            del want
+        print(f"K1 gather_rows on {BATCH} RESCAL rows {name}, dims "
+              f"{RESCAL_WIDTH} and {RESCAL_WIDTH - 3}: both shapes exact")
+    k1_bf = device_ms(lambda: rows.gather_rows(bf, ids), iters=20)
+    del bf
+    gather_fns = {
+        "wide": lambda: rows.launch_gather(state.emb, ids, RESCAL_WIDTH,
+                                           "wide"),
+        "warp (one per row)": lambda: rows.launch_gather(
+            state.emb, ids, RESCAL_WIDTH, "warp"),
+        "index_select": lambda: torch.index_select(state.emb, 0, ids)}
+    # Three rounds in turns, each on the profiler's device clock and on
+    # CUDA events around back-to-back calls.
+    gather_ms = {k: [] for k in gather_fns}
+    gather_ev = {k: [] for k in gather_fns}
+    for r in range(3):
+        for k in (gather_fns if r % 2 == 0 else reversed(gather_fns)):
+            gather_ms[k].append(device_ms(gather_fns[k], iters=20))
+            gather_ev[k].append(call_ms(gather_fns[k], iters=20, warmup=3))
+    k1_ms, _, k1_lib = (sum(v) / len(v) for v in gather_ms.values())
+    k1_ev, _, k1_lib_ev = (sum(v) / len(v) for v in gather_ev.values())
     k1_bytes = BATCH * 4 + (n_unique + BATCH) * RESCAL_WIDTH * 4
     k1_bound, k1_by = bound_ms(k1_bytes, 0)
-    print(f"K1 gather_rows on {BATCH} RESCAL rows of {RESCAL_WIDTH} fp32: "
-          f"exact; device ms {k1_ms:.4f}, index_select {k1_lib:.4f}; bound "
-          f"{k1_bound:.4f} ({k1_by}, {k1_bytes / 1e9:.3f} GB), "
-          f"{100 * k1_bound / k1_ms:.1f}% of it")
+    print(f"K1 gather_rows on {BATCH} RESCAL rows of {RESCAL_WIDTH} fp32, "
+          f"three rounds in turns, device ms (CUDA events ms per call): "
+          + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ("
+                      f"{' / '.join(f'{t:.4f}' for t in gather_ev[k])})"
+                      for k, v in gather_ms.items())
+          + f"; bound {k1_bound:.4f} ({k1_by}, {k1_bytes / 1e9:.3f} GB); "
+          f"wide {100 * k1_bound / k1_ms:.1f}% of it, "
+          f"{k1_bytes / k1_ms / 1e9:.3f} TB/s; wide on the bf16 table "
+          f"{k1_bf:.4f}")
+    print(f"K1 wide against index_select on RESCAL rows, mean of three: "
+          f"device {k1_ms:.4f} vs {k1_lib:.4f} ms, CUDA events {k1_ev:.4f} vs "
+          f"{k1_lib_ev:.4f} ms: {'not slower' if k1_ms <= k1_lib else 'SLOWER'}")
     del state, table
     torch.cuda.empty_cache()
-    return {"name": "outer_adagrad_update", "route": "cuda",
-            "source": "dglke_tpu_torch/ops/csrc/outer_update.cu",
-            "replaces": "dglke_tpu/ops/pallas/outer_update.py:118",
-            "launches": None, "max_abs_err": k3_err, "ms": k3_ms,
-            "plain_ms": plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-            "library_ms": None}
+    k3 = {"name": "outer_adagrad_update", "route": "cuda",
+          "source": "dglke_tpu_torch/ops/csrc/outer_update.cu",
+          "replaces": "dglke_tpu/ops/pallas/outer_update.py:118",
+          "launches": None, "max_abs_err": k3_err, "ms": k3_ms,
+          "plain_ms": plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+          "library_ms": None}
+    k1_wide = {"wide_ms": k1_ms, "wide_library_ms": k1_lib,
+               "wide_bound_ms": k1_bound}
+    return k3, k1_wide
 
 
 # ---------------------------------------------------------------------------
@@ -528,9 +748,9 @@ def phase_main_path(recipe: dict, batch_size_eval: int,
         fail(f"{name} main path: loss not finite: {losses}")
     if len(mrr) != 1 or not 0.0 < mrr[0] <= 1.0:
         fail(f"{name} main path: test MRR {mrr} outside (0, 1]")
-    for k in ("gather_rows", "sparse_adagrad_rows"):
-        if counts[k] <= 0:
-            fail(f"{name} main path: kernel {k} was never launched")
+    want = EXPECTED_LAUNCHES[name]
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"{name} main path: launches {counts}, expected {want}")
     print(f"{name} main path: {steps} steps, "
           f"{steps * BATCH / train_s[0]:.1f} triples/s (host clock over the "
           f"whole loop, first step included), test eval {eval_s[0]:.3f} s, "
@@ -683,18 +903,17 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         phase_build()
-        kernels = phase_kernels() + [phase_outer()]
+        kernels = phase_kernels()
+        phase_gather_shapes()
+        k3, k1_wide = phase_outer()
+        kernels[0].update(k1_wide)
+        kernels.append(k3)
+        phase_outer_routes()
         paths = {"TransE_l2": phase_main_path(TRANSE, batch_size_eval=500)}
         phase_step_parity(TRANSE)
         phase_step_profile(TRANSE, steps=50)
-        counts = phase_main_path(RESCAL, batch_size_eval=RESCAL_EVAL_BATCH)
-        # The entity update is the only K2 launch of a RESCAL step: the
-        # relation update goes through K3 on every step, never through K2.
-        if not counts["outer_adagrad_update"] == \
-                counts["sparse_adagrad_rows"] == MAIN_STEPS:
-            fail(f"RESCAL main path: expected one K3 and one K2 launch per "
-                 f"step, got {counts}")
-        paths["RESCAL"] = counts
+        paths["RESCAL"] = phase_main_path(RESCAL,
+                                          batch_size_eval=RESCAL_EVAL_BATCH)
         phase_step_parity(RESCAL)
         phase_step_profile(RESCAL, steps=20)
         phase_planted()

@@ -16,11 +16,26 @@
 // update ~14.4 MB: a few microseconds at 3.35 TB/s.
 //
 // Design:
-//   * gather: one warp per output row, neighbouring lanes on neighbouring
-//     16-byte vectors (400 fp32 = 100 float4, or 100 x 4 bf16 widened to
-//     float4), so every row is read and written in full coalesced
-//     transactions.  The TPU kernel's ring of in-flight DMAs becomes the
-//     many warps the SMs keep in flight.
+//   * gather, two launch shapes chosen by the wrapper from the width
+//     (ops/rows.py:gather_shape; the C side takes the shape it is given):
+//     - "warp", for narrow rows: one warp per output row, neighbouring
+//       lanes on neighbouring 16-byte vectors (400 fp32 = 100 float4, or
+//       100 x 4 bf16 widened to float4), so every row is read and written
+//       in full coalesced transactions.  The TPU kernel's ring of
+//       in-flight DMAs becomes the many warps the SMs keep in flight.
+//     - "wide": one block per (row, chunk), rows on gridDim.x (so any n
+//       works, and the blocks in flight at once cover the same chunk of
+//       many rows, so duplicate ids meet in L2).  fp32 rows with 16-byte
+//       alignment are copied by the TMA engine: one warp per chunk of
+//       2,048 elements, whose first thread issues one bulk load into
+//       shared memory and one bulk store out (the threads move no data).
+//       bf16 rows, which widen, and unaligned rows take 256 threads per
+//       chunk of 4,096 elements, each issuing its 16-byte (or scalar)
+//       loads before its first store.  RESCAL's 1 MB relation rows give
+//       123 blocks per row where one warp walked 1,953 vectors per lane
+//       one after another.
+//     The threshold between the two is measured on the card (chip_smoke.py
+//     times both shapes across widths) and stated in ops/rows.py.
 //   * update: the TPU kernel serialised duplicate ids inside its DMA window
 //     with conflict flags; a GPU has no such window, and fp32 atomics would
 //     make the sum depend on the order in which blocks run.  The caller
@@ -37,11 +52,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kGatherThreads = 256;   // 8 rows per block
 constexpr int kUpdateThreads = 128;   // one segment per block
+constexpr int kWideThreads = 256;
+constexpr int kWideVecs = 4;          // 16-byte vectors per thread
+constexpr int kWideChunk = kWideThreads * kWideVecs * 4;  // elements per block
+constexpr int kCopyChunk = 2048;      // fp32 elements per bulk-copy block
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -91,6 +112,85 @@ gather_rows_scalar(const T* __restrict__ table, const int32_t* __restrict__ ids,
   const T* src = table + id * pitch;
   float* dst = out + row * dim;
   for (int64_t c = lane; c < dim; c += kWarp) dst[c] = to_float(src[c]);
+}
+
+// Wide fp32 gather of 16-byte aligned rows: block (row, chunk of
+// kCopyChunk elements), copied global -> shared -> global by two bulk
+// copies that the block's first thread issues.
+__global__ void __launch_bounds__(kWarp)
+gather_rows_wide_bulk(const float* __restrict__ table,
+                      const int32_t* __restrict__ ids, float* __restrict__ out,
+                      int64_t n_rows, int64_t pitch, int64_t dim) {
+  __shared__ __align__(128) float buf[kCopyChunk];
+  __shared__ __align__(8) uint64_t bar;
+  if (threadIdx.x != 0) return;
+  const int64_t row = blockIdx.x;
+  const int64_t id = ids[row];
+  if (id < 0 || id >= n_rows) __trap();
+  const int64_t c0 = int64_t(blockIdx.y) * kCopyChunk;
+  const uint32_t bytes =
+      uint32_t(dim - c0 < kCopyChunk ? dim - c0 : kCopyChunk) * 4u;
+  const uint32_t b = smem_u32(&bar);
+  mbar_init(b, 1);
+  mbar_expect_tx(b, bytes);
+  bulk_load(smem_u32(buf), table + id * pitch + c0, bytes, b);
+  mbar_wait(b, 0);
+  bulk_store(out + row * dim + c0, smem_u32(buf), bytes);
+  bulk_wait_read();
+}
+
+// Wide vector gather: block (row, chunk), kWideVecs vectors per thread,
+// all loaded before the first store.
+template <typename V>
+__global__ void __launch_bounds__(kWideThreads)
+gather_rows_wide_vec4(const V* __restrict__ table,
+                      const int32_t* __restrict__ ids, float4* __restrict__ out,
+                      int64_t n_rows, int64_t pitch4, int64_t dim4) {
+  const int64_t row = blockIdx.x;
+  const int64_t id = ids[row];
+  if (id < 0 || id >= n_rows) __trap();
+  const V* src = table + id * pitch4;
+  float4* dst = out + row * dim4;
+  const int64_t c0 = int64_t(blockIdx.y) * (kWideChunk / 4) + threadIdx.x;
+  V v[kWideVecs] = {};
+#pragma unroll
+  for (int m = 0; m < kWideVecs; ++m) {
+    const int64_t c = c0 + m * kWideThreads;
+    if (c < dim4) v[m] = __ldg(src + c);
+  }
+#pragma unroll
+  for (int m = 0; m < kWideVecs; ++m) {
+    const int64_t c = c0 + m * kWideThreads;
+    if (c < dim4) dst[c] = widen4(v[m]);
+  }
+}
+
+// Wide scalar gather, for pitches or widths that are not multiples of four:
+// the same blocks of kWideChunk elements, 4 * kWideVecs per thread.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+gather_rows_wide_scalar(const T* __restrict__ table,
+                        const int32_t* __restrict__ ids,
+                        float* __restrict__ out, int64_t n_rows, int64_t pitch,
+                        int64_t dim) {
+  constexpr int kPer = kWideChunk / kWideThreads;
+  const int64_t row = blockIdx.x;
+  const int64_t id = ids[row];
+  if (id < 0 || id >= n_rows) __trap();
+  const T* src = table + id * pitch;
+  float* dst = out + row * dim;
+  const int64_t c0 = int64_t(blockIdx.y) * kWideChunk + threadIdx.x;
+  float v[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int64_t c = c0 + m * kWideThreads;
+    v[m] = c < dim ? to_float(src[c]) : 0.f;
+  }
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int64_t c = c0 + m * kWideThreads;
+    if (c < dim) dst[c] = v[m];
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -173,10 +273,12 @@ void launch_update(void* emb, float* state_sum, int64_t n_rows, int64_t pitch,
 extern "C" {
 
 // dtype: 0 = float32 table, 1 = bfloat16 table.  pitch: table row stride in
-// elements.  out: [n, dim] float32, contiguous.  Requires n > 0.
+// elements.  out: [n, dim] float32, contiguous.  wide: 0 = one warp per
+// row, 1 = blocks of (row, chunk of 2,048 or 4,096 elements).  Requires
+// 0 < n < 2^31, and with wide, at most 65,535 chunks of 2,048.
 int dglke_gather_rows(const void* table, int dtype, int64_t n_rows,
                       int64_t pitch, const int32_t* ids, int64_t n,
-                      float* out, int64_t dim, void* stream) {
+                      float* out, int64_t dim, int wide, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t rows_per_block = kGatherThreads / kWarp;
   const unsigned blocks =
@@ -185,7 +287,27 @@ int dglke_gather_rows(const void* table, int dtype, int64_t n_rows,
   const bool vec = pitch % 4 == 0 && dim % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                    addr % (dtype == 0 ? 16 : 8) == 0;
-  if (dtype == 0 && vec) {
+  if (wide && dtype == 0 && vec) {
+    const dim3 grid(static_cast<unsigned>(n),
+                    static_cast<unsigned>((dim + kCopyChunk - 1) / kCopyChunk));
+    gather_rows_wide_bulk<<<grid, kWarp, 0, s>>>(
+        static_cast<const float*>(table), ids, out, n_rows, pitch, dim);
+  } else if (wide) {
+    const dim3 grid(static_cast<unsigned>(n),
+                    static_cast<unsigned>((dim + kWideChunk - 1) / kWideChunk));
+    if (dtype == 1 && vec) {
+      gather_rows_wide_vec4<uint2><<<grid, kWideThreads, 0, s>>>(
+          static_cast<const uint2*>(table), ids,
+          reinterpret_cast<float4*>(out), n_rows, pitch / 4, dim / 4);
+    } else if (dtype == 0) {
+      gather_rows_wide_scalar<float><<<grid, kWideThreads, 0, s>>>(
+          static_cast<const float*>(table), ids, out, n_rows, pitch, dim);
+    } else {
+      gather_rows_wide_scalar<__nv_bfloat16><<<grid, kWideThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(table), ids, out, n_rows, pitch,
+          dim);
+    }
+  } else if (dtype == 0 && vec) {
     gather_rows_vec4<float4><<<blocks, kGatherThreads, 0, s>>>(
         static_cast<const float4*>(table), ids, reinterpret_cast<float4*>(out),
         n, n_rows, pitch / 4, dim / 4);

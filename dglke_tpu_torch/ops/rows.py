@@ -6,8 +6,8 @@ Counterpart of dglke_tpu/ops/pallas/rows.py.  The CUDA sources are in
 ``csrc/`` (see the note at the top of each: what each kernel replaces, what
 bounds it and what its design does about that).  Each source is built with
 ``nvcc`` for ``sm_90a`` at first use into ``build/dglke_tpu_torch/`` at the
-root of the checkout, under a name carrying the digest of its text and the
-flags, and loaded with ``ctypes``.
+root of the checkout, under a name carrying the digest of the sources and
+the flags, and loaded with ``ctypes``.
 
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises.  ``launches`` counts kernel
@@ -56,9 +56,12 @@ def _nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{digest}.so"
+    """The library of ``source``, named by the digest of its text, the
+    sources and headers beside it (which it may include) and the flags."""
+    text = source.read_bytes() + b"".join(
+        f.read_bytes() for f in sorted(source.parent.glob("*.cu*")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{source.stem}_{digest[:16]}.so"
 
 
 def build_libraries(*sources: Path) -> None:
@@ -110,8 +113,8 @@ def load_library(source: Path, signatures: dict) -> ctypes.CDLL:
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
-    "dglke_gather_rows": ([_P, _INT, _I64, _I64, _P, _I64, _P, _I64, _P],
-                          _INT),
+    "dglke_gather_rows": ([_P, _INT, _I64, _I64, _P, _I64, _P, _I64, _INT,
+                           _P], _INT),
     "dglke_segment_update": ([_P, _INT, _I64, _I64, _I64, _P, _P, _P, _P,
                               _I64, ctypes.c_float, _P], _INT),
 }
@@ -151,35 +154,66 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor,
     return table[ids.long(), :dim].to(torch.float32)
 
 
+GATHER_SHAPES = ("warp", "wide")
+# Rows of at least this many elements take the wide shape: measured on the
+# card by chip_smoke.py's sweep of both shapes (PERF.md, section 6).
+GATHER_WIDE_MIN = 2048
+_WIDE_CHUNK = 2048        # row elements per block of the wide shape, at least
+_MAX_ROWS = (1 << 31) - 1   # gridDim.x
+_MAX_CHUNKS = 65535        # gridDim.y of the wide shape
+
+
+def gather_shape(dim: int) -> str:
+    """The K1 launch shape for rows of ``dim`` elements: one warp per row
+    ("warp") below GATHER_WIDE_MIN, blocks over (row, chunk) ("wide") from
+    there."""
+    return "wide" if dim >= GATHER_WIDE_MIN else "warp"
+
+
+def launch_gather(table: torch.Tensor, ids: torch.Tensor, dim: int,
+                  shape: str) -> torch.Tensor:
+    """Launch K1 on CUDA tensors in the given shape (arguments checked by
+    the caller); counts one launch of gather_rows."""
+    if shape not in GATHER_SHAPES:
+        raise ValueError(f"gather_rows: shape {shape!r} not in "
+                         f"{GATHER_SHAPES}")
+    ids32 = ids.to(torch.int32).contiguous()
+    n = ids32.shape[0]
+    out = torch.empty((n, dim), dtype=torch.float32, device=table.device)
+    if n == 0:
+        return out
+    if n > _MAX_ROWS or (shape == "wide"
+                         and -(-dim // _WIDE_CHUNK) > _MAX_CHUNKS):
+        raise ValueError(f"gather_rows: {n} rows of {dim} exceed the "
+                         f"{shape} launch's grid")
+    lib = load_library(SOURCE, SIGNATURES)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = lib.dglke_gather_rows(
+            table.data_ptr(), _DTYPE_CODE[table.dtype], table.shape[0],
+            table.stride(0), ids32.data_ptr(), n, out.data_ptr(), dim,
+            int(shape == "wide"), stream)
+    check_launch(err, "gather_rows")
+    launches["gather_rows"] += 1
+    return out
+
+
 def gather_rows(table: torch.Tensor, ids: torch.Tensor,
                 dim: int | None = None) -> torch.Tensor:
     """[E, >=dim] table (fp32 or bf16), [N] ids -> [N, dim] float32 rows.
 
     Replaces dglke_tpu/ops/pallas/rows.py:gather_rows.  Bound by bytes:
-    each row is read once and written once in fp32.  One warp per row with
-    16-byte loads keeps every row a few coalesced transactions."""
+    each row is read once and written once in fp32.  16-byte loads; one
+    warp per narrow row, many blocks per wide row (gather_shape)."""
     dim = table.shape[1] if dim is None else dim
-    code = _check_table(table, "gather_rows")
+    _check_table(table, "gather_rows")
     if not 0 < dim <= table.shape[1]:
         raise ValueError(f"gather_rows: dim {dim} outside the table's "
                          f"width {table.shape[1]}")
     check_ids(ids, table.device, "gather_rows")
     if table.device.type == "cpu":
         return gather_rows_plain(table, ids, dim)
-    ids32 = ids.to(torch.int32).contiguous()
-    out = torch.empty((ids32.shape[0], dim), dtype=torch.float32,
-                      device=table.device)
-    if ids32.shape[0] == 0:
-        return out
-    lib = load_library(SOURCE, SIGNATURES)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.dglke_gather_rows(
-            table.data_ptr(), code, table.shape[0], table.stride(0),
-            ids32.data_ptr(), ids32.shape[0], out.data_ptr(), dim, stream)
-    check_launch(err, "gather_rows")
-    launches["gather_rows"] += 1
-    return out
+    return launch_gather(table, ids, dim, gather_shape(dim))
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,13 @@ from dglke_tpu.ops.pallas.outer_update import (
 from dglke_tpu_torch.ops import rows
 from dglke_tpu_torch.ops.embedding import EmbeddingState
 from dglke_tpu_torch.ops.outer_update import (
+    CLUSTER_SIZES,
+    SLICE_MAX,
+    SLICE_TARGET,
+    SMEM_MAX,
     outer_adagrad_plain,
     outer_adagrad_update,
+    plan_outer,
 )
 
 torch.set_num_threads(2)
@@ -127,3 +132,78 @@ def test_refuses_mismatched_factors(what):
         tid = tid.float()
     with pytest.raises((ValueError, TypeError)):
         outer_adagrad_update(table, tid, ta, tb, LR)
+
+
+# -- the route planner (the C side launches what it is given) -----------------
+
+WIDTHS = [(1, 1), (7, 13), (32, 32), (500, 500), (1000, 1000)]
+
+
+@pytest.mark.parametrize("da,db", WIDTHS,
+                         ids=[f"{da}x{db}" for da, db in WIDTHS])
+def test_plan_outer_covers_the_row_in_aligned_slices(da, db):
+    plan = plan_outer(da, db)
+    width = da * db
+    if plan.route == "tiles":
+        # wider than 16 slices of SLICE_MAX bytes
+        assert 4 * -(-width // 16) > SLICE_MAX
+        return
+    assert plan.route == "cluster" and plan.cluster in CLUSTER_SIZES
+    assert plan.slice % 4 == 0                       # 16-byte aligned slices
+    assert plan.cluster * plan.slice >= width        # full coverage
+    assert (plan.cluster - 1) * plan.slice < width   # every CTA has work
+    assert 4 * plan.slice <= SLICE_MAX
+    # the smallest size whose slices fit the target, when one does
+    smaller = [c for c in CLUSTER_SIZES if c < plan.cluster]
+    assert all(4 * -(-width // c) > SLICE_TARGET for c in smaller)
+    # every CTA's span of a-rows fits the staging rows
+    for rank in range(plan.cluster):
+        e0 = rank * plan.slice
+        e1 = min(width, e0 + plan.slice)
+        assert (e1 - 1) // db - e0 // db + 1 <= plan.span <= da
+    assert plan.smem_bytes == 4 * (plan.slice
+                                   + plan.stage_occ * (plan.span + db))
+    assert plan.smem_bytes <= SMEM_MAX
+
+
+def test_plan_outer_at_rescal_widths():
+    # hidden 500: 16 CTAs of 62.5 KB (two share an SM); hidden 32: one CTA;
+    # hidden 1,000: wider than a cluster holds, the tiles route.
+    plan = plan_outer(500, 500)
+    assert (plan.route, plan.cluster, plan.slice) == ("cluster", 16, 15628)
+    assert plan.stage_occ >= 8
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    assert plan_outer(32, 32) == plan_outer(32, 32, cluster=1)
+    assert plan_outer(32, 32).cluster == 1
+    assert plan_outer(1000, 1000).route == "tiles"
+    assert plan_outer(500, 500, cluster=8).slice == 31252
+
+
+@pytest.mark.parametrize("da,db,cluster", [(1000, 1000, 16), (32, 32, 3),
+                                           (500, 500, 4)])
+def test_plan_outer_refuses_a_cluster_that_cannot_hold_the_row(da, db,
+                                                               cluster):
+    with pytest.raises(ValueError):
+        plan_outer(da, db, cluster=cluster)
+
+
+def test_ragged_width_with_a_long_segment_matches_the_jax_kernel():
+    """Da 7 x Db 13 (91 elements, not a multiple of 4) and one id repeated
+    6 times: the plain version against the JAX kernel in interpret mode."""
+    rng = np.random.default_rng(3)
+    e, da, db, n = 11, 7, 13, 20
+    emb = rng.standard_normal((e, da * db)).astype(np.float32)
+    ss = np.abs(rng.standard_normal(e)).astype(np.float32)
+    ids = np.concatenate([np.full(6, 4), rng.integers(0, e - 2, n - 6)])
+    ids = rng.permutation(ids).astype(np.int32)
+    assert np.bincount(ids).max() >= 6
+    a = rng.standard_normal((n, da)).astype(np.float32)
+    b = rng.standard_normal((n, db)).astype(np.float32)
+    want = jax_outer(JaxTable(jnp.asarray(emb), jnp.asarray(ss)),
+                     jnp.asarray(ids), jnp.asarray(a), jnp.asarray(b), LR,
+                     reg_coef=2e-3, reg_norm=3, interpret=True)
+    got_emb, got_ss = _port(emb, ss, ids, a, b, 2e-3, 3)
+    _close(got_emb, want.emb)
+    _close(got_ss, want.state_sum)
+    untouched = np.setdiff1d(np.arange(e), ids)
+    np.testing.assert_array_equal(got_emb[untouched], emb[untouched])

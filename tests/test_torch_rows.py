@@ -113,6 +113,43 @@ def test_gather_rows_checks_arguments():
         pt_rows.gather_rows(table, torch.zeros((3, 1), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("dim", [1, 91, 400, 1024, 250_000, 1_000_000])
+def test_gather_shape_by_width(dim):
+    """One warp per narrow row (the flagship's 400 among them), blocks over
+    (row, chunk) per wide row (RESCAL's 250,000 among them)."""
+    shape = pt_rows.gather_shape(dim)
+    assert shape in pt_rows.GATHER_SHAPES
+    assert shape == ("wide" if dim >= pt_rows.GATHER_WIDE_MIN else "warp")
+    if dim <= 400:
+        assert shape == "warp"
+    if dim >= 250_000:
+        assert shape == "wide"
+
+
+def test_gather_rows_refuses_an_unknown_shape():
+    table = torch.zeros((10, 8))
+    with pytest.raises(ValueError, match="shape"):
+        pt_rows.launch_gather(table, torch.zeros(3, dtype=torch.int32), 8,
+                              "tile")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rows_at_a_wide_ragged_width_matches_pallas(dtype):
+    """A width above the wide threshold, not a multiple of 4 or of the
+    chunk, with a narrower dim: exact against the Pallas kernel."""
+    rng = np.random.default_rng(8)
+    width = pt_rows.GATHER_WIDE_MIN + 4099
+    table = _table(rng, 12, width, jnp.dtype(dtype))
+    ids = rng.integers(0, 12, size=9).astype(np.int32)
+    dim = width - 2
+    assert pt_rows.gather_shape(dim) == "wide" and dim % 4 != 0
+    got = pt_rows.gather_rows(to_torch(table), torch.from_numpy(ids), dim)
+    pallas = np.asarray(jax_rows.gather_rows(
+        jnp.asarray(table), jnp.asarray(ids), interpret=True))
+    np.testing.assert_array_equal(got.numpy(),
+                                  pallas[:, :dim].astype(np.float32))
+
+
 # -- K2: scatter_add_rows -----------------------------------------------------
 
 
