@@ -42,14 +42,39 @@ Phases (any failure exits non-zero and prints no result line):
      EXPECTED_LAUNCHES; then two flagship steps on the card against the
      CPU's plain path; then a flagship step on the host clock, and under
      torch.profiler the device's busy share and the kernels by device time;
-  4. the RESCAL main path, the same three parts: the CLI with the flags of
-     examples/fb15k.sh (hidden 500), --max_step 1000 and --test on the same
-     data, its launch counts read around that run only and held to
-     EXPECTED_LAUNCHES (the relation update goes through K3, never K2);
-     two full-width steps on the card against the CPU; the step profile;
-  5. the planted quality gate of every family on the card (MRR >= 0.85,
+  4. the same CLI run with --async_update (launch counts held), and a
+     dataset smaller than two batches (1,500 train edges at batch 1,000)
+     through the CLI, which must take the host-fed route, launch K1, the
+     grouping and K2 every step, and train;
+  5. the RESCAL main path, the same three parts as phase 3: the CLI with
+     the flags of examples/fb15k.sh (hidden 500), --max_step 1000 and
+     --test on the same data, its launch counts read around that run only
+     and held to EXPECTED_LAUNCHES (the relation update goes through K3,
+     never K2); two full-width steps on the card against the CPU; the
+     step profile;
+  6. the ogbl-wikikg2 TransE_l2 recipe (examples/wikikg2.sh:11-14: batch
+     512, 128 negatives, hidden 500, gamma 30, -adv -a 1.0, lr 0.25,
+     -rc 1e-9, --no_eval_filter --test --batch_size_eval 32
+     --neg_sample_size_eval 500) through the CLI on a synthetic dataset at
+     ogbl-wikikg2's published shape, 2,500,604 entities and 535
+     relations (a 5.0 GB entity table), served through the port's ogb
+     loader by a stand-in `ogb.linkproppred` module (the script needs
+     neither the `ogb` package nor the dataset files).  Cuts: 1,000 steps
+     (the recipe runs 20,000), 2,000,000 train edges (16,109,182), 20,000
+     test triples (598,543); --no_save_emb (no 5 GB checkpoint written).
+     Its launch counts are held to EXPECTED_LAUNCHES.  On the trained
+     state: the sampled ranks of the first 8 test batches in both modes
+     against the CPU's on the same rows, equal but at near ties (counted);
+     the candidate protocol, 2,000 queries x 1,001 candidates (wikikg90M's
+     count, rows listing a candidate twice), in Valid and Test mode, ranks
+     and top-10 positions against the CPU's, equal but at near ties; K1
+     and the whole K2 call at the path's entity shape (1,536 ids over the
+     5.0 GB table, cold in L2) in turns beside index_select / index_add_
+     and the plain versions, with the bounds.  Then two full-width steps
+     on the card against the CPU, and the step profile;
+  7. the planted quality gate of every family on the card (MRR >= 0.85,
      HITS@10 >= 0.99, the JAX package's calibrated configs);
-  6. the kernel summary: a `kernels:` line, one JSON line of per-kernel
+  8. the kernel summary: a `kernels:` line, one JSON line of per-kernel
      numbers, the card's name and power limit, and the result line.
 
 Everything it writes goes under build/chip_smoke/ and is removed at the
@@ -96,6 +121,30 @@ RESCAL = dict(model_name="RESCAL", hidden_dim=500, gamma=24.0, lr=0.03,
               neg_adversarial_sampling=True, regularization_coef=2e-6,
               regularization_norm=3)
 RESCAL_WIDTH = RESCAL["hidden_dim"] ** 2             # 250,000 per relation
+# The ogbl-wikikg2 TransE_l2 recipe (examples/wikikg2.sh:11-14) at the
+# published shape: 2,500,604 entities and 535 relations, hidden 500, so
+# the entity table is 2,500,604 x 500 fp32 = 5.0 GB and no row of it stays
+# in the 50 MB L2.  Cut: 1,000 steps (the recipe runs 20,000), 2,000,000
+# train edges (16,109,182), 20,000 test triples (598,543).
+WIKI_ENT, WIKI_REL = 2_500_604, 535
+WIKI_TRAIN, WIKI_TEST = 2_000_000, 20_000
+WIKI = dict(model_name="TransE_l2", hidden_dim=500, gamma=30.0, lr=0.25,
+            batch_size=512, neg_sample_size=128,
+            neg_adversarial_sampling=True, adversarial_temperature=1.0,
+            regularization_coef=1e-9)
+WIKI_EVAL_BATCH, WIKI_EVAL_NEG = 32, 500
+WIKI_ENT_IDS = 2 * 512 + (512 // 128) * 128          # [h | t | neg] = 1,536
+# The candidate protocol on the trained wikikg2 state: wikikg90M's
+# published 1,001 candidates for each of 2,000 queries.
+CAND_QUERIES, CAND_K = 2000, 1001
+# A row is a near tie where another score lies within TIE_RTOL x (|score|
+# + gamma) of the one it is compared with: the card and the CPU round the
+# scores apart, and only there may their ranks differ.  TransE's score is
+# gamma - distance, so its rounding error follows gamma + |score|, not
+# |score| (a score near 0 carries the error of a distance near gamma; at
+# gamma 30 the bound is ~3.1e-5, some 16 fp32 ulps of 30).  The sampled
+# check also counts the rows within POS_RTOL |pos|.
+TIE_RTOL, POS_RTOL = 1e-6, 1e-5
 RESCAL_EVAL_BATCH = 500
 MAIN_STEPS = 1000
 # The RESCAL main path's test MRR on its seeded data (PRs 2 and 3 gave it
@@ -107,12 +156,32 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 # once per step for each table it updates, and the id grouping once before
 # each K2 and each K3 call (never torch.sort).  RESCAL's relation update
 # goes through K3 on every step and never through K2.
+#
+# TransE_l2 with --async_update launches the same: each step's entity
+# update is applied once, one step late inside each group of 10 steps (the
+# last at the group's end), and an empty pending update launches nothing.
+# The host-fed run (1,500 train edges, under two batches, 100 steps, no
+# eval) launches two K1, two groupings and two K2 a step.
+#
+# wikikg2: two K1, two groupings and two K2 a step over 1,000 steps; the
+# sampled test eval of 20,000 triples in batches of 32 is 625 batches a
+# mode, ranked in groups of 32 batches (trainer.SAMPLED_GROUP): 20 calls a
+# mode, each two K1 (the entity rows [h | t | neg], the relation rows),
+# so 80 K1 in the eval.
 EXPECTED_LAUNCHES = {
     "TransE_l2": {"gather_rows": 2032, "group_ids": 2000,
                   "group_ids_sort": 0, "sparse_adagrad_rows": 2000,
                   "outer_adagrad_update": 0},
+    "TransE_l2 async": {"gather_rows": 2032, "group_ids": 2000,
+                        "group_ids_sort": 0, "sparse_adagrad_rows": 2000,
+                        "outer_adagrad_update": 0},
+    "TransE_l2 host-fed": {"gather_rows": 200, "group_ids": 200,
+                           "group_ids_sort": 0, "sparse_adagrad_rows": 200,
+                           "outer_adagrad_update": 0},
     "RESCAL": {"gather_rows": 2032, "group_ids": 2000, "group_ids_sort": 0,
                "sparse_adagrad_rows": 1000, "outer_adagrad_update": 1000},
+    "wikikg2": {"gather_rows": 2080, "group_ids": 2000, "group_ids_sort": 0,
+                "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0},
 }
 
 # Stated tolerances.  K1 moves bits: exact.  K2 sums each id's segment in
@@ -169,19 +238,27 @@ def _kernel_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms_by_kernel(fn, iters: int = 50) -> dict:
+def device_ms_by_kernel(fn, iters: int = 50, attempts: int = 3) -> dict:
     """Device time of one fn() call by kernel, from a torch.profiler trace
-    of `iters` calls (host overhead excluded)."""
+    of `iters` calls (host overhead excluded).  A trace that holds no
+    device event at all is taken again, up to `attempts` traces: on the
+    card the profiler's device tracing now and then returns an empty
+    trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / iters / 1e3
-            for e in _kernel_events(prof)}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: e.self_device_time_total / iters / 1e3
+               for e in _kernel_events(prof)}
+        if out:
+            return out
+        print("  (torch.profiler returned no device event; tracing again)")
+    return out
 
 
 def device_ms(fn, iters: int = 50) -> float:
@@ -947,24 +1024,39 @@ def phase_outer():
 
 
 # ---------------------------------------------------------------------------
-# Phases 3 and 4: the main paths
+# Phases 3 to 6: the main paths
 
 
-def _write_fb15k_shaped(path: str, n_train: int) -> None:
-    """An FB15k-shaped synthetic dataset in the udd_hrt layout."""
-    from dglke_tpu_torch.data.dataset import synthetic_dataset
-    ds = synthetic_dataset(n_entities=N_ENT, n_relations=N_REL,
-                           n_train=n_train, n_valid=1000, n_test=2000,
-                           seed=0)
+def _write_udd(path: str, ds) -> None:
+    """A dataset in the udd_hrt layout."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "entities.tsv"), "w") as f:
-        f.writelines(f"{i}\te{i}\n" for i in range(N_ENT))
+        f.writelines(f"{i}\te{i}\n" for i in range(ds.n_entities))
     with open(os.path.join(path, "relations.tsv"), "w") as f:
-        f.writelines(f"{i}\tr{i}\n" for i in range(N_REL))
+        f.writelines(f"{i}\tr{i}\n" for i in range(ds.n_relations))
     for split in ("train", "valid", "test"):
         h, r, t = getattr(ds, split)
         np.savetxt(os.path.join(path, f"{split}.tsv"),
                    np.stack([h, r, t], axis=1), fmt="%d", delimiter="\t")
+
+
+def _fb15k_shaped(name: str, n_train: int, n_valid: int = 1000,
+                  n_test: int = 2000) -> str:
+    """An FB15k-shaped synthetic dataset (14,951 / 1,345) under WORK/name,
+    written once; returns its directory."""
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    path = os.path.join(WORK, name)
+    if not os.path.isdir(path):
+        _write_udd(path, synthetic_dataset(
+            n_entities=N_ENT, n_relations=N_REL, n_train=n_train,
+            n_valid=n_valid, n_test=n_test, seed=0))
+    return path
+
+
+def _udd_args(path: str):
+    return ["--data_path", path, "--format", "udd_hrt", "--data_files",
+            "entities.tsv", "relations.tsv", "train.tsv", "valid.tsv",
+            "test.tsv"]
 
 
 def _floats(pattern: str, text: str):
@@ -978,57 +1070,116 @@ def _recipe_flags(recipe: dict):
              "--batch_size", str(recipe["batch_size"]),
              "--neg_sample_size", str(recipe["neg_sample_size"]),
              "-rc", str(recipe["regularization_coef"])]
+    if "adversarial_temperature" in recipe:
+        flags += ["-a", str(recipe["adversarial_temperature"])]
     return flags + (["-adv"] if recipe["neg_adversarial_sampling"] else [])
 
 
-def phase_main_path(recipe: dict, batch_size_eval: int,
-                    steps: int = MAIN_STEPS):
-    """dglke_tpu_torch-train on the card with the recipe's flags on the
-    FB15k-shaped data; returns the launch counts of that run only."""
+def run_cli(label: str, argv: list):
+    """dglke_tpu_torch-train with ``argv`` on the card, its launch counts
+    read around that run only and held to EXPECTED_LAUNCHES[label]; the
+    losses must be finite.  Returns (counts, printed text, the trained
+    model and state)."""
     from dglke_tpu_torch.cli import train as train_cli
     from dglke_tpu_torch.ops import rows
-    name = recipe["model_name"]
-    data = os.path.join(WORK, "data")
-    if not os.path.isdir(data):
-        _write_fb15k_shaped(data, n_train=300_000)
-    argv = ["--dataset", "fb15k_shaped", "--data_path", data, "--format",
-            "udd_hrt", "--data_files", "entities.tsv", "relations.tsv",
-            "train.tsv", "valid.tsv", "test.tsv", *_recipe_flags(recipe),
-            "--max_step", str(steps), "--log_interval", str(steps // 4),
-            "--batch_size_eval", str(batch_size_eval), "--test",
-            "--save_path", os.path.join(WORK, "ckpts")]
-    print(f"{name} main path: dglke_tpu_torch-train " + " ".join(argv))
+    print(f"{label}: dglke_tpu_torch-train " + " ".join(argv))
+    trained = {}
+    real_train = train_cli.train
+
+    def keep(*args, **kwargs):
+        out = real_train(*args, **kwargs)
+        trained["model"], trained["state"] = out[0], out[1]
+        return out
+
     out = io.StringIO()
-    rows.reset_launches()
-    with contextlib.redirect_stdout(out):
-        rc = train_cli.main(argv)
-    counts = dict(rows.launches)
+    train_cli.train = keep
+    try:
+        rows.reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = train_cli.main(argv)
+        counts = dict(rows.launches)
+    finally:
+        train_cli.train = real_train
     text = out.getvalue()
     print(text.rstrip())
     if rc != 0:
-        fail(f"{name} main path: train CLI returned {rc}")
+        fail(f"{label}: train CLI returned {rc}")
+    losses = _floats(r"average loss: (\S+)", text)
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: loss not finite: {losses}")
+    want = EXPECTED_LAUNCHES[label]
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"{label}: launches {counts}, expected {want}")
+    return counts, text, trained["model"], trained["state"]
+
+
+def phase_main_path(recipe: dict, batch_size_eval: int,
+                    steps: int = MAIN_STEPS, extra=(), label=None):
+    """dglke_tpu_torch-train on the card with the recipe's flags (and
+    ``extra``) on the FB15k-shaped data, 1,000 steps and --test; returns the
+    launch counts of that run only."""
+    name = recipe["model_name"]
+    label = label or name
+    argv = ["--dataset", "fb15k_shaped",
+            *_udd_args(_fb15k_shaped("data", n_train=300_000)),
+            *_recipe_flags(recipe), "--max_step", str(steps),
+            "--log_interval", str(steps // 4), "--batch_size_eval",
+            str(batch_size_eval), "--test", *extra,
+            "--save_path", os.path.join(WORK, "ckpts")]
+    counts, text, _, _ = run_cli(f"{label}", argv)
     losses = _floats(r"average loss: (\S+)", text)
     mrr = _floats(r"\[0\]Test average MRR: (\S+)", text)
     train_s = _floats(r"training takes (\S+) seconds", text)
     eval_s = _floats(r"\[0\]Test takes (\S+) seconds", text)
-    if not losses or not all(math.isfinite(x) for x in losses):
-        fail(f"{name} main path: loss not finite: {losses}")
     if len(mrr) != 1 or not 0.0 < mrr[0] <= 1.0:
-        fail(f"{name} main path: test MRR {mrr} outside (0, 1]")
+        fail(f"{label} main path: test MRR {mrr} outside (0, 1]")
     if name == "RESCAL" and abs(mrr[0] - RESCAL_MRR) > MRR_TOL:
         fail(f"RESCAL main path: test MRR {mrr[0]!r} further than {MRR_TOL} "
              f"from {RESCAL_MRR!r}")
-    want = EXPECTED_LAUNCHES[name]
-    if any(counts[k] != v for k, v in want.items()):
-        fail(f"{name} main path: launches {counts}, expected {want}")
-    print(f"{name} main path: {steps} steps, "
+    print(f"{label} main path: {steps} steps, "
           f"{steps * BATCH / train_s[0]:.1f} triples/s (host clock over the "
           f"whole loop, first step included), test eval {eval_s[0]:.3f} s, "
           f"MRR {mrr[0]!r}, last loss {losses[-1]:.4f}; launches {counts}")
     return counts
 
 
-def phase_step_parity(recipe: dict):
+def phase_host_fed():
+    """A dataset smaller than two batches (1,500 FB15k-shaped train edges,
+    batch 1,000) through the CLI on the card: it must take the host-fed
+    route, launch K1, the grouping and K2 every step, and train."""
+    steps = 100
+    argv = ["--dataset", "fb15k_small",
+            *_udd_args(_fb15k_shaped("small", n_train=1500, n_valid=10,
+                                     n_test=10)),
+            *_recipe_flags(TRANSE), "--max_step", str(steps),
+            "--log_interval", str(steps // 2), "--no_save_emb",
+            "--save_path", os.path.join(WORK, "ckpts")]
+    counts, text, _, state = run_cli("TransE_l2 host-fed", argv)
+    if "host-fed TrainSampler (1500 train edges" not in text:
+        fail("host-fed run: the trainer did not take the host-fed route")
+    losses = _floats(r"average loss: (\S+)", text)
+    if state.step != steps or not losses[-1] < losses[0]:
+        fail(f"host-fed run: {state.step} steps, losses {losses}")
+    print(f"host-fed run: {steps} steps on 1,500 train edges at batch "
+          f"{BATCH}, loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+          f"{counts}")
+    return counts
+
+
+def _cpu_copy(state):
+    """The state's tables copied to the CPU."""
+    from dglke_tpu_torch.models.ke_model import TrainState
+    from dglke_tpu_torch.ops.embedding import EmbeddingState
+
+    def table(t):
+        return None if t is None else EmbeddingState(
+            t.emb.to("cpu", copy=True), t.state_sum.to("cpu", copy=True))
+
+    return TrainState(table(state.entity), table(state.relation),
+                      step=state.step, projection=table(state.projection))
+
+
+def phase_step_parity(recipe: dict, n_ent: int = N_ENT, n_rel: int = N_REL):
     """One step in each corruption direction on the card and on the CPU
     (the plain versions), from identical tables and ids, at the recipe's
     full width: every table, Adagrad state and the loss within rtol 1e-4 /
@@ -1038,21 +1189,20 @@ def phase_step_parity(recipe: dict):
     import torch
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.models.ke_model import KEModel
-    from dglke_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
     name = recipe["model_name"]
     cfg = KGEConfig(**recipe)
+    batch = cfg.batch_size
+    n_neg = cfg.num_chunks * cfg.neg_sample_size
     rng = np.random.default_rng(1)
-    gpu_model = KEModel(cfg, N_ENT, N_REL, device="cuda")
-    cpu_model = KEModel(cfg, N_ENT, N_REL, device="cpu")
-    arrays = state_to_numpy(gpu_model.init_state())
-    state = state_from_numpy(arrays, device="cpu")
-    gpu_state = state_from_numpy(arrays, device="cuda")
-    del arrays
+    gpu_model = KEModel(cfg, n_ent, n_rel, device="cuda")
+    cpu_model = KEModel(cfg, n_ent, n_rel, device="cpu")
+    gpu_state = gpu_model.init_state()
+    state = _cpu_copy(gpu_state)
     cpu_s = 0.0
     for neg_head in (True, False):
         ids = [rng.integers(0, n, size).astype(np.int32) for n, size in
-               ((N_ENT, BATCH), (N_REL, BATCH), (N_ENT, BATCH),
-                (N_ENT, N_ENT_IDS - 2 * BATCH))]
+               ((n_ent, batch), (n_rel, batch), (n_ent, batch),
+                (n_ent, n_neg))]
         t0 = time.time()
         _, clog = cpu_model.train_step(
             state, *(torch.from_numpy(x) for x in ids), None,
@@ -1067,17 +1217,20 @@ def phase_step_parity(recipe: dict):
             pairs += [(f"{table} emb", g.emb, c.emb),
                       (f"{table} state_sum", g.state_sum, c.state_sum)]
         for what, a, b in pairs:
-            a = a.cpu()
+            b = b.to(a.device)          # compared on the card: 5 GB tables
             if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
                 fail(f"{name} step parity ({'head' if neg_head else 'tail'})"
                      f": {what} on the card differs from the CPU by "
                      f"{float((a - b).abs().max())}")
-    print(f"{name} step parity: two full-width steps (batch {BATCH}) on the "
-          f"card match the CPU's plain path within rtol 1e-4 / atol 1e-5 "
-          f"(CPU side {cpu_s:.1f} s)")
+    print(f"{name} step parity [{n_ent} x {n_rel}]: two full-width steps "
+          f"(batch {batch}) on the card match the CPU's plain path within "
+          f"rtol 1e-4 / atol 1e-5 (CPU side {cpu_s:.1f} s)")
+    del gpu_state, state
+    torch.cuda.empty_cache()
 
 
-def phase_step_profile(recipe: dict, steps: int):
+def phase_step_profile(recipe: dict, steps: int, n_ent: int = N_ENT,
+                       n_rel: int = N_REL):
     """Where a step's time goes: the host clock over `steps`
     DevicePipeline steps, then torch.profiler over the same number for the
     device's busy share and the kernels by device time."""
@@ -1089,10 +1242,12 @@ def phase_step_profile(recipe: dict, steps: int):
     from dglke_tpu_torch.trainer import DevicePipeline
     name = recipe["model_name"]
     cfg = KGEConfig(**recipe)
-    ds = synthetic_dataset(N_ENT, N_REL, n_train=100_000, seed=0)
-    model = KEModel(cfg, N_ENT, N_REL, device="cuda")
+    batch = cfg.batch_size
+    ds = synthetic_dataset(n_ent, n_rel, n_train=100_000, seed=0)
+    model = KEModel(cfg, n_ent, n_rel, device="cuda")
     state = model.init_state()
-    pipe = DevicePipeline(model, ds, BATCH, cfg.num_chunks * NEG, seed=0)
+    pipe = DevicePipeline(model, ds, batch,
+                          cfg.num_chunks * cfg.neg_sample_size, seed=0)
 
     def run(n):
         nonlocal state
@@ -1109,18 +1264,362 @@ def phase_step_profile(recipe: dict, steps: int):
         run(steps)
     kern = _kernel_events(prof)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
-    print(f"{name} step profile: {step_ms:.4f} ms per step on the host "
-          f"clock ({BATCH * 1e3 / step_ms:.1f} triples/s); device busy "
+    print(f"{name} step profile [{n_ent} x {n_rel}, batch {batch}]: "
+          f"{step_ms:.4f} ms per step on the host clock "
+          f"({batch * 1e3 / step_ms:.1f} triples/s); device busy "
           f"{busy:.4f} ms per step ({100 * busy / step_ms:.1f}%, idle "
           f"{100 - 100 * busy / step_ms:.1f}%); "
           f"{sum(e.count for e in kern) / steps:.1f} kernels per step")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
               f"x{e.count / steps:.1f}  {e.key[:90]}")
+    del state, model
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
-# Phase 5
+# The ogbl-wikikg2 path
+
+
+def _wikikg2_dataset():
+    """A synthetic dataset at ogbl-wikikg2's published shape (cut as
+    WIKI_TRAIN and WIKI_TEST say)."""
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    return synthetic_dataset(n_entities=WIKI_ENT, n_relations=WIKI_REL,
+                             n_train=WIKI_TRAIN, n_valid=1000,
+                             n_test=WIKI_TEST, seed=0, name="wikikg2")
+
+
+def _serve_as_ogb(ds) -> None:
+    """Register an `ogb.linkproppred` module whose LinkPropPredDataset
+    serves ``ds`` in ogb's layout (the edge split dicts; num_nodes and an
+    [E, 1] edge_reltype), so that the CLI loads it through its ogb loader:
+    the script needs neither the `ogb` package nor the wikikg2 files."""
+    import types
+
+    class LinkPropPredDataset:
+        def __init__(self, name, root):
+            if name != "ogbl-wikikg2":
+                fail(f"the ogb stand-in serves ogbl-wikikg2, not {name}")
+
+        def get_edge_split(self):
+            return {split: dict(zip(("head", "relation", "tail"),
+                                    getattr(ds, split)))
+                    for split in ("train", "valid", "test")}
+
+        def __getitem__(self, i):
+            return {"num_nodes": ds.n_entities,
+                    "edge_reltype": ds.train[1][:, None]}
+
+    ogb = types.ModuleType("ogb")
+    ogb.linkproppred = types.ModuleType("ogb.linkproppred")
+    ogb.linkproppred.LinkPropPredDataset = LinkPropPredDataset
+    sys.modules["ogb"] = ogb
+    sys.modules["ogb.linkproppred"] = ogb.linkproppred
+
+
+def phase_wikikg2():
+    """The ogbl-wikikg2 TransE_l2 recipe through the CLI on the card, at
+    the published shape, with the recipe's sampled eval (--test
+    --neg_sample_size_eval 500, unfiltered); returns (launch counts, the
+    dataset, the trained model and state)."""
+    ds = _wikikg2_dataset()
+    _serve_as_ogb(ds)
+    steps = MAIN_STEPS
+    argv = ["--dataset", "wikikg2", "--data_path", WORK, "--format",
+            "built_in", *_recipe_flags(WIKI), "--max_step", str(steps),
+            "--log_interval", str(steps // 4), "--no_eval_filter", "--test",
+            "--batch_size_eval", str(WIKI_EVAL_BATCH),
+            "--neg_sample_size_eval", str(WIKI_EVAL_NEG), "--no_save_emb",
+            "--save_path", os.path.join(WORK, "ckpts")]
+    counts, text, model, state = run_cli("wikikg2", argv)
+    mrr = _floats(r"\[0\]Test average MRR: (\S+)", text)
+    train_s = _floats(r"training takes (\S+) seconds", text)
+    eval_s = _floats(r"\[0\]Test takes (\S+) seconds", text)
+    losses = _floats(r"average loss: (\S+)", text)
+    if len(mrr) != 1 or not 0.0 < mrr[0] <= 1.0:
+        fail(f"wikikg2 main path: test MRR {mrr} outside (0, 1]")
+    if f"|Train|: {WIKI_TRAIN}" not in text:
+        fail("wikikg2 main path: the ogb loader did not serve the dataset")
+    print(f"wikikg2 main path [{WIKI_ENT} x {WIKI['hidden_dim']} entity "
+          f"table, {tuple(state.entity.emb.shape)} "
+          f"{str(state.entity.emb.dtype)[6:]}]: {steps} steps, "
+          f"{steps * WIKI['batch_size'] / train_s[0]:.1f} triples/s (host "
+          f"clock over the whole loop, first step included), sampled test "
+          f"eval of {WIKI_TEST} triples x 2 modes {eval_s[0]:.3f} s, MRR "
+          f"{mrr[0]!r}, last loss {losses[-1]:.4f}; launches {counts}")
+    return counts, ds, model, state
+
+
+def phase_sampled_ranks(ds, model, state, n_batches: int = 8):
+    """The sampled ranks of the first test batches in both modes on the
+    card (one grouped call, as the eval makes it) against the CPU: the
+    rows are gathered on the card, only they are copied to the CPU, and
+    the CPU ranks them with the same row-level core.  Ranks must be equal
+    but on rows with a near tie (a kept score within TIE_RTOL (|pos| +
+    gamma) of the positive score); the counts of those rows and of the rows
+    within POS_RTOL |pos| are printed."""
+    import torch
+    from itertools import islice
+    from dglke_tpu_torch.data.sampler import EvalSampler
+    from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.ops import rows
+    cfg = model.config
+    cpu = KEModel(cfg, ds.n_entities, ds.n_relations, device="cpu")
+    sf = cpu.score_fn
+    dev = state.entity.emb.device
+    for mode in ("head", "tail"):
+        sampler = EvalSampler(ds, "test", cfg.batch_size_eval, mode, None,
+                              seed=cfg.seed,
+                              neg_sample_size=cfg.neg_sample_size_eval)
+        batches = list(islice(sampler, n_batches))
+        neg_head = mode == "head"
+
+        def stack(k, batches=batches):
+            return torch.as_tensor(np.stack([b[k] for b in batches]),
+                                   device=dev)
+
+        h, r, t, neg = (stack(k) for k in ("h", "r", "t", "neg"))
+        got = model.eval_ranks_sampled(state, h, r, t, neg, None,
+                                       neg_head=neg_head).cpu()
+        g, b = h.shape
+        ent = rows.gather_rows(state.entity.emb, torch.cat(
+            [h.reshape(-1), t.reshape(-1), neg.reshape(-1)]),
+            cpu.entity_dim).cpu()
+        rel = rows.gather_rows(state.relation.emb, r.reshape(-1),
+                               cpu.relation_dim).cpu()
+        h_rows, t_rows = ent[:g * b], ent[g * b:2 * g * b]
+        neg_rows = ent[2 * g * b:]
+        want = cpu._rows_eval_ranks_sampled(
+            h_rows.reshape(g, b, -1), t_rows.reshape(g, b, -1),
+            rel.reshape(g, b, -1), None, neg_rows.reshape(g, -1,
+                                                          h_rows.shape[1]),
+            None, neg_head=neg_head)
+        pos = sf.pos_score(h_rows, rel, t_rows).reshape(g, b, 1)
+        s = sf.neg_score(t_rows if neg_head else h_rows, rel, neg_rows,
+                         neg_head=neg_head, num_chunks=g, chunk_size=b,
+                         neg_sample_size=neg.shape[1]).reshape(g, b, -1)
+        gap = (s - pos).abs()
+        near = (gap <= TIE_RTOL * (pos.abs() + cfg.gamma)).any(-1)
+        near_pos = (gap <= POS_RTOL * pos.abs()).any(-1)
+        differ = got != want
+        if bool((differ & ~near).any()):
+            fail(f"sampled ranks ({mode}): {int(differ.sum())} rows differ "
+                 f"from the CPU's, {int((differ & ~near).sum())} of them "
+                 f"with no near tie")
+        print(f"sampled ranks ({mode}), first {g} test batches of {b} x "
+              f"{neg.shape[1]} negatives: {int((~differ).sum())} of {g * b} "
+              f"equal to the CPU's, {int(differ.sum())} differing, all at "
+              f"near ties; rows with a score within {POS_RTOL} |pos| of "
+              f"pos: {int(near_pos.sum())}, within {TIE_RTOL} (|pos| + "
+              f"gamma): {int(near.sum())}")
+
+
+def _candidates(ds, seed: int = 0):
+    """A wikikg90M-style candidate split over the test triples: CAND_K
+    uniform candidates a query with its true tail at t_correct_index.
+    Every 4th row lists the answer twice (after it), every 4th from the
+    second lists another candidate twice: exact ties."""
+    rng = np.random.RandomState(seed)
+    h, r, t = (x[:CAND_QUERIES] for x in ds.test)
+    cand = rng.randint(0, ds.n_entities, (CAND_QUERIES, CAND_K))
+    ans = rng.randint(0, CAND_K - 1, CAND_QUERIES)
+    cand[np.arange(CAND_QUERIES), ans] = t
+    cand[0::4, CAND_K - 1] = t[0::4]
+    cand[1::4, CAND_K - 1] = cand[1::4, 3]
+    return {"h,r->t": {"hr": np.stack([h, r], axis=1),
+                       "t_candidate": cand, "t_correct_index": ans}}
+
+
+def phase_candidates(model, state, ds):
+    """The candidate protocol on the trained state: CAND_QUERIES queries x
+    CAND_K candidates through evaluate_candidates in Valid and in Test
+    mode on the card, then the same rows scored and ranked on the CPU (the
+    tables copied there).  Exact ties: the card must score the two copies
+    of a candidate listed twice the same, bit for bit, rank an answer
+    listed twice at 3 or worse, and list tied copies lower position first.
+    Ranks and top-10 positions must equal the CPU's but on rows with a
+    near tie on the CPU (another candidate, a copy included, within
+    TIE_RTOL (|score| + gamma) of the score compared: the CPU's dot may
+    round a copy apart)."""
+    import pickle
+    import torch
+    from dglke_tpu_torch.models.ke_model import (
+        KEModel,
+        candidate_ranks,
+        candidate_top,
+        metrics_from_ranks,
+    )
+    from dglke_tpu_torch.trainer import (
+        CandidateEvalSampler,
+        evaluate_candidates,
+    )
+    cfg = model.config
+    sampler = CandidateEvalSampler(_candidates(ds), cfg.batch_size_eval)
+    quiet = lambda *a: None  # noqa: E731
+    t0 = time.perf_counter()
+    metrics = evaluate_candidates(model, state, sampler, mode="Valid",
+                                  log=quiet)
+    valid_s = time.perf_counter() - t0
+    out_dir = os.path.join(WORK, "candidates")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    evaluate_candidates(model, state, sampler, mode="Test",
+                        save_path=out_dir, log=quiet)
+    test_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "test_0.pkl"), "rb") as f:
+        top_card = pickle.load(f)["h,r->t"]["t_pred_top10"]
+    if top_card.shape != (CAND_QUERIES, 10) or top_card.dtype != np.int32:
+        fail(f"candidate Test pkl: {top_card.shape} {top_card.dtype}")
+
+    cpu = KEModel(cfg, ds.n_entities, ds.n_relations, device="cpu")
+    cpu_state = _cpu_copy(state)
+    hr = torch.from_numpy(sampler.hr)
+    cand = torch.from_numpy(sampler.cand)
+    ans = torch.from_numpy(sampler.ans).long()
+    s_card, s_cpu = [], []
+    b = cfg.batch_size_eval
+    for beg in range(0, CAND_QUERIES, b):
+        sl = slice(beg, beg + b)
+        s_card.append(model.candidate_scores(
+            state, hr[sl, 0].cuda(), hr[sl, 1].cuda(),
+            cand[sl].cuda()).cpu())
+        s_cpu.append(cpu.candidate_scores(cpu_state, hr[sl, 0], hr[sl, 1],
+                                          cand[sl]))
+    del cpu_state
+    s_card, s_cpu = torch.cat(s_card), torch.cat(s_cpu)
+    card_ranks = candidate_ranks(s_card, ans)
+    if metrics_from_ranks(card_ranks.numpy()) != metrics:
+        fail("candidate Valid metrics differ from the card's own ranks")
+    if not np.array_equal(candidate_top(s_card).numpy(), top_card):
+        fail("candidate Test pkl differs from the card's own top-10")
+
+    # exact ties on the card
+    rows_a = torch.arange(0, CAND_QUERIES, 4)       # the answer twice
+    rows_b = torch.arange(1, CAND_QUERIES, 4)       # candidate 3 twice
+    last = CAND_K - 1
+    n_dup = len(rows_a) + len(rows_b)
+    copies = {dev: int((s[rows_a, last] == s[rows_a, ans[rows_a]]).sum()
+                       + (s[rows_b, last] == s[rows_b, 3]).sum())
+              for dev, s in (("card", s_card), ("cpu", s_cpu))}
+    if copies["card"] != n_dup:
+        fail(f"candidate scores: the card scores {copies['card']} of {n_dup} "
+             f"candidates listed twice the same")
+    if not bool((card_ranks[rows_a] >= 3).all()):
+        fail("candidate ranks: an answer listed twice ranked above 3")
+    for i in rows_b.tolist():
+        tied = [int(p) for p in top_card[i] if p in (3, last)]
+        if tied != sorted(tied):
+            fail(f"candidate top-10 row {i}: tied copies out of order {tied}")
+
+    # the card against the CPU
+    tol = TIE_RTOL * (s_cpu.abs() + cfg.gamma)
+    pos = torch.gather(s_cpu, 1, ans[:, None])
+    gap = (s_cpu - pos).abs()
+    gap[torch.arange(CAND_QUERIES), ans] = float("inf")
+    near_rank = (gap <= torch.gather(tol, 1, ans[:, None])).any(1)
+    srt = torch.sort(s_cpu, dim=1, descending=True).values[:, :11]
+    near_top = ((srt[:, :-1] - srt[:, 1:])
+                <= TIE_RTOL * (srt[:, 1:].abs() + cfg.gamma)).any(1)
+    bad_rank = card_ranks != candidate_ranks(s_cpu, ans)
+    bad_top = torch.from_numpy((top_card != candidate_top(s_cpu).numpy())
+                               .any(1))
+    for what, bad, near in (("ranks", bad_rank, near_rank),
+                            ("top-10", bad_top, near_top)):
+        if bool((bad & ~near).any()):
+            rows = torch.nonzero(bad & ~near).flatten().tolist()[:5]
+            fail(f"candidate {what}: {int(bad.sum())} rows differ from the "
+                 f"CPU's, {int((bad & ~near).sum())} of them with no near "
+                 f"tie (rows {rows})")
+    print(f"candidate protocol [{CAND_QUERIES} queries x {CAND_K} "
+          f"candidates, {len(rows_a)} rows listing the answer twice, "
+          f"{len(rows_b)} another candidate twice]: Valid MRR "
+          f"{metrics['MRR']!r} in {valid_s:.3f} s, Test top-10 pkl in "
+          f"{test_s:.3f} s; copies scored the same: card {copies['card']}, "
+          f"CPU {copies['cpu']} of {n_dup}; max |score card - CPU| "
+          f"{float((s_card - s_cpu).abs().max()):.3g} (scores "
+          f"{float(s_cpu.min()):.3f} to {float(s_cpu.max()):.3f}); against "
+          f"the CPU: ranks {int((~bad_rank).sum())} equal, "
+          f"{int(bad_rank.sum())} differing, all at near ties "
+          f"({int(near_rank.sum())} rows with one); top-10 "
+          f"{int((~bad_top).sum())} equal, {int(bad_top.sum())} differing, "
+          f"all at near ties ({int(near_top.sum())} rows with one)")
+
+
+def phase_wiki_kernels(state):
+    """K1 and the whole K2 call at the wikikg2 path's entity shape (1,536
+    ids over the 2,500,604 x 500 fp32 table, 5.0 GB), cold in L2: each call
+    takes the next of 64 id batches (uniform, 197 MB of distinct rows in
+    all, four times the L2), in turns beside index_select / index_add_ and
+    the plain versions, with the bounds.  Returns the numbers for the JSON
+    line."""
+    import itertools
+    import torch
+    from dglke_tpu_torch.ops import rows
+    emb, ss = state.entity.emb, state.entity.state_sum
+    dev, dim = emb.device, emb.shape[1]
+    gen = torch.Generator(dev)
+    gen.manual_seed(5)
+    pool = [torch.randint(0, WIKI_ENT, (WIKI_ENT_IDS,), generator=gen,
+                          device=dev, dtype=torch.int32) for _ in range(64)]
+    pool64 = [ids.long() for ids in pool]
+    grads = torch.randn((WIKI_ENT_IDS, dim), generator=gen, device=dev) * 0.1
+    uniq = float(np.mean([torch.unique(x).numel() for x in pool]))
+    n = WIKI_ENT_IDS
+
+    def cycling(fn, ids_pool):
+        it = itertools.cycle(ids_pool)
+        return lambda: fn(next(it))
+
+    for ids in pool[:2]:
+        if not torch.equal(rows.gather_rows(emb, ids, dim),
+                           rows.gather_rows_plain(emb, ids, dim)):
+            fail("K1 at the wikikg2 shape: differs from its plain version")
+    k1 = _in_turns({
+        "kernel": cycling(lambda i: rows.gather_rows(emb, i, dim), pool),
+        "index_select": cycling(lambda i: torch.index_select(emb, 0, i),
+                                pool64),
+        "plain": cycling(lambda i: rows.gather_rows_plain(emb, i, dim),
+                         pool)}, iters=64)
+    k1_bytes = n * 4 + uniq * dim * 4 + n * dim * 4
+    k1_bound, k1_by = bound_ms(k1_bytes, 0)
+    k2 = _in_turns({
+        "kernel": cycling(lambda i: rows.sparse_adagrad_rows(
+            emb, ss, i, grads, LR), pool),
+        "index_add_": cycling(lambda i: emb.index_add_(0, i, grads), pool64),
+        "plain": cycling(lambda i: rows.sparse_adagrad_plain(
+            emb, ss, i, grads, LR), pool)}, iters=64)
+    split = device_ms_by_kernel(cycling(lambda i: rows.sparse_adagrad_rows(
+        emb, ss, i, grads, LR), pool), iters=64)
+    k2_bytes = n * 4 + n * dim * 4 + 2 * uniq * dim * 4 + 2 * uniq * 4
+    k2_bound, k2_by = bound_ms(k2_bytes, 3 * n * dim + 3 * uniq * dim)
+    print(f"K1 gather_rows at the wikikg2 shape [{n} ids ({uniq:.1f} "
+          f"distinct on average) over {WIKI_ENT} x {dim} fp32, cold L2], "
+          f"device ms in turns: " + ", ".join(f"{k} {v:.5f}"
+                                             for k, v in k1.items())
+          + f"; bound {k1_bound:.6f} ({k1_by}, {k1_bytes / 1e6:.3f} MB), "
+          f"{100 * k1_bound / k1['kernel']:.1f}% of it; "
+          f"{'not slower' if k1['kernel'] <= k1['index_select'] else 'SLOWER'}"
+          f" than index_select")
+    print(f"K2 sparse_adagrad_rows at the wikikg2 shape [{n} ids over "
+          f"{WIKI_ENT} x {dim} fp32, cold L2], device ms in turns: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in k2.items())
+          + "; the kernel call by kernel: " + ", ".join(
+              f"{k[:40]} {v:.5f}" for k, v in split.items())
+          + f"; bound {k2_bound:.6f} ({k2_by}, {k2_bytes / 1e6:.3f} MB), "
+          f"{100 * k2_bound / k2['kernel']:.1f}% of it; "
+          f"{'not slower' if k2['kernel'] <= k2['index_add_'] else 'SLOWER'}"
+          f" than index_add_ (the add alone)")
+    return ({"wikikg2_ms": k1["kernel"], "wikikg2_plain_ms": k1["plain"],
+             "wikikg2_library_ms": k1["index_select"],
+             "wikikg2_bound_ms": k1_bound},
+            {"wikikg2_ms": k2["kernel"], "wikikg2_plain_ms": k2["plain"],
+             "wikikg2_library_ms": k2["index_add_"],
+             "wikikg2_bound_ms": k2_bound})
+
+
+# ---------------------------------------------------------------------------
+# Phase 7
 
 # tests/test_planted_quality.py:27-46: (model, structure, overrides)
 PLANTED_BASE = dict(hidden_dim=32, gamma=6.0, lr=0.25, batch_size=128,
@@ -1184,15 +1683,28 @@ def main() -> int:
         paths = {"TransE_l2": phase_main_path(TRANSE, batch_size_eval=500)}
         phase_step_parity(TRANSE)
         phase_step_profile(TRANSE, steps=50)
+        paths["TransE_l2 async"] = phase_main_path(
+            TRANSE, batch_size_eval=500, extra=("--async_update",),
+            label="TransE_l2 async")
+        paths["TransE_l2 host-fed"] = phase_host_fed()
         paths["RESCAL"] = phase_main_path(RESCAL,
                                           batch_size_eval=RESCAL_EVAL_BATCH)
         phase_step_parity(RESCAL)
         phase_step_profile(RESCAL, steps=20)
+        paths["wikikg2"], ds, model, state = phase_wikikg2()
+        phase_sampled_ranks(ds, model, state)
+        phase_candidates(model, state, ds)
+        k1_wiki, k2_wiki = phase_wiki_kernels(state)
+        kernels[0].update(k1_wiki)
+        kernels[2].update(k2_wiki)
+        del ds, model, state
+        phase_step_parity(WIKI, n_ent=WIKI_ENT, n_rel=WIKI_REL)
+        phase_step_profile(WIKI, steps=50, n_ent=WIKI_ENT, n_rel=WIKI_REL)
         phase_planted()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # launches: the sum over the two main-path runs, each read around its
-    # own run only
+    # launches: the sum over the main-path runs, each read around its own
+    # run only
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths.values())
         if k["launches"] <= 0:

@@ -68,9 +68,13 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--save_interval", type=int, default=-1,
                    help="checkpoint every N steps during training (-1 = "
                         "only at the end)")
+    p.add_argument("--async_update", action="store_true",
+                   help="defer each step's entity update by one step inside "
+                        "a group of steps (deterministic form of the "
+                        "reference's async updater; rows scored one step "
+                        "stale)")
     # Accepted for the JAX package's command lines; refused below.
     p.add_argument("--mix_cpu_gpu", action="store_true")
-    p.add_argument("--async_update", action="store_true")
     p.add_argument("--dist", action="store_true")
     p.add_argument("--sharded_ckpt", action="store_true")
 
@@ -79,13 +83,9 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
 _UNPORTED = {
     "--mix_cpu_gpu": (lambda a: a.mix_cpu_gpu,
                       "A10 (host-resident tables, host_table.py)"),
-    "--async_update": (lambda a: a.async_update,
-                       "A8 (the rest of KEModel)"),
     "--dist": (lambda a: a.dist, "A11 (multi-device)"),
     "--sharded_ckpt": (lambda a: a.sharded_ckpt,
                        "A11 (sharded checkpoints)"),
-    "--neg_sample_size_eval": (lambda a: a.neg_sample_size_eval > 0,
-                               "A8 (sampled eval)"),
 }
 
 

@@ -1,5 +1,8 @@
-"""`dglke_tpu_torch-eval`: filtered full-entity evaluation of a saved
-checkpoint (counterpart of dglke_tpu/cli/eval.py), single device."""
+"""`dglke_tpu_torch-eval`: evaluation of a saved checkpoint (counterpart of
+dglke_tpu/cli/eval.py), single device: filtered or raw ranking against all
+entities or sampled negatives, or, for a dataset with a candidate-list test
+split (wikikg90M), Valid metrics when it has answers and the top-10
+test_0.pkl in the checkpoint directory when it has none."""
 
 from __future__ import annotations
 
@@ -12,7 +15,11 @@ from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import get_dataset
 from dglke_tpu_torch.device import resolve_device
 from dglke_tpu_torch.models.ke_model import KEModel
-from dglke_tpu_torch.trainer import evaluate
+from dglke_tpu_torch.trainer import (
+    CandidateEvalSampler,
+    evaluate,
+    evaluate_candidates,
+)
 from dglke_tpu_torch.utils.io import load_model_state
 
 
@@ -22,10 +29,6 @@ def main(argv=None):
     parser.add_argument("--model_path", type=str, default="ckpts",
                         help="directory containing the saved checkpoint")
     args = parser.parse_args(argv)
-    if args.neg_sample_size_eval > 0:
-        raise SystemExit("--neg_sample_size_eval is not ported to "
-                         "dglke_tpu_torch yet: it is ROADMAP item A8 "
-                         "(sampled eval); use dglke_tpu")
     if os.path.isdir(os.path.join(args.model_path, "sharded_state")):
         raise SystemExit("sharded checkpoints are not ported to "
                          "dglke_tpu_torch yet: they are ROADMAP item A11")
@@ -47,6 +50,14 @@ def main(argv=None):
     model = KEModel(cfg, dataset.n_entities, dataset.n_relations,
                     device=device)
     state = load_model_state(cfg, model, args.model_path)
+    if dataset.test_dict is not None:
+        sampler = CandidateEvalSampler(dataset.test_dict,
+                                       cfg.batch_size_eval)
+        evaluate_candidates(
+            model, state, sampler,
+            mode="Valid" if sampler.ans is not None else "Test",
+            save_path=args.model_path)
+        return 0
     evaluate(cfg, dataset, model, state, "test")
     return 0
 

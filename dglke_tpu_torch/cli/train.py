@@ -1,5 +1,7 @@
 """`dglke_tpu_torch-train`: the training CLI (counterpart of
-dglke_tpu/cli/train.py), single device."""
+dglke_tpu/cli/train.py), single device.  A dataset with candidate-list
+splits (wikikg90M) is validated and tested by the candidate protocol: Valid
+metrics during training, top-10 predictions into test_0.pkl at the end."""
 
 from __future__ import annotations
 
@@ -18,7 +20,12 @@ from dglke_tpu_torch.data.dataset import get_dataset
 from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex
 from dglke_tpu_torch.device import resolve_device
 from dglke_tpu_torch.models.ke_model import KEModel
-from dglke_tpu_torch.trainer import evaluate, train
+from dglke_tpu_torch.trainer import (
+    CandidateEvalSampler,
+    evaluate,
+    evaluate_candidates,
+    train,
+)
 from dglke_tpu_torch.utils.io import load_model_state, save_model
 
 
@@ -59,15 +66,23 @@ def main(argv=None):
         print(f"Resumed from {args.init_from} at step {state.step}")
     print(f"Init takes {time.time() - init_start:.3f} seconds")
 
-    # Build the eval filter only when something will evaluate.
+    # Build the eval filter only when a non-candidate eval will run.
+    candidate_mode = (dataset.valid_dict is not None
+                      or dataset.test_dict is not None)
     filter_index = (FilterIndex(dataset)
-                    if cfg.eval_filter and (cfg.valid or cfg.test) else None)
+                    if cfg.eval_filter and not candidate_mode
+                    and (cfg.valid or cfg.test) else None)
     valid_samplers = None
-    if cfg.valid and dataset.valid is not None:
+    if cfg.valid and dataset.valid_dict is not None:
+        valid_samplers = [CandidateEvalSampler(dataset.valid_dict,
+                                               cfg.batch_size_eval)]
+    elif cfg.valid and dataset.valid is not None:
         valid_samplers = [
             EvalSampler(dataset, "valid", cfg.batch_size_eval, mode,
                         filter_index, eval_percent=cfg.eval_percent,
-                        seed=cfg.seed)
+                        seed=cfg.seed,
+                        neg_sample_size=cfg.neg_sample_size_eval,
+                        neg_deg_sample=cfg.neg_deg_sample_eval)
             for mode in ("head", "tail")
         ]
 
@@ -85,7 +100,12 @@ def main(argv=None):
     if not cfg.no_save_emb:
         save_model(cfg, model, state, emap_file=dataset.emap_fname,
                    rmap_file=dataset.rmap_fname)
-    if cfg.test and dataset.test is not None:
+    if cfg.test and dataset.test_dict is not None:
+        evaluate_candidates(
+            model, state, CandidateEvalSampler(dataset.test_dict,
+                                               cfg.batch_size_eval),
+            mode="Test", save_path=cfg.save_path)
+    elif cfg.test and dataset.test is not None:
         evaluate(cfg, dataset, model, state, "test",
                  filter_index=filter_index)
     return 0

@@ -79,6 +79,13 @@ class KGEConfig:
     no_save_emb: bool = False
     log_interval: int = 1000
 
+    # -- training schedule ---------------------------------------------------
+    async_update: bool = False  # defer each step's entity update by one
+    # step inside a group of steps_per_call steps (the deterministic form of
+    # the reference's async updater: the scored rows are one step stale)
+    steps_per_call: int = 16  # steps a group (aligned with the log, eval
+    # and save intervals by the trainer); async updates flush at its end
+
     # -- storage -------------------------------------------------------------
     emb_dtype: str = "float32"  # "bfloat16" stores tables in bf16; the
     # optimizer math and the Adagrad accumulator stay fp32
@@ -117,6 +124,9 @@ class KGEConfig:
             raise ValueError(f"{self.loss_genre} loss cannot be pairwise")
         if self.emb_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown emb_dtype {self.emb_dtype}")
+        if self.steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be at least 1, got "
+                             f"{self.steps_per_call}")
         if self.neg_deg_sample_eval:
             if self.eval_filter:
                 raise ValueError(

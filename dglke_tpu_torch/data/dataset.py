@@ -8,7 +8,10 @@ Covers the layouts the single-device trainer reads:
   * user-defined pre-mapped datasets ``udd_{hrt-permutation}``;
   * raw user-defined datasets ``raw_udd_{permutation}`` (string triples; the
     loader builds id maps and writes entities.tsv / relations.tsv);
-  * custom delimiters and an optional 4th edge-importance column.
+  * custom delimiters and an optional 4th edge-importance column;
+  * the ogb datasets (wikikg2, biokg) and wikikg90M, with its
+    candidate-list eval splits, through the ``ogb`` package, which is
+    imported only when one of them is loaded.
 
 Built-in datasets are read from ``data_path``; this package downloads
 nothing.  Synthetic and planted-structure generators for tests and the
@@ -49,6 +52,10 @@ class KGDataset:
     relation2id: Optional[Dict[str, int]] = None
     emap_fname: Optional[str] = None
     rmap_fname: Optional[str] = None
+    # candidate-list eval splits (the wikikg90M protocol): dicts of the form
+    # {"h,r->t": {"hr": [N,2], "t_candidate": [N,K], "t_correct_index": [N]}}
+    valid_dict: Optional[dict] = None
+    test_dict: Optional[dict] = None
 
     @property
     def has_edge_importance(self) -> bool:
@@ -191,6 +198,50 @@ def _load_freebase(path: str) -> KGDataset:
         emap_fname="entity2id.txt", rmap_fname="relation2id.txt"))
 
 
+def _load_ogb(data_path: str, name: str) -> KGDataset:
+    """ogbl-wikikg2 / ogbl-biokg through ogb's LinkPropPredDataset."""
+    try:
+        from ogb.linkproppred import LinkPropPredDataset
+    except ImportError as e:
+        raise ImportError(
+            f"Dataset {name} requires the `ogb` package, which is not "
+            "installed in this environment.") from e
+    dataset = LinkPropPredDataset(name=f"ogbl-{name}", root=data_path)
+    split_edge = dataset.get_edge_split()
+    g = dataset[0]
+    # edge_reltype is [E, 1] in ogb's dict graph; np.max takes any rank
+    n_relations = int(np.max(np.asarray(g["edge_reltype"]))) + 1
+
+    def tri(d):
+        return (np.asarray(d["head"], np.int64),
+                np.asarray(d["relation"], np.int64),
+                np.asarray(d["tail"], np.int64))
+
+    return KGDataset(name=name, n_entities=int(g["num_nodes"]),
+                     n_relations=n_relations, train=tri(split_edge["train"]),
+                     valid=tri(split_edge["valid"]),
+                     test=tri(split_edge["test"]))
+
+
+def _load_wiki90m(data_path: str) -> KGDataset:
+    """wikikg90M (OGB-LSC): train is an [N, 3] hrt array; valid and test
+    are 'h,r->t' query dicts with 1,001 tail candidates each."""
+    try:
+        from ogb.lsc import WikiKG90MDataset
+    except ImportError as e:
+        raise ImportError(
+            "Dataset wikikg90M requires the `ogb` package (ogb.lsc), "
+            "which is not installed in this environment.") from e
+    dataset = WikiKG90MDataset(data_path)
+    hrt = np.asarray(dataset.train_hrt)
+    return KGDataset(
+        name="wikikg90M", n_entities=int(dataset.num_entities),
+        n_relations=int(dataset.num_relations),
+        train=(hrt[:, 0].astype(np.int64), hrt[:, 1].astype(np.int64),
+               hrt[:, 2].astype(np.int64)),
+        valid_dict=dataset.valid_dict, test_dict=dataset.test_dict)
+
+
 # ---------------------------------------------------------------------------
 # User-defined datasets
 
@@ -274,10 +325,10 @@ def get_dataset(data_path: str, data_name: str, format_str: str,
                 delimiter: str = "\t", files: Optional[List[str]] = None,
                 has_edge_importance: bool = False) -> KGDataset:
     if format_str == "built_in":
-        if data_name in ("wikikg2", "biokg", "wikikg90M"):
-            raise NotImplementedError(
-                f"dglke_tpu_torch does not load {data_name} yet: the ogb "
-                "loaders and candidate-list eval are ROADMAP item A8")
+        if data_name in ("wikikg2", "biokg"):
+            return _load_ogb(data_path, data_name)
+        if data_name == "wikikg90M":
+            return _load_wiki90m(data_path)
         return load_builtin(data_path, data_name)
     if format_str.startswith("raw_udd"):
         return load_raw_udd(data_path, data_name, delimiter, files,

@@ -287,11 +287,44 @@ class KEModel:
     def train_step(self, state: TrainState, h, r, t, neg, impts, *,
                    neg_head: bool):
         """One full step, IN PLACE on ``state``.  Returns (state, log)."""
-        cfg = self.config
         _, log, (ent_ids, ent_grads, rel_grads, proj_grads) = \
             self.loss_and_grads(state, h, r, t, neg, impts,
                                 neg_head=neg_head)
-        sparse_adagrad_update(state.entity, ent_ids, ent_grads, cfg.lr)
+        sparse_adagrad_update(state.entity, ent_ids, ent_grads,
+                              self.config.lr)
+        self._update_relation(state, r, rel_grads, proj_grads)
+        state.step += 1
+        return state, log
+
+    def train_step_async(self, state: TrainState, pending, h, r, t, neg,
+                         impts, *, neg_head: bool):
+        """A step with the entity update deferred (--async_update), IN
+        PLACE on ``state``: the previous step's entity update (``pending``,
+        (ids, grads) or None) is applied after this step's gather, so the
+        rows it scores are one step stale; relations (and TransR's
+        projections) update at once.  Returns (state, this step's entity
+        update as the new pending, log); ``flush_async`` applies the last
+        one."""
+        _, log, (ent_ids, ent_grads, rel_grads, proj_grads) = \
+            self.loss_and_grads(state, h, r, t, neg, impts,
+                                neg_head=neg_head)
+        self.flush_async(state, pending)
+        self._update_relation(state, r, rel_grads, proj_grads)
+        state.step += 1
+        return state, (ent_ids, ent_grads), log
+
+    def flush_async(self, state: TrainState, pending) -> TrainState:
+        """Apply a pending entity update; None launches nothing."""
+        if pending is not None:
+            sparse_adagrad_update(state.entity, pending[0], pending[1],
+                                  self.config.lr)
+        return state
+
+    def _update_relation(self, state: TrainState, r, rel_grads,
+                         proj_grads) -> None:
+        """The relation update of a step (the outer-product kernel on
+        RESCAL's factored route) and TransR's projection update."""
+        cfg = self.config
         if isinstance(rel_grads, tuple) and rel_grads[0] == "outer":
             outer_adagrad_update(state.relation, r, rel_grads[1],
                                  rel_grads[2], cfg.lr,
@@ -301,8 +334,6 @@ class KEModel:
             sparse_adagrad_update(state.relation, r, rel_grads, cfg.lr)
         if self.is_transr:
             sparse_adagrad_update(state.projection, r, proj_grads, cfg.lr)
-        state.step += 1
-        return state, log
 
     # -- evaluation ----------------------------------------------------------
 
@@ -402,6 +433,144 @@ class KEModel:
         fs = torch.gather(s, 1, torch.clamp(local, 0, block - 1).long())
         fge = torch.sum((fs >= pos[:, None]) & in_blk, dim=1)
         return torch.sum(ge, dim=1) - fge
+
+    @torch.no_grad()
+    def eval_ranks_sampled(self, state: TrainState, h, r, t, neg,
+                           neg_keep=None, *, neg_head: bool,
+                           neg_deg_sample: bool = False,
+                           n_valid=None) -> torch.Tensor:
+        """Ranks against K sampled negatives shared by a batch (the
+        reference's --neg_sample_size_eval protocol): rank_i = 1 + |{j
+        kept : score_i(neg_j) >= pos_i}|.
+
+        One batch (h, r, t [B]; neg [K]; neg_keep [B, K]; n_valid an int)
+        or a group of G batches ranked together (h, r, t [G, B]; neg
+        [G, K]; neg_keep [G, B, K]; n_valid [G]), each row's rank the same
+        either way.  neg_keep None keeps every candidate.  Two gathers
+        (three for TransR): the entity rows [h | t | neg] and the
+        relation rows."""
+        n = h.numel()
+        ids = torch.cat([h.reshape(-1), t.reshape(-1), neg.reshape(-1)])
+        ent = gather_rows(state.entity, ids, self.entity_dim)
+        rel_rows = gather_rows(state.relation, r.reshape(-1),
+                               self.relation_dim)
+        proj_rows = (gather_rows(state.projection, r.reshape(-1),
+                                 self.proj_dim) if self.is_transr else None)
+
+        def rows(x):   # [(G,) rows, D], as the ids came
+            return x.reshape(*h.shape[:-1], -1, x.shape[-1])
+
+        return self._rows_eval_ranks_sampled(
+            rows(ent[:n]), rows(ent[n:2 * n]), rows(rel_rows),
+            None if proj_rows is None else rows(proj_rows),
+            rows(ent[2 * n:]), neg_keep, neg_head=neg_head,
+            neg_deg_sample=neg_deg_sample, n_valid=n_valid)
+
+    def _rows_eval_ranks_sampled(self, h_rows, t_rows, rel_rows, proj_rows,
+                                 neg_rows, neg_keep=None, *, neg_head: bool,
+                                 neg_deg_sample: bool = False,
+                                 n_valid=None) -> torch.Tensor:
+        """Row-level core of eval_ranks_sampled on fp32 rows: h_rows,
+        t_rows [(G,) B, De], rel_rows [(G,) B, Dr], TransR's proj_rows
+        [(G,) B, De*Dr] or None, neg_rows [(G,) K, De]; ranks [(G,) B].
+
+        neg_deg_sample keeps the reference's quirk: each batch's own
+        corrupted-side entities are PREPENDED as candidates and the
+        self-match diagonal is multiplied by zero, not excluded, so it
+        still takes part in the >= pos test.  The own-node columns of
+        padded rows (j >= n_valid) are masked."""
+        sf = self.score_fn
+        one = h_rows.dim() == 2
+        if one:
+            h_rows, t_rows, rel_rows, neg_rows = (
+                x[None] for x in (h_rows, t_rows, rel_rows, neg_rows))
+            proj_rows = None if proj_rows is None else proj_rows[None]
+            neg_keep = None if neg_keep is None else neg_keep[None]
+            n_valid = None if n_valid is None else [n_valid]
+        g, b = h_rows.shape[:2]
+        k = neg_rows.shape[1]
+        flat = lambda x: x.reshape(g * b, x.shape[-1])  # noqa: E731
+        h_use, t_use, rel = flat(h_rows), flat(t_rows), flat(rel_rows)
+        proj = None if proj_rows is None else flat(proj_rows)
+        if self.is_transr:
+            h_use = sf.project(h_use, proj)
+            t_use = sf.project(t_use, proj)
+        pos = sf.pos_score(h_use, rel, t_use).reshape(g, b, 1)
+        side = t_use if neg_head else h_use
+        if neg_deg_sample:
+            own = h_rows if neg_head else t_rows          # raw rows
+            neg_rows = torch.cat([own, neg_rows], dim=1)
+            k = b + k
+        cand = neg_rows.reshape(g * k, -1)
+        if self.is_transr:
+            # every candidate projected by each row's relation
+            cand = sf.neg_project(cand, proj, g)
+            side = side.reshape(g, b, -1)
+        s = sf.neg_score(side, rel, cand, neg_head=neg_head, num_chunks=g,
+                         chunk_size=b, neg_sample_size=k).reshape(g, b, k)
+        keep = None if neg_keep is None else neg_keep.to(s.device) > 0
+        if neg_deg_sample:
+            s = s * (1.0 - torch.eye(b, k, dtype=s.dtype, device=s.device))
+            nv = torch.as_tensor(b if n_valid is None else n_valid,
+                                 device=s.device).reshape(-1, 1, 1)
+            own_keep = (torch.arange(b, device=s.device)[None, None, :]
+                        < nv).expand(g, b, b)
+            keep = torch.cat([own_keep, torch.ones(
+                (g, b, k - b), dtype=torch.bool, device=s.device)
+                if keep is None else keep], dim=2)
+        hit = s >= pos
+        if keep is not None:
+            hit = hit & keep
+        ranks = torch.sum(hit, dim=2) + 1
+        return ranks[0] if one else ranks
+
+    @torch.no_grad()
+    def candidate_scores(self, state: TrainState, h, r, cand_ids, *,
+                         neg_head: bool = False) -> torch.Tensor:
+        """Scores of each row's candidate list, [B, K] fp32 (the
+        reference's predict_score_wikikg): h, r [B], cand_ids [B, K].  Two
+        gathers (three for TransR): the entity rows [h | candidates] and
+        the relation rows.  The tables' rows are upcast to fp32 first, bf16
+        tables too (the JAX package scores a bf16 table in bf16)."""
+        sf = self.score_fn
+        b, k = cand_ids.shape
+        ent = gather_rows(state.entity, torch.cat(
+            [h.reshape(-1).to(torch.int64), cand_ids.reshape(-1).to(
+                torch.int64)]), self.entity_dim)
+        h_rows, cand = ent[:b], ent[b:]
+        rel_rows = gather_rows(state.relation, r, self.relation_dim)
+        if self.is_transr:
+            # the query row and its K candidates, each projected by the
+            # row's own relation matrix
+            proj_rows = gather_rows(state.projection, r, self.proj_dim)
+            h_rows = sf.project(h_rows, proj_rows)
+            p = proj_rows.reshape(b, self.entity_dim, self.relation_dim)
+            cand = torch.einsum("bkd,bdr->bkr",
+                                cand.reshape(b, k, self.entity_dim), p)
+            s = sf.neg_score(h_rows.reshape(b, 1, -1), rel_rows,
+                             cand.reshape(b, 1, k, -1), neg_head=neg_head,
+                             num_chunks=b, chunk_size=1, neg_sample_size=k)
+            return s.reshape(b, k)
+        s = sf.neg_score(h_rows, rel_rows, cand, neg_head=neg_head,
+                         num_chunks=b, chunk_size=1, neg_sample_size=k)
+        return s.reshape(b, k)
+
+
+def candidate_ranks(scores: torch.Tensor, ans: torch.Tensor) -> torch.Tensor:
+    """Valid-mode rank of each row's answer among its candidates: the
+    answer counts itself, sum(scores >= scores[ans]) + 1, so the best rank
+    is 2 (the reference's general_models.py:504)."""
+    pos = torch.gather(scores, 1, ans.reshape(-1, 1).long())
+    return torch.sum(scores >= pos, dim=1) + 1
+
+
+def candidate_top(scores: torch.Tensor, top: int = 10) -> torch.Tensor:
+    """Test-mode positions of each row's ``top`` best candidates (fewer
+    when a row has fewer), tied candidates lowest position first, as
+    lax.top_k orders them: a stable descending sort, since torch.topk
+    promises no order among ties."""
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    return order[:, :min(top, scores.shape[1])]
 
 
 def metrics_from_ranks(ranks: np.ndarray) -> Dict[str, float]:

@@ -1,14 +1,22 @@
 """Training and evaluation loops (counterpart of dglke_tpu/trainer.py,
-single device, device-resident pipeline).
+single device).
 
-The log format follows the reference ("[proc 0][Train](step/max) average
-loss: ..." every log_interval; "[0]Test average MRR: ...") so existing
-tooling can parse it.
+Training is fed by the device-resident pipeline, or for a dataset smaller
+than two batches by the host-fed TrainSampler, and runs in groups of
+steps; --async_update defers entity updates inside each group.
+Evaluation ranks against every entity (filtered or raw), against sampled
+negatives (--neg_sample_size_eval), or against a candidate list
+(wikikg90M).  The log format follows the reference ("[proc 0][Train]
+(step/max) average loss: ..." every log_interval; "[0]Test average MRR:
+...") so existing tooling can parse it.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 import time
+from itertools import islice
 from typing import Dict, Optional
 
 import numpy as np
@@ -16,10 +24,12 @@ import torch
 
 from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import KGDataset
-from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex
+from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex, TrainSampler
 from dglke_tpu_torch.models.ke_model import (
     KEModel,
     TrainState,
+    candidate_ranks,
+    candidate_top,
     metrics_from_ranks,
 )
 
@@ -110,6 +120,72 @@ class DevicePipeline:
                                      neg_head=neg_head)
 
 
+class HostFeed:
+    """Host-fed training feed, the JAX package's route for datasets
+    smaller than two batches: one TrainSampler batch a step (its numpy
+    stream, a batch wrapping around a partition smaller than itself,
+    alternating sides), the ids moved to the device as int32 in one
+    transfer."""
+
+    def __init__(self, model: KEModel, dataset: KGDataset, batch_size: int,
+                 neg_sample_size: int, seed: int = 0):
+        self.device = model.device
+        self.sampler = TrainSampler(dataset, batch_size, neg_sample_size,
+                                    seed=seed)
+
+    def next_batch(self):
+        """(h, r, t, neg, impts or None, neg_head) for the next step."""
+        batch = next(self.sampler)
+        b = len(batch["h"])
+        packed = torch.from_numpy(np.concatenate(
+            [batch["h"], batch["r"], batch["t"], batch["neg"]]).astype(
+                np.int32)).to(self.device)
+        impts = (None if batch["impts"] is None
+                 else torch.from_numpy(batch["impts"]).to(self.device))
+        return (packed[:b], packed[b:2 * b], packed[2 * b:3 * b],
+                packed[3 * b:], impts, batch["neg_head"])
+
+
+def steps_per_group(cfg: KGEConfig, n_train: int, device_route: bool,
+                    log=print) -> int:
+    """Steps a group, s, chosen as the JAX package chooses its fused call
+    size (dglke_tpu/trainer.py:193-221): steps_per_call, cut on the device
+    route to what the epoch holds, then lowered in steps of two until it
+    divides the log, eval and save intervals and max_step (2 or 1 if none
+    fits).  The log, eval and save fire at the end of a group; async
+    updates flush there."""
+    s = cfg.steps_per_call
+    if device_route:
+        while s > 2 and s * cfg.batch_size > n_train:
+            s -= 2
+    if s > 1:
+        for interval in (cfg.log_interval,
+                         cfg.eval_interval if cfg.valid else None,
+                         cfg.save_interval if cfg.save_interval > 0
+                         else None,
+                         cfg.max_step):
+            if interval:
+                while s > 2 and interval % s != 0:
+                    s -= 2
+        if cfg.max_step % s != 0 or (s & 1):
+            s = 2 if cfg.max_step % 2 == 0 else 1
+        for nm, interval in (("log_interval", cfg.log_interval),
+                             ("eval_interval",
+                              cfg.eval_interval if cfg.valid else None),
+                             ("save_interval",
+                              cfg.save_interval if cfg.save_interval > 0
+                              else None)):
+            if interval and s > 1 and interval % s != 0:
+                log(f"[proc 0]NOTE: {nm}={interval} is not a multiple of "
+                    f"the step group size {s}; it fires at the first "
+                    f"step past each multiple of {interval}")
+    if cfg.async_update and s == 1:
+        log("[proc 0]NOTE: --async_update has no effect at step group "
+            "size 1 (the one-step-deferred update only exists inside a "
+            "group); training runs fully synchronous")
+    return s
+
+
 def train(config: KGEConfig, dataset: KGDataset,
           model: Optional[KEModel] = None,
           state: Optional[TrainState] = None,
@@ -117,15 +193,31 @@ def train(config: KGEConfig, dataset: KGDataset,
           save_fn=None, log=print, device=None) -> tuple:
     """Run the training loop for config.max_step steps; returns (model,
     state, stats).  Runs on the card unless ``device="cpu"`` (or a model
-    on the CPU) is given."""
+    on the CPU) is given.
+
+    A dataset of at least two batches is fed by the device-resident
+    pipeline, a smaller one by the host-fed TrainSampler, as in the JAX
+    package.  Steps run in groups of ``steps_per_group``; with
+    --async_update each step's entity update is applied after the next
+    step's gather, and the group's last one at its end."""
     cfg = config
     model = model or KEModel(cfg, dataset.n_entities, dataset.n_relations,
                              device=device)
     if state is None:
         state = model.init_state()
-    pipe = DevicePipeline(model, dataset, cfg.batch_size,
-                          cfg.num_chunks * cfg.neg_sample_size,
-                          seed=cfg.seed)
+    device_route = dataset.n_train >= 2 * cfg.batch_size
+    s = steps_per_group(cfg, dataset.n_train, device_route, log=log)
+    if device_route:
+        feed = DevicePipeline(model, dataset, cfg.batch_size,
+                              cfg.num_chunks * cfg.neg_sample_size,
+                              seed=cfg.seed)
+        log(f"[proc 0]device-resident pipeline: {s} steps a group")
+    else:
+        feed = HostFeed(model, dataset, cfg.batch_size, cfg.neg_sample_size,
+                        seed=cfg.seed)
+        log(f"[proc 0]host-fed TrainSampler ({dataset.n_train} train edges "
+            f"< 2 x batch_size {cfg.batch_size}): {s} steps a group")
+    use_async = cfg.async_update and s > 1
     logs: list = []
     valid_metrics = None
     start = tic = time.time()
@@ -140,17 +232,33 @@ def train(config: KGEConfig, dataset: KGDataset,
             f"{time.time() - tic:.3f} seconds")
         tic = time.time()
 
-    for step in range(1, cfg.max_step + 1):
-        state, log_dict = pipe.run_step(state)
-        logs.append(log_dict)
-        if step % cfg.log_interval == 0:
+    def crossed(step, prev, interval):
+        # [prev, step] crossed a multiple of interval
+        return interval and (step // interval) > (prev // interval)
+
+    step = 0
+    while step < cfg.max_step:
+        prev = step
+        pending = None
+        for _ in range(s):
+            h, r, t, neg, impts, neg_head = feed.next_batch()
+            if use_async:
+                state, pending, log_dict = model.train_step_async(
+                    state, pending, h, r, t, neg, impts, neg_head=neg_head)
+            else:
+                state, log_dict = model.train_step(state, h, r, t, neg,
+                                                   impts, neg_head=neg_head)
+            logs.append(log_dict)
+        model.flush_async(state, pending)
+        step += s
+        if crossed(step, prev, cfg.log_interval):
             flush_logs(step)
         if (cfg.valid and valid_samplers is not None
-                and step % cfg.eval_interval == 0):
+                and crossed(step, prev, cfg.eval_interval)):
             valid_metrics = evaluate_with_samplers(
                 model, state, valid_samplers, phase="Valid", log=log)
         if (save_fn is not None and cfg.save_interval > 0
-                and step % cfg.save_interval == 0):
+                and crossed(step, prev, cfg.save_interval)):
             save_fn(state, step)
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
@@ -166,20 +274,19 @@ def evaluate(config: KGEConfig, dataset: KGDataset, model: KEModel,
              state: TrainState, split: str = "test",
              filter_index: Optional[FilterIndex] = None,
              log=print, phase: str = "Test") -> Dict[str, float]:
-    """Filtered (or raw) full-entity ranking over both corrupt modes: every
-    eval triple is ranked under head-corruption AND tail-corruption, and
-    the metrics average over both."""
+    """Filtered (or raw) ranking over both corrupt modes, against every
+    entity or, with 0 < neg_sample_size_eval < n_entities, against sampled
+    negatives: every eval triple is ranked under head-corruption AND
+    tail-corruption, and the metrics average over both."""
     cfg = config
-    if 0 < cfg.neg_sample_size_eval < dataset.n_entities:
-        raise NotImplementedError(
-            "dglke_tpu_torch ranks against all entities only: sampled eval "
-            "(--neg_sample_size_eval) is ROADMAP item A8")
     if cfg.eval_filter and filter_index is None:
         filter_index = FilterIndex(dataset)
     samplers = [
         EvalSampler(dataset, split, cfg.batch_size_eval, mode,
                     filter_index if cfg.eval_filter else None,
-                    eval_percent=cfg.eval_percent, seed=cfg.seed)
+                    eval_percent=cfg.eval_percent, seed=cfg.seed,
+                    neg_sample_size=cfg.neg_sample_size_eval,
+                    neg_deg_sample=cfg.neg_deg_sample_eval)
         for mode in ("head", "tail")
     ]
     return evaluate_with_samplers(model, state, samplers, phase=phase,
@@ -195,28 +302,34 @@ def combine_rank_metrics(ranks: np.ndarray,
     return metrics_from_ranks(r)
 
 
+# Sampled-eval batches ranked in one call: the JAX package's group (it
+# vmaps groups of 32 batches); each row's rank is the same either way.
+SAMPLED_GROUP = 32
+
+
 def evaluate_with_samplers(model: KEModel, state: TrainState, samplers,
                            phase: str = "Test",
                            log=print) -> Dict[str, float]:
-    """Rank every batch of every sampler against all entities."""
-    dev = model.device
+    """Rank every batch of every sampler: against all entities, against
+    its sampled negatives (groups of SAMPLED_GROUP batches a call), or, for
+    one CandidateEvalSampler, among its candidates (Valid-mode metrics)."""
+    if any(isinstance(s, CandidateEvalSampler) for s in samplers):
+        (sampler,) = samplers
+        return evaluate_candidates(model, state, sampler, mode="Valid",
+                                   log=log)
     start = time.time()
     ranks = []
     for sampler in samplers:
-        for batch in sampler:
-            h, r, t = (torch.as_tensor(batch[k], device=dev)
-                       for k in ("h", "r", "t"))
-            if "filter_ids" in batch:
-                fid = torch.as_tensor(batch["filter_ids"], device=dev)
-                fm = torch.as_tensor(batch["filter_mask"], device=dev)
-            else:
-                fid = torch.zeros((len(batch["h"]), 8), dtype=torch.int32,
-                                  device=dev)
-                fm = torch.zeros((len(batch["h"]), 8), dtype=torch.uint8,
-                                 device=dev)
-            out = model.eval_ranks(state, h, r, t, fid, fm,
-                                   neg_head=batch["neg_head"])
-            ranks.append(out[:batch["n_valid"]])
+        it = iter(sampler)
+        while True:
+            group = list(islice(it, SAMPLED_GROUP))
+            if not group:
+                break
+            if "neg" in group[0]:
+                ranks += _sampled_ranks(model, state, group)
+                continue
+            for batch in group:
+                ranks.append(_full_ranks(model, state, batch))
     ranks = (torch.cat(ranks).cpu().numpy() if ranks
              else np.zeros((0,), np.int64))
     metrics = combine_rank_metrics(
@@ -226,3 +339,99 @@ def evaluate_with_samplers(model: KEModel, state: TrainState, samplers,
         log(f"[0]{phase} average {k}: {v}")
     log(f"[0]{phase} takes {time.time() - start:.3f} seconds")
     return metrics
+
+
+def _full_ranks(model: KEModel, state: TrainState, batch) -> torch.Tensor:
+    """One batch ranked against all entities, trimmed to its real rows."""
+    dev = model.device
+    h, r, t = (torch.as_tensor(batch[k], device=dev) for k in ("h", "r", "t"))
+    if "filter_ids" in batch:
+        fid = torch.as_tensor(batch["filter_ids"], device=dev)
+        fm = torch.as_tensor(batch["filter_mask"], device=dev)
+    else:
+        fid = torch.zeros((len(batch["h"]), 8), dtype=torch.int32,
+                          device=dev)
+        fm = torch.zeros((len(batch["h"]), 8), dtype=torch.uint8,
+                         device=dev)
+    out = model.eval_ranks(state, h, r, t, fid, fm,
+                           neg_head=batch["neg_head"])
+    return out[:batch["n_valid"]]
+
+
+def _sampled_ranks(model: KEModel, state: TrainState, group) -> list:
+    """A group of sampled-eval batches ranked in one call; each batch's
+    ranks trimmed to its real rows."""
+    dev = model.device
+
+    def stack(k):
+        return torch.as_tensor(np.stack([b[k] for b in group]), device=dev)
+
+    n_valid = [b["n_valid"] for b in group]
+    out = model.eval_ranks_sampled(
+        state, stack("h"), stack("r"), stack("t"), stack("neg"),
+        stack("neg_keep") if "neg_keep" in group[0] else None,
+        neg_head=group[0]["neg_head"],
+        neg_deg_sample=group[0]["neg_deg_sample"],
+        n_valid=torch.as_tensor(n_valid, device=dev))
+    return [out[i, :n] for i, n in enumerate(n_valid)]
+
+
+class CandidateEvalSampler:
+    """The candidate-list split of a wikikg90M-style dataset: queries (h, r)
+    [N, 2], each with its candidates [N, K] and, where the split has them,
+    the answer's position among them [N] (the reference's
+    WikiEvalSampler).  Ranked batch_size queries a call."""
+
+    def __init__(self, edges: dict, batch_size: int):
+        d = edges["h,r->t"]
+        self.hr = np.asarray(d["hr"], np.int32)
+        self.ans = (np.asarray(d["t_correct_index"], np.int32)
+                    if "t_correct_index" in d else None)
+        self.cand = np.asarray(d["t_candidate"], np.int32)
+        self.batch_size = batch_size
+
+
+def evaluate_candidates(model: KEModel, state: TrainState,
+                        sampler: CandidateEvalSampler, mode: str = "Valid",
+                        save_path: Optional[str] = None,
+                        log=print) -> Optional[Dict[str, float]]:
+    """Candidate-list eval.  Valid mode: MRR/MR/HITS from each answer's
+    rank among its candidates (candidate_ranks: the answer counts itself,
+    so the best rank is 2).  Test mode: each query's top-10 candidate
+    positions (candidate_top) into save_path/test_0.pkl, the reference's
+    layout {"h,r->t": {"t_pred_top10": [N, min(10, K)] int32, and
+    "t_correct_index" [N] where the split has answers}}."""
+    if mode == "Valid" and sampler.ans is None:
+        raise ValueError(
+            "Valid-mode candidate eval needs answer indices "
+            "(t_correct_index missing from the candidate split)")
+    dev = model.device
+    b = sampler.batch_size
+    n_cand = sampler.cand.shape[1]
+    out = []
+    for beg in range(0, len(sampler.hr), b):
+        hr = torch.as_tensor(sampler.hr[beg:beg + b], device=dev)
+        cand = torch.as_tensor(sampler.cand[beg:beg + b], device=dev)
+        scores = model.candidate_scores(state, hr[:, 0], hr[:, 1], cand)
+        if mode == "Valid":
+            ans = torch.as_tensor(sampler.ans[beg:beg + b], device=dev)
+            out.append(candidate_ranks(scores, ans))
+        else:
+            out.append(candidate_top(scores))
+    if mode == "Valid":
+        ranks = (torch.cat(out).cpu().numpy() if out
+                 else np.zeros((0,), np.int64))
+        metrics = combine_rank_metrics(
+            ranks, "candidate evaluation saw zero queries")
+        for k, v in metrics.items():
+            log(f"[0]{mode} average {k}: {v}")
+        return metrics
+    top10 = (torch.cat(out).cpu().numpy().astype(np.int32) if out
+             else np.zeros((0, min(10, n_cand)), np.int32))
+    result = {"h,r->t": {"t_pred_top10": top10}}
+    if sampler.ans is not None:
+        result["h,r->t"]["t_correct_index"] = sampler.ans
+    if save_path:
+        with open(os.path.join(save_path, "test_0.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    return None
