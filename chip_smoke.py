@@ -52,6 +52,20 @@ Phases (any failure exits non-zero and prints no result line):
      and held to EXPECTED_LAUNCHES (the relation update goes through K3,
      never K2); two full-width steps on the card against the CPU; the
      step profile;
+  5b. the serving path over the checkpoints phases 3 and 5 wrote, each
+     request's launch counts read around it alone and held to
+     EXPECTED_LAUNCHES (K1 only), its seconds and scores per second
+     printed, its output held to the CPU's on a cut (equal ids but at near
+     ties, scores within SERVE_RTOL): dglke_tpu_torch-predict for
+     TransE_l2 (batch_head over 16 heads x 1,345 relations x 14,951 tails;
+     100,000 triples triplet_wise, plain and logsigmoid) and RESCAL (all
+     over 8 heads x 8 relations x 14,951 tails: K1's wide shape on the
+     1 MB relation rows), dglke_tpu_torch-emb_sim (cosine batch_left for
+     1,000 left rows; all 14,951^2 pairs), the object API
+     (TransE_l2Model(...).load, link_predict with exclude_mode="exclude"
+     and the training graph attached), the device's busy share over one
+     link_predict, and exact ties planted in the entity table listed lower
+     id first;
   6. the ogbl-wikikg2 TransE_l2 recipe (examples/wikikg2.sh:11-14: batch
      512, 128 negatives, hidden 500, gamma 30, -adv -a 1.0, lr 0.25,
      -rc 1e-9, --no_eval_filter --test --batch_size_eval 32
@@ -183,6 +197,34 @@ EXPECTED_LAUNCHES = {
     "wikikg2": {"gather_rows": 2080, "group_ids": 2000, "group_ids_sort": 0,
                 "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0},
 }
+# The serving runs: K1 gathers a request's rows once, whatever the exec
+# mode (models/infer.py:scored_blocks, sim_topk): heads, relations and
+# tails for predict and link_predict (a "*" slot gathers the whole table;
+# RESCAL's 8 relation rows of 250,000 take the wide shape), the left and
+# the right rows for emb_sim; nothing of training launches.
+for _label, _k1 in (("predict TransE_l2 batch_head", 3),
+                    ("predict TransE_l2 triplet_wise", 3),
+                    ("predict TransE_l2 logsigmoid", 3),
+                    ("predict RESCAL all", 3), ("emb_sim batch_left", 2),
+                    ("emb_sim all", 2), ("link_predict exclude", 3)):
+    EXPECTED_LAUNCHES[_label] = {"gather_rows": _k1, "group_ids": 0,
+                                 "group_ids_sort": 0,
+                                 "sparse_adagrad_rows": 0,
+                                 "outer_adagrad_update": 0}
+# The serving requests, at the width of the checkpoints the TransE_l2 and
+# RESCAL main paths write: 16 heads x 1,345 relations x 14,951 tails
+# (batch_head), 100,000 triples, RESCAL's 8 heads x 8 relations x 14,951
+# tails, 1,000 left rows x 14,951 (cosine), all 14,951^2 pairs; top 10.
+SERVE_K, SERVE_HEADS, SERVE_TRIPLES = 10, 16, 100_000
+RESCAL_HEADS = RESCAL_RELS = 8
+SIM_LEFT = 1000
+# The CPU recomputes a cut of each request: the first SERVE_CUT heads (or
+# left rows) where the blocks stand alone, the whole request where it is
+# cheap (triplets, RESCAL's 8 x 8), SIM_CUT left rows of the all-pairs
+# similarity on both devices.  Scores: |card - CPU| <= SERVE_RTOL (|s| +
+# scale), scale gamma for link scores and 1 for similarities (cuBLAS, the
+# CPU's BLAS and cdist sum in other orders); ids equal but at near ties.
+SERVE_CUT, SIM_CUT, SERVE_RTOL = 2, 1000, 1e-5
 
 # Stated tolerances.  K1 moves bits: exact.  K2 sums each id's segment in
 # a fixed order, the plain version adds per occurrence:
@@ -1278,6 +1320,321 @@ def phase_step_profile(recipe: dict, steps: int, n_ent: int = N_ENT,
 
 
 # ---------------------------------------------------------------------------
+# The serving path
+
+
+def _read_tsv(path: str, n_ids: int):
+    """A predict / emb_sim TSV: ids [rows, n_ids] int64, scores float32."""
+    with open(path) as f:
+        next(f)
+        rows = [ln.rstrip("\n").split("\t") for ln in f]
+    return (np.array([r[:n_ids] for r in rows], dtype=np.int64),
+            np.array([r[-1] for r in rows], dtype=np.float32))
+
+
+def hold_to_cpu(label: str, card, cpu_blocks, scale: float) -> None:
+    """The card's first result blocks (ids [b*K, c], scores) against the
+    CPU's top K + 1 of the same blocks: scores within SERVE_RTOL (|s| +
+    scale); ids equal but at a near tie, another CPU score of the block
+    within TIE_RTOL (|s| + scale)."""
+    ids, s = card
+    differ = near_rows = 0
+    err = 0.0
+    for b, (c_ids, c_s) in enumerate(cpu_blocks):
+        g_ids, g_s = ids[b * SERVE_K:(b + 1) * SERVE_K], \
+            s[b * SERVE_K:(b + 1) * SERVE_K]
+        want = c_s[:SERVE_K]
+        if g_s.shape != want.shape:
+            fail(f"{label}: block {b} has {len(g_s)} rows, the CPU "
+                 f"{len(want)}")
+        gap = np.abs(g_s.astype(np.float64) - want)
+        err = max(err, float(gap.max()))
+        if (gap > SERVE_RTOL * (np.abs(want) + scale)).any():
+            fail(f"{label}: block {b} scores differ from the CPU's by "
+                 f"{gap.max()}")
+        for i in np.flatnonzero((g_ids != c_ids[:SERVE_K]).any(1)):
+            differ += 1
+            near = np.abs(c_s - c_s[i]) <= TIE_RTOL * (abs(c_s[i]) + scale)
+            if near.sum() < 2:
+                fail(f"{label}: block {b} row {i} differs from the CPU's "
+                     f"({g_ids[i]} against {c_ids[i]}) with no near tie")
+        near_rows += int(sum((np.abs(c_s - x) <= TIE_RTOL * (abs(x) + scale))
+                             .sum() > 1 for x in want))
+    print(f"  {label} against the CPU on {len(cpu_blocks)} block(s): max "
+          f"|score card - CPU| {err:.3g}; {differ} of "
+          f"{len(cpu_blocks) * SERVE_K} rows differ, all at near ties "
+          f"({near_rows} rows with one)")
+
+
+def _ties_lower_first(label: str, flat: np.ndarray, s: np.ndarray) -> None:
+    """Within each result block, equal scores come lower flat index
+    first."""
+    for b in range(0, len(s), SERVE_K):
+        fb, sb = flat[b:b + SERVE_K], s[b:b + SERVE_K]
+        for x in np.unique(sb):
+            if (np.diff(fb[sb == x]) <= 0).any():
+                fail(f"{label}: equal scores out of index order: "
+                     f"{fb[sb == x]}")
+
+
+def serve_run(label: str, fn, n_scores: int):
+    """One serving request on the card, its launch counts read around it
+    alone and held to EXPECTED_LAUNCHES[label]; prints its seconds and
+    scores per second.  Returns (counts, fn's result)."""
+    import torch
+    from dglke_tpu_torch.ops import rows
+    rows.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(rows.launches)
+    want = EXPECTED_LAUNCHES[label]
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"{label}: launches {counts}, expected {want}")
+    print(f"{label}: {secs:.3f} s, {n_scores} scores, "
+          f"{n_scores / secs:.1f} scores/s; launches {counts}")
+    return counts, result
+
+
+def _cli(main, argv) -> int:
+    rc = main(argv)
+    if rc != 0:
+        fail(f"CLI {argv[:4]} returned {rc}")
+    return rc
+
+
+def phase_serving():
+    """The serving path on the card over the checkpoints the TransE_l2 and
+    RESCAL main paths wrote: dglke_tpu_torch-predict (TransE_l2 batch_head
+    over 16 heads x all relations x all tails; 100,000 triples
+    triplet_wise, plain and logsigmoid; RESCAL all over 8 heads x 8
+    relations x all tails, K1's wide shape), dglke_tpu_torch-emb_sim
+    (cosine batch_left for 1,000 left rows; all 14,951^2 pairs) and the
+    object API (link_predict batch_head with exclude_mode="exclude" and the
+    training graph attached).  Each run's launches are held to
+    EXPECTED_LAUNCHES and its output to the CPU's on a cut; the card's
+    exact ties (planted duplicate rows) come out lower index first.
+    Returns the launch counts of each run."""
+    import torch
+    from dglke_tpu_torch.cli import emb_sim as emb_sim_cli
+    from dglke_tpu_torch.cli import predict as predict_cli
+    from dglke_tpu_torch.data.dataset import get_dataset
+    from dglke_tpu_torch.models import TransE_l2Model
+    from dglke_tpu_torch.models.infer import EmbSimInfer, ScoreInfer
+    from dglke_tpu_torch.utils.io import load_config_json
+    t_phase = time.perf_counter()
+    ck = os.path.join(WORK, "ckpts")
+    transe = os.path.join(ck, "TransE_l2_fb15k_shaped_0")
+    rescal = os.path.join(ck, "RESCAL_fb15k_shaped_0")
+    d = os.path.join(WORK, "serve")
+    os.makedirs(d, exist_ok=True)
+    data = os.path.join(WORK, "data")
+    ds = get_dataset(data, "fb15k_shaped", "udd_hrt", "\t",
+                     ["entities.tsv", "relations.tsv", "train.tsv",
+                      "valid.tsv", "test.tsv"])
+    rng = np.random.default_rng(3)
+    first = np.unique(ds.train[0][:1000], return_index=True)[1]
+    heads = ds.train[0][np.sort(first)[:SERVE_HEADS]]
+    trip = [x[:SERVE_TRIPLES] for x in ds.train]
+    r_heads = heads[:RESCAL_HEADS]
+    r_rels = np.unique(ds.train[1][:1000])[:RESCAL_RELS]
+    left = rng.choice(N_ENT, SIM_LEFT, replace=False)
+
+    def ids_file(name, ids):
+        path = os.path.join(d, f"{name}.list")
+        np.savetxt(path, ids, fmt="%d")
+        return path
+
+    def tsv(name):
+        return os.path.join(d, f"{name}.tsv")
+
+    t_gamma = TRANSE["gamma"]
+    paths = {}
+
+    # -- predict TransE_l2 batch_head: 16 x 1,345 x 14,951 -----------------
+    label = "predict TransE_l2 batch_head"
+    argv = ["--model_path", transe, "--format", "h_*_*", "--data_files",
+            ids_file("heads", heads), "--exec_mode", "batch_head",
+            "--topK", str(SERVE_K), "--output", tsv("batch_head")]
+    paths[label], _ = serve_run(label, lambda: _cli(predict_cli.main, argv),
+                                SERVE_HEADS * N_REL * N_ENT)
+    card = _read_tsv(tsv("batch_head"), 3)
+    if card[0].shape != (SERVE_HEADS * SERVE_K, 3) or not np.isfinite(
+            card[1]).all():
+        fail(f"{label}: TSV {card[0].shape}, finite {np.isfinite(card[1])}")
+    _ties_lower_first(label, card[0][:, 1] * N_ENT + card[0][:, 2], card[1])
+    cpu = ScoreInfer("cpu", load_config_json(transe), transe, "none")
+    cpu.load_model()
+    hold_to_cpu(label, card, [(np.stack(b[:3], 1), b[3]) for b in cpu.topK(
+        heads[:SERVE_CUT], None, None, "batch_head", SERVE_K + 1)], t_gamma)
+
+    # -- predict TransE_l2 triplet_wise, plain and logsigmoid ---------------
+    files = [ids_file(n, x) for n, x in zip(("th", "tr", "tt"), trip)]
+    for label, sfunc in (("predict TransE_l2 triplet_wise", "none"),
+                         ("predict TransE_l2 logsigmoid", "logsigmoid")):
+        argv = ["--model_path", transe, "--format", "h_r_t", "--data_files",
+                *files, "--exec_mode", "triplet_wise", "--topK",
+                str(SERVE_K), "--score_func", sfunc, "--output", tsv(sfunc)]
+        paths[label], _ = serve_run(
+            label, lambda: _cli(predict_cli.main, argv), SERVE_TRIPLES)
+        cpu = ScoreInfer("cpu", load_config_json(transe), transe, sfunc)
+        cpu.load_model()
+        (h, r, t, s), = cpu.topK(*trip, "triplet_wise", SERVE_K + 1)
+        hold_to_cpu(label, _read_tsv(tsv(sfunc), 3),
+                    [(np.stack([h, r, t], 1), s)], t_gamma)
+    del cpu
+
+    # -- predict RESCAL all: 8 x 8 x 14,951, K1 on 1 MB relation rows -------
+    label = "predict RESCAL all"
+    argv = ["--model_path", rescal, "--format", "h_r_*", "--data_files",
+            ids_file("rh", r_heads), ids_file("rr", r_rels), "--exec_mode",
+            "all", "--topK", str(SERVE_K), "--output", tsv("rescal")]
+    paths[label], _ = serve_run(label, lambda: _cli(predict_cli.main, argv),
+                                RESCAL_HEADS * RESCAL_RELS * N_ENT)
+    torch.cuda.empty_cache()
+    cpu = ScoreInfer("cpu", load_config_json(rescal), rescal, "none")
+    cpu.load_model()
+    (h, r, t, s), = cpu.topK(r_heads, r_rels, None, "all", SERVE_K + 1)
+    del cpu
+    hold_to_cpu(label, _read_tsv(tsv("rescal"), 3),
+                [(np.stack([h, r, t], 1), s)], RESCAL["gamma"])
+
+    # -- emb_sim over the TransE_l2 entity table -----------------------------
+    emb_file = os.path.join(transe, "fb15k_shaped_TransE_l2_entity.npy")
+    label = "emb_sim batch_left"
+    argv = ["--emb_file", emb_file, "--format", "l_*", "--data_files",
+            ids_file("left", left), "--exec_mode", "batch_left",
+            "--sim_func", "cosine", "--topK", str(SERVE_K), "--output",
+            tsv("batch_left")]
+    paths[label], _ = serve_run(label, lambda: _cli(emb_sim_cli.main, argv),
+                                SIM_LEFT * N_ENT)
+    card = _read_tsv(tsv("batch_left"), 2)
+    _ties_lower_first(label, card[0][:, 1], card[1])
+    cpu = EmbSimInfer("cpu", emb_file, "cosine")
+    cpu.load_emb()
+    hold_to_cpu(label, card, [(np.stack(b[:2], 1), b[2]) for b in cpu.topK(
+        left[:SERVE_CUT], None, bcast=True, k=SERVE_K + 1)], 1.0)
+
+    label = "emb_sim all"
+    argv = ["--emb_file", emb_file, "--format", "*", "--exec_mode", "all",
+            "--topK", str(SERVE_K), "--output", tsv("all")]
+    paths[label], _ = serve_run(label, lambda: _cli(emb_sim_cli.main, argv),
+                                N_ENT * N_ENT)
+    card = _read_tsv(tsv("all"), 2)
+    _ties_lower_first(label, card[0][:, 0] * N_ENT + card[0][:, 1], card[1])
+    cut = np.arange(SIM_CUT)
+    on_card = EmbSimInfer("cuda", emb_file, "cosine")
+    on_card.load_emb()
+    (l, r, s), = on_card.topK(cut, None, k=SERVE_K)
+    (cl, cr, cs), = cpu.topK(cut, None, k=SERVE_K + 1)
+    hold_to_cpu(f"{label} (first {SIM_CUT} left rows)",
+                (np.stack([l, r], 1), s), [(np.stack([cl, cr], 1), cs)], 1.0)
+    del on_card, cpu
+    torch.cuda.empty_cache()
+
+    # -- the object API: link_predict with the training graph excluded ------
+    label = "link_predict exclude"
+    model = TransE_l2Model(gamma=t_gamma)
+    model.load(transe)
+    model.attach_graph(ds)
+    kw = dict(head=heads, exec_mode="batch_head", topk=SERVE_K)
+    paths[label], res = serve_run(
+        label, lambda: model.link_predict(exclude_mode="exclude", **kw),
+        SERVE_HEADS * N_REL * N_ENT)
+    masked = model.link_predict(**{**kw, "topk": 4 * SERVE_K},
+                                exclude_mode="mask")
+    dropped = 0
+    for (h, r, t, s, _), (mh, mr, mt, ms, mask) in zip(res, masked):
+        if model.graph.contains(h, r, t).any():
+            fail(f"{label}: a known edge was not excluded")
+        keep = np.flatnonzero(~mask)[:SERVE_K]
+        dropped += int(mask[:keep[-1] + 1].sum() if len(keep) else mask.sum())
+        if len(keep) == SERVE_K and not (np.array_equal(h, mh[keep])
+                                         and np.array_equal(t, mt[keep])
+                                         and np.array_equal(r, mr[keep])):
+            fail(f"{label}: the excluded top-K is not the masked list "
+                 f"without its known edges")
+    cpu_model = TransE_l2Model(device="cpu", gamma=t_gamma)
+    cpu_model.load(transe)
+    cpu_model.attach_graph(ds)
+    cpu_res = cpu_model.link_predict(
+        exclude_mode="exclude", **{**kw, "head": heads[:SERVE_CUT],
+                                   "topk": SERVE_K + 1})
+    del cpu_model
+    hold_to_cpu(label, (np.concatenate([np.stack(b[:3], 1) for b in res]),
+                        np.concatenate([b[3] for b in res])),
+                [(np.stack(b[:3], 1), b[3]) for b in cpu_res], t_gamma)
+    print(f"  {label}: {dropped} known edges excluded ahead of the "
+          f"{SERVE_HEADS} x {SERVE_K} results")
+    serving_busy(model, kw)
+    serving_ties(model)
+    del model
+    torch.cuda.empty_cache()
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s, the CPU "
+          f"checks included")
+    return paths
+
+
+def serving_busy(model, kw) -> None:
+    """The device's busy share over one link_predict (exclude) under
+    torch.profiler: kernel time over the call's host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.link_predict(exclude_mode="exclude", **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = _kernel_events(prof)
+        if kern:
+            break
+        print("  (torch.profiler returned no device event; tracing again)")
+    else:
+        fail("torch.profiler recorded no device time over link_predict")
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"link_predict exclude under torch.profiler: {wall:.3f} ms host, "
+          f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%, idle "
+          f"{100 - 100 * busy / wall:.1f}%), "
+          f"{sum(e.count for e in kern)} kernels")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:.4f} ms x{e.count}  "
+              f"{e.key[:90]}")
+
+
+def serving_ties(model) -> None:
+    """Exact ties on the card: three copies of the best tail of (head 7,
+    relation 3) planted in the entity table.  The copies score the same,
+    bit for bit; the top 2 and the top 4 (the boundary inside the tie and
+    after it) list them lower id first; and the cosine neighbours of the
+    row list it and its copies lower id first too."""
+    ent = model.entity_embed.cpu().numpy()
+    rel = model.relation_embed.cpu().numpy()
+    (_, _, best, _, _), = model.link_predict(head=[7], rel=[3], topk=1)
+    best = int(best[0])
+    copies = sorted({(best + k * 4099) % N_ENT for k in (1, 2, 3)})
+    ent[copies] = ent[best]
+    model.load_emb(ent, rel)
+    group = sorted([best, *copies])
+    for k in (2, 4):
+        (_, _, t, s, _), = model.link_predict(head=[7], rel=[3], topk=k)
+        if t.tolist() != group[:k] or len(set(s.tolist())) != 1:
+            fail(f"planted ties (link_predict top {k}): tails {t.tolist()} "
+                 f"scores {s.tolist()}, expected {group[:k]} tied")
+        (_, r, s), = model.embed_sim(left=[best], sfunc="cosine", topk=k)
+        if r.tolist() != group[:k] or len(set(s.tolist())) != 1:
+            fail(f"planted ties (embed_sim top {k}): {r.tolist()} "
+                 f"{s.tolist()}, expected {group[:k]} tied")
+    print(f"planted ties on the card: entity {best} and copies {copies} "
+          f"score the same bit for bit and come lower id first in the top "
+          f"2 and 4 (link_predict and cosine embed_sim)")
+
+
+# ---------------------------------------------------------------------------
 # The ogbl-wikikg2 path
 
 
@@ -1691,6 +2048,7 @@ def main() -> int:
                                           batch_size_eval=RESCAL_EVAL_BATCH)
         phase_step_parity(RESCAL)
         phase_step_profile(RESCAL, steps=20)
+        paths.update(phase_serving())
         paths["wikikg2"], ds, model, state = phase_wikikg2()
         phase_sampled_ranks(ds, model, state)
         phase_candidates(model, state, ds)

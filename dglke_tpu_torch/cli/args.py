@@ -1,8 +1,10 @@
 """CLI argument surface -> KGEConfig (counterpart of dglke_tpu/cli/args.py).
 
-The same flag names as the JAX package for what this package runs, plus
-``--device``.  Flags of modes not ported yet are accepted and refused with
-the ROADMAP item that will bring them.
+Every flag of the JAX package's train and eval parsers parses here, plus
+``--device``.  Flags that select nothing on one device are accepted and
+noted (``warn_inert_flags``); flags of modes not ported yet, and the
+settings the port does not take, are refused with the ROADMAP item that
+says why.
 """
 
 from __future__ import annotations
@@ -11,6 +13,18 @@ import argparse
 import dataclasses
 
 from dglke_tpu_torch.config import KGEConfig, LOSS_GENRES, MODEL_NAMES
+
+
+def add_device_args(p: argparse.ArgumentParser, gpu_nargs=None) -> None:
+    """``--device`` and the JAX package's ``--gpu``, which is accepted for
+    its command lines and selects nothing: an id such as -1 does not mean
+    the CPU."""
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default) or 'cpu'; without a CUDA device "
+                        "the default raises instead of falling back")
+    p.add_argument("--gpu", type=int, default=None, nargs=gpu_nargs,
+                   help="accepted for compatibility and ignored; the device "
+                        "comes from --device")
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:
@@ -35,6 +49,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-log", "--log_interval", type=int, default=1000)
     p.add_argument("--eval_interval", type=int, default=10000)
     p.add_argument("--test", action="store_true")
+    p.add_argument("--num_proc", type=int, default=1)
+    p.add_argument("--num_thread", type=int, default=1)
+    p.add_argument("--force_sync_interval", type=int, default=-1)
     p.add_argument("--hidden_dim", type=int, default=400)
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("-g", "--gamma", type=float, default=12.0)
@@ -51,17 +68,26 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-m", "--margin", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--has_edge_importance", action="store_true")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="score precision: only float32 runs here (scores "
+                        "are full fp32); bfloat16 is refused")
     p.add_argument("--emb_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="embedding table storage dtype (the optimizer "
                         "stays fp32)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="'cuda' (default) or 'cpu'; without a CUDA device "
-                        "the default raises instead of falling back")
+    p.add_argument("--table_sharding", default="replicated",
+                   choices=["replicated", "vocab"],
+                   help="how tables are laid out over devices: no effect "
+                        "on one device")
+    p.add_argument("--mix_cpu_gpu", action="store_true")
+    p.add_argument("--dist", action="store_true")
+    add_device_args(p, gpu_nargs="+")
 
 
 def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--valid", action="store_true")
+    p.add_argument("--rel_part", action="store_true")
     p.add_argument("--init_from", type=str, default=None,
                    help="resume training from a saved checkpoint directory "
                         "(tables + Adagrad state + step)")
@@ -73,27 +99,58 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                         "a group of steps (deterministic form of the "
                         "reference's async updater; rows scored one step "
                         "stale)")
-    # Accepted for the JAX package's command lines; refused below.
-    p.add_argument("--mix_cpu_gpu", action="store_true")
-    p.add_argument("--dist", action="store_true")
     p.add_argument("--sharded_ckpt", action="store_true")
+    p.add_argument("--partition_path", type=str, default=None)
+    p.add_argument("--profile", type=str, default=None)
 
 
-# flag -> (is it set?, ROADMAP item that ports it)
-_UNPORTED = {
+# flag -> (is it set?, ROADMAP item that says why it is refused)
+_REFUSED = {
     "--mix_cpu_gpu": (lambda a: a.mix_cpu_gpu,
                       "A10 (host-resident tables, host_table.py)"),
     "--dist": (lambda a: a.dist, "A11 (multi-device)"),
-    "--sharded_ckpt": (lambda a: a.sharded_ckpt,
+    "--sharded_ckpt": (lambda a: getattr(a, "sharded_ckpt", False),
                        "A11 (sharded checkpoints)"),
+    "--partition_path": (lambda a: getattr(a, "partition_path", None)
+                         is not None, "A11 (multi-device)"),
+    "--profile": (lambda a: getattr(a, "profile", None) is not None,
+                  "A6b (the port benchmark maps it onto torch.profiler)"),
+    "--compute_dtype bfloat16": (
+        lambda a: a.compute_dtype == "bfloat16",
+        "§C, deliberate differences (scores stay full fp32)"),
 }
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    for flag, (is_set, item) in _UNPORTED.items():
+    for flag, (is_set, item) in _REFUSED.items():
         if is_set(args):
-            raise SystemExit(f"{flag} is not ported to dglke_tpu_torch yet: "
-                             f"it is ROADMAP item {item}; use dglke_tpu")
+            raise SystemExit(f"{flag} is not ported to dglke_tpu_torch: it "
+                             f"is ROADMAP item {item}; use dglke_tpu")
+
+
+def warn_inert_flags(args: argparse.Namespace, log=print) -> None:
+    """One startup line per accepted-but-inert compatibility flag (the JAX
+    package's NOTE lines, for what they mean on one device), so that a user
+    never gets a silently different protocol."""
+    if getattr(args, "gpu", None) is not None:
+        log("NOTE: --gpu is a compatibility no-op — the device comes from "
+            "--device (cuda unless --device cpu); no --gpu id selects the "
+            "CPU")
+    if getattr(args, "num_proc", 1) > 1:
+        log("NOTE: --num_proc is a compatibility no-op — dglke_tpu_torch "
+            "trains on one device in one process")
+    if getattr(args, "force_sync_interval", -1) > 0:
+        log("NOTE: --force_sync_interval is a compatibility no-op — the "
+            "step is synchronous by construction")
+    if getattr(args, "num_thread", 1) > 1:
+        log("NOTE: --num_thread is a compatibility no-op — host sampling "
+            "is vectorized numpy")
+    if getattr(args, "rel_part", False):
+        log("NOTE: --rel_part only takes effect with --dist (it selects "
+            "soft relation partitioning of the edge list across hosts); "
+            "single-device training uses one global sampler")
+    if getattr(args, "table_sharding", "replicated") == "vocab":
+        log("NOTE: --table_sharding vocab has no effect on one device")
 
 
 def config_from_args(args: argparse.Namespace) -> KGEConfig:

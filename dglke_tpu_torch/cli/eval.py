@@ -10,7 +10,12 @@ import argparse
 import dataclasses
 import os
 
-from dglke_tpu_torch.cli.args import add_common_args, config_from_args
+from dglke_tpu_torch.cli.args import (
+    add_common_args,
+    config_from_args,
+    refuse_unported,
+    warn_inert_flags,
+)
 from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import get_dataset
 from dglke_tpu_torch.device import resolve_device
@@ -28,7 +33,12 @@ def main(argv=None):
     add_common_args(parser)
     parser.add_argument("--model_path", type=str, default="ckpts",
                         help="directory containing the saved checkpoint")
+    parser.add_argument("--no_mix_cpu_gpu", action="store_true",
+                        help="accepted for compatibility: the tables are "
+                             "always on the device here")
     args = parser.parse_args(argv)
+    refuse_unported(args)
+    warn_inert_flags(args)
     if os.path.isdir(os.path.join(args.model_path, "sharded_state")):
         raise SystemExit("sharded checkpoints are not ported to "
                          "dglke_tpu_torch yet: they are ROADMAP item A11")

@@ -15,6 +15,7 @@ from dglke_tpu_torch.cli.args import (
     add_train_args,
     config_from_args,
     refuse_unported,
+    warn_inert_flags,
 )
 from dglke_tpu_torch.data.dataset import get_dataset
 from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex
@@ -45,6 +46,7 @@ def main(argv=None):
     add_train_args(parser)
     args = parser.parse_args(argv)
     refuse_unported(args)
+    warn_inert_flags(args)
     if args.init_from and os.path.isdir(os.path.join(args.init_from,
                                                      "sharded_state")):
         raise SystemExit("--init_from a sharded checkpoint is not ported to "

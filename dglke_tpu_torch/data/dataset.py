@@ -13,9 +13,10 @@ Covers the layouts the single-device trainer reads:
     candidate-list eval splits, through the ``ogb`` package, which is
     imported only when one of them is loaded.
 
-Built-in datasets are read from ``data_path``; this package downloads
-nothing.  Synthetic and planted-structure generators for tests and the
-chip smoke run live here too.
+Built-in datasets are read from ``data_path``; a missing one is extracted
+from ``{data_path}/{name}.zip``, which is fetched from data.dgl.ai only
+when it is missing too.  Synthetic and planted-structure generators for
+tests and the chip smoke run live here too.
 """
 
 from __future__ import annotations
@@ -157,13 +158,59 @@ def _check_ranges(ds: KGDataset) -> KGDataset:
 # Built-in layouts
 
 
+DATASET_URL = "https://data.dgl.ai/dataset/{}.zip"
+
+
+def _download_and_extract(url: str, path: str, filename: str) -> None:
+    """Unzip ``path/filename``, fetching it from ``url`` first when it is
+    absent; an archive that fails to unzip is fetched again once (the
+    reference's _download_and_extract, with the standard library's
+    urllib)."""
+    import urllib.request
+    import zipfile
+
+    fn = os.path.join(path, filename)
+    for attempt in range(2):
+        if os.path.exists(fn):
+            try:
+                with zipfile.ZipFile(fn) as zf:
+                    zf.extractall(path)
+                return
+            except zipfile.BadZipFile:
+                if attempt:
+                    raise
+                os.remove(fn)
+        os.makedirs(path, exist_ok=True)
+        tmp = fn + ".part"
+        with urllib.request.urlopen(url, timeout=60) as r, \
+                open(tmp, "wb") as w:
+            while True:
+                chunk = r.read(1 << 20)
+                if not chunk:
+                    break
+                w.write(chunk)
+        os.replace(tmp, fn)
+
+
 def load_builtin(data_path: str, name: str) -> KGDataset:
     path = os.path.join(data_path, name)
+    if not os.path.exists(path):
+        # the archive {data_path}/{name}.zip is extracted; it is fetched
+        # only when it is absent too
+        url = DATASET_URL.format(name)
+        try:
+            _download_and_extract(url, data_path, f"{name}.zip")
+        except Exception as e:
+            raise FileNotFoundError(
+                f"Built-in dataset {name} not found at {path} and the "
+                f"download from {url} failed ({type(e).__name__}: {e}). "
+                "If this environment has no network egress, place the "
+                "standard layout (entities.dict, relations.dict, "
+                "train.txt, valid.txt, test.txt) there manually.") from e
     if not os.path.isdir(path):
         raise FileNotFoundError(
-            f"Built-in dataset {name} not found at {path}: place the "
-            "standard layout (entities.dict, relations.dict, train.txt, "
-            "valid.txt, test.txt) there")
+            f"the archive of {name} did not contain a {path}/ directory: "
+            "place the standard layout there manually")
     if name == "Freebase":
         return _load_freebase(path)
     e2i = _read_id_map(os.path.join(path, "entities.dict"))

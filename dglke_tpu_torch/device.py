@@ -23,3 +23,10 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def resolve_api_device(device=None) -> torch.device:
+    """resolve_device for the inference API, which also takes the JAX
+    package's (and dgl-ke's) integer gpu id as a compatibility value: an
+    int selects the card all the same; -1 does not mean the CPU."""
+    return resolve_device(None if isinstance(device, int) else device)

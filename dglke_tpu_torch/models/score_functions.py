@@ -1,18 +1,23 @@
 """Score functions (counterpart of dglke_tpu/models/score_functions.py).
 
-Each family has two forms:
+Each family has three forms:
 
   * ``pos_score(h, r, t) -> [B]``: per-edge positive score.
   * ``neg_score(emb, rel, neg_emb, neg_head, C, Bc, K) -> [C, Bc, K]``:
     chunked negative scoring, each chunk of Bc positives against K shared
     corrupted heads/tails.  The translational family uses the
     |a|^2+|b|^2-2ab expansion so the O(Bc*K*D) work is one batched matmul.
+  * ``infer_score(h, r, t) -> [H, R, T]``: every (head, relation, tail)
+    combination, for the predict tools.  Where the JAX package leaves XLA
+    to fuse an [H, R, T, D] broadcast, the port computes distances with
+    ``torch.cdist`` (direct differences, not the expansion, so near ties
+    round as the broadcast does) or blocks under INFER_BUDGET elements;
+    TransR's all-pairs form is ``transr_allpairs_score``.
 
 All eight families are ported: TransE (l1, l2), TransR, DistMult,
 ComplEx, RESCAL, RotatE and SimplE, with the JAX package's two deliberate
 deviations from dgl-ke (the TransR tail-corrupt sign and the RESCAL
-tail-negative transpose).  The ``infer_score`` forms of the predict tools
-are not ported yet.  Scoring is full fp32: the caller keeps TF32 off.
+tail-negative transpose).  Scoring is full fp32: the caller keeps TF32 off.
 """
 
 from __future__ import annotations
@@ -39,6 +44,11 @@ def batched_l1_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     materializes the [..., M, N, D] broadcast."""
     return torch.sum(torch.abs(a[..., :, None, :] - b[..., None, :, :]),
                      dim=-1)
+
+
+# Elements an infer_score block may hold in one intermediate (256 MB of
+# fp32); the callers block over heads.
+INFER_BUDGET = 1 << 26
 
 
 def _norm(x: torch.Tensor, ord: int, dim: int = -1) -> torch.Tensor:
@@ -71,6 +81,21 @@ class TransEScore:
         neg = neg_emb.reshape(num_chunks, neg_sample_size, d)
         dist = batched_l2_dist if self.dist_ord == 2 else batched_l1_dist
         return self.gamma - dist(pos, neg)
+
+    def infer_score(self, head, rel, tail):
+        """gamma - ||h + r - t|| as distances between the [H*R, D]
+        translated heads and the [T, D] tails: the [H, R, T, D] difference
+        is never formed."""
+        hr = (head[:, None, :] + rel[None, :, :]).reshape(-1, head.shape[-1])
+        d = torch.cdist(hr, tail, p=self.dist_ord,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        if self.dist_ord == 2:
+            # _norm's +1e-30 inside the sqrt: a zero distance gives 1e-15;
+            # any other distance comes back unchanged (sqrt(d*d) == d)
+            d.square_().add_(1e-30).sqrt_()
+        # gamma - d, in place: -d + gamma rounds as gamma - d does
+        return d.neg_().add_(self.gamma).reshape(
+            head.shape[0], rel.shape[0], tail.shape[0])
 
 
 def _split(x: torch.Tensor):
@@ -127,6 +152,35 @@ class TransRScore:
             diff = (emb + rel)[:, :, None, :] - neg_emb
         return self.gamma - torch.sum(torch.abs(diff), dim=-1)
 
+    def infer_score(self, head, rel, tail):
+        raise NotImplementedError("TransR's all-pairs scores need the "
+                                  "projection rows: transr_allpairs_score")
+
+
+def transr_allpairs_score(h_emb, t_emb, proj, r_emb, gamma,
+                          entity_dim: int, relation_dim: int,
+                          budget: int = 1 << 25) -> torch.Tensor:
+    """TransR scores [H, R, T] = gamma - |h P_r + r - t P_r|_1 for every
+    (head, relation, tail); proj holds the relations' projection rows
+    [R, De*Dr].  Relations are taken a tile at a time: each tile projects
+    the heads and the tails with one batched matmul each and takes the L1
+    distances with torch.cdist, so its largest intermediate is one of
+    [Rt, H, T], [Rt, T, Dr] and [Rt, H, Dr], held under ``budget``
+    elements."""
+    proj = proj.reshape(-1, entity_dim, relation_dim)
+    hn, tn, rn = h_emb.shape[0], t_emb.shape[0], r_emb.shape[0]
+    per_rel = max(1, hn * tn, tn * relation_dim, hn * relation_dim)
+    rt = max(1, min(rn, budget // per_rel))
+    out = torch.empty((hn, rn, tn), dtype=torch.float32,
+                      device=h_emb.device)
+    for j in range(0, rn, rt):
+        p = proj[j:j + rt]
+        hp = torch.matmul(h_emb, p) + r_emb[j:j + rt, None, :]  # [Rt, H, Dr]
+        tp = torch.matmul(t_emb, p)                             # [Rt, T, Dr]
+        d = torch.cdist(hp, tp, p=1)
+        out[:, j:j + rt] = d.neg_().add_(gamma).transpose(0, 1)
+    return out
+
 
 @dataclasses.dataclass(frozen=True)
 class DistMultScore:
@@ -139,6 +193,10 @@ class DistMultScore:
                   chunk_size, neg_sample_size):
         return _chunk_dot(emb * rel, neg_emb, num_chunks, chunk_size,
                           neg_sample_size)
+
+    def infer_score(self, head, rel, tail):
+        hr = head[:, None, :] * rel[None, :, :]                 # [H, R, D]
+        return torch.matmul(hr, tail.T)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +224,15 @@ class ComplExScore:
             imag = re_e * im_r + im_e * re_r
         return _chunk_dot(torch.cat([real, imag], dim=-1), neg_emb,
                           num_chunks, chunk_size, neg_sample_size)
+
+    def infer_score(self, head, rel, tail):
+        re_h, im_h = _split(head)
+        re_r, im_r = _split(rel)
+        # the rotated heads [H, R, D/2] twice; [a | b] . [re_t | im_t] is
+        # the JAX package's a . re_t + b . im_t in one product
+        a = re_h[:, None, :] * re_r[None] - im_h[:, None, :] * im_r[None]
+        b = im_h[:, None, :] * re_r[None] + re_h[:, None, :] * im_r[None]
+        return torch.matmul(torch.cat([a, b], dim=-1), tail.T)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +263,27 @@ class RESCALScore:
             tmp = torch.matmul(emb[:, None, :], rmat)[:, 0, :]
         return _chunk_dot(tmp, neg_emb, num_chunks, chunk_size,
                           neg_sample_size)
+
+    def infer_score(self, head, rel, tail):
+        """h . (R t) for every (head, relation, tail).  With no more heads
+        than tails h^T R is formed first (H R Dr De + H R T De
+        multiply-adds), else R t as the JAX package does (R T Dr De +
+        H R T Dr); relations are taken in blocks whose [Rb, min(H, T), D]
+        and [Rb, H, T] intermediates stay under INFER_BUDGET elements."""
+        mat = self._mat(rel)                                   # [R, Dr, De]
+        hn, rn, tn = head.shape[0], mat.shape[0], tail.shape[0]
+        width = max(self.relation_dim, self.entity_dim)
+        rb = max(1, INFER_BUDGET // max(1, min(hn, tn) * width, hn * tn))
+        out = torch.empty((hn, rn, tn), dtype=torch.float32,
+                          device=head.device)
+        for j in range(0, rn, rb):
+            m = mat[j:j + rb]
+            if hn <= tn:
+                s = torch.matmul(torch.matmul(head, m), tail.T)
+            else:
+                s = torch.matmul(head, torch.matmul(m, tail.T))
+            out[:, j:j + rb] = s.transpose(0, 1)               # [H, Rb, T]
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,6 +328,26 @@ class RotatEScore:
         dist = torch.sqrt(re_d * re_d + im_d * im_d + 1e-30)
         return self.gamma - torch.sum(dist, dim=-1)
 
+    def infer_score(self, head, rel, tail):
+        """The [H, R, T, D/2] moduli taken a block of tails at a time, each
+        block under INFER_BUDGET elements."""
+        re_h, im_h = _split(head)
+        re_t, im_t = _split(tail)
+        re_r, im_r = self._rotation(rel)
+        re_hr = (re_h[:, None, :] * re_r[None] - im_h[:, None, :] * im_r[None])
+        im_hr = (re_h[:, None, :] * im_r[None] + im_h[:, None, :] * re_r[None])
+        hn, rn, half = re_hr.shape
+        tn = tail.shape[0]
+        tb = max(1, INFER_BUDGET // max(1, hn * rn * half))
+        out = torch.empty((hn, rn, tn), dtype=torch.float32,
+                          device=head.device)
+        for j in range(0, tn, tb):
+            re_s = re_hr[:, :, None, :] - re_t[None, None, j:j + tb]
+            im_s = im_hr[:, :, None, :] - im_t[None, None, j:j + tb]
+            dist = torch.sqrt(re_s * re_s + im_s * im_s + 1e-30)
+            out[:, :, j:j + tb] = self.gamma - torch.sum(dist, dim=-1)
+        return out
+
 
 @dataclasses.dataclass(frozen=True)
 class SimplEScore:
@@ -264,6 +372,15 @@ class SimplEScore:
         args = (num_chunks, chunk_size, neg_sample_size)
         s = _chunk_dot(fwd, n_fwd, *args) + _chunk_dot(bwd, n_bwd, *args)
         return torch.clamp(0.5 * s, -20.0, 20.0)
+
+    def infer_score(self, head, rel, tail):
+        h_i, h_j = _split(head)
+        t_i, t_j = _split(tail)
+        r, r_inv = _split(rel)
+        fwd = torch.matmul(h_i[:, None, :] * r[None], t_j.T)
+        bwd = torch.matmul(h_j[:, None, :] * r_inv[None], t_i.T)
+        # no clamp: the reference's infer form does not clamp
+        return 0.5 * (fwd + bwd)
 
 
 def make_score_function(model_name: str, gamma: float, hidden_dim: int,

@@ -12,6 +12,7 @@ underscore, as the JAX package writes it) with
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Optional
 
@@ -103,3 +104,9 @@ def load_model_state(config: KGEConfig, model: KEModel,
 
 def load_config(path: str) -> KGEConfig:
     return KGEConfig.load(os.path.join(path, "config.json"))
+
+
+def load_config_json(path: str) -> dict:
+    """A checkpoint's config.json as written, keys of either package."""
+    with open(os.path.join(path, "config.json")) as f:
+        return json.load(f)

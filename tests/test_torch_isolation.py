@@ -15,6 +15,7 @@ from dglke_tpu_torch import device as pt_device
 from dglke_tpu_torch import trainer as pt_trainer
 from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import synthetic_dataset
+from dglke_tpu_torch.models.infer import EmbSimInfer, InferModel
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.ops import outer_update, rows
 from dglke_tpu_torch.ops.embedding import EmbeddingState
@@ -81,6 +82,9 @@ ENTRY_POINTS = {
     "KEModel": lambda: KEModel(_cfg(), 50, 4),
     "train": lambda: pt_trainer.train(_cfg(), _ds(), log=lambda *a: None),
     "state_from_numpy": lambda: state_from_numpy(_state_arrays()),
+    # the JAX package's gpu id -1 selects the card all the same
+    "InferModel": lambda: InferModel(_cfg(), device=-1),
+    "EmbSimInfer": lambda: EmbSimInfer(-1, "entity.npy"),
 }
 
 
