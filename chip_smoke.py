@@ -86,8 +86,33 @@ Phases (any failure exits non-zero and prints no result line):
      5.0 GB table, cold in L2) in turns beside index_select / index_add_
      and the plain versions, with the bounds.  Then two full-width steps
      on the card against the CPU, and the step profile;
+  6b. host-resident tables (--mix_cpu_gpu).  The chunked save
+     (utils/io.py:_save_table) of the wikikg2 path's 5.0 GB entity table
+     and of a bf16 copy, read back with np.load (bit-equal; equal to the
+     fp32 upcast), the card's allocation during each save under one chunk.
+     K1 and K2 on tables in mapped host memory (rows.map_host) held to
+     their plain versions: K1 at the flagship's 3,000 ids x 400 and on
+     1,000 of TransR's 160,000-wide projection rows (in the mapped shape
+     and the one a table on the card takes), K2
+     on both routes, Adagrad and the plain row add; each timed beside its
+     bound over the host link (the PCIe generation and width nvidia-smi
+     reports), its plain version and the staging route (the JAX package's
+     host design written in PyTorch).  The flagship through the CLI with
+     --mix_cpu_gpu (1,000 steps, filtered test eval; launch counts held),
+     its checkpoint through dglke_tpu_torch-eval in host mode (adopted
+     from config.json) and with --no_mix_cpu_gpu on the card: the filtered
+     ranks of all three identical.  Two host steps on the card against the
+     CPU; the host step profile;
   7. the planted quality gate of every family on the card (MRR >= 0.85,
      HITS@10 >= 0.99, the JAX package's calibrated configs);
+  7b. the capacity run: the Freebase TransE_l2 recipe
+     (examples/freebase.sh:8-11) with --mix_cpu_gpu through the CLI at
+     FB_ENT entities, an entity table larger than the card (cuts listed at
+     FB_ENT), launch counts held; the host-table init and mapping seconds,
+     the sampled test eval, a 50-step profile after 50, a filtered
+     full-entity host eval of 1,000 test triples streaming the table
+     through the card once, and the card's peak allocation held under
+     HOST_PEAK_CEILING;
   8. the kernel summary: a `kernels:` line, one JSON line of per-kernel
      numbers, the card's name and power limit, and the result line.
 
@@ -98,6 +123,7 @@ end; the kernels are built under build/dglke_tpu_torch/.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -197,6 +223,43 @@ EXPECTED_LAUNCHES = {
     "wikikg2": {"gather_rows": 2080, "group_ids": 2000, "group_ids_sort": 0,
                 "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0},
 }
+# Host-resident tables (--mix_cpu_gpu): each step gathers the entity and
+# the relation rows from the mapped host tables (K1 x 2) and writes both
+# back (a grouping and K2 each), 1,000 steps.  The flagship's filtered
+# full-entity test eval gathers, for each of its two directions, the
+# queries' [h | t] entity rows and their relation rows (K1 x 2); the table
+# streams through the card by plain copies, no kernel.  The capacity run's
+# sampled test eval (2,000 triples, batches of 1,000) is 2 batches a mode,
+# one grouped call a mode (trainer.SAMPLED_GROUP), two K1 each.
+for _label in ("TransE_l2 host", "Freebase host"):
+    EXPECTED_LAUNCHES[_label] = {"gather_rows": 2004, "group_ids": 2000,
+                                 "group_ids_sort": 0,
+                                 "sparse_adagrad_rows": 2000,
+                                 "outer_adagrad_update": 0}
+HOST_PATHS = ("TransE_l2 host", "Freebase host")
+# The capacity run: the Freebase TransE_l2 recipe (examples/freebase.sh:
+# 8-11: batch 1,000, 200 negatives, hidden 400, gamma 10, lr 0.1, -rc 1e-9,
+# -adv; --batch_size_eval 1000 --neg_sample_size_eval 1000, filtered,
+# --no_save_emb) with --mix_cpu_gpu.  Cut: 55,000,000 of Freebase's
+# 86,054,151 entities (docs/format_out.md:24), so the entity table is
+# 55,000,000 x 400 fp32 = 88.0 GB, larger than the card's 80 GB, where the
+# whole 137.7 GB table does not fit the host memory of a one-H100 machine
+# with MemTotal 108.45 GB (printed by phase_capacity); 14,824 relations as
+# published; 2,000,000 train edges (~305 M), 2,000 test triples (~17 M),
+# 1,000 steps (the recipe runs 2,560,000); then a full-entity eval of 1,000
+# of the test triples.
+FB_ENT, FB_REL = 55_000_000, 14_824
+FB = dict(model_name="TransE_l2", hidden_dim=400, gamma=10.0, lr=0.1,
+          batch_size=1000, neg_sample_size=200,
+          neg_adversarial_sampling=True, regularization_coef=1e-9)
+FB_TRAIN, FB_TEST, FB_FULL_EVAL = 2_000_000, 2_000, 1_000
+FB_EVAL_BATCH = FB_EVAL_NEG = 1000
+# Byte offsets into a table from here on need more than 32 bits: K1 is held
+# on the capacity run's rows on both sides of it.
+FAR_OFFSET = 1 << 32
+# What the card may hold at once in host mode: rows of a step, an eval
+# block and its scores; far below any table it exists for.
+HOST_PEAK_CEILING = 2 << 30
 # The serving runs: K1 gathers a request's rows once, whatever the exec
 # mode (models/infer.py:scored_blocks, sim_topk): heads, relations and
 # tails for predict and link_predict (a "*" slot gathers the whole table;
@@ -1117,19 +1180,21 @@ def _recipe_flags(recipe: dict):
     return flags + (["-adv"] if recipe["neg_adversarial_sampling"] else [])
 
 
-def run_cli(label: str, argv: list):
+def run_cli(label: str, argv: list, trained=None):
     """dglke_tpu_torch-train with ``argv`` on the card, its launch counts
     read around that run only and held to EXPECTED_LAUNCHES[label]; the
     losses must be finite.  Returns (counts, printed text, the trained
-    model and state)."""
+    model and state); ``trained``, a dict, also receives the run's config
+    and dataset."""
     from dglke_tpu_torch.cli import train as train_cli
     from dglke_tpu_torch.ops import rows
     print(f"{label}: dglke_tpu_torch-train " + " ".join(argv))
-    trained = {}
+    trained = {} if trained is None else trained
     real_train = train_cli.train
 
     def keep(*args, **kwargs):
         out = real_train(*args, **kwargs)
+        trained["config"], trained["dataset"] = args[0], args[1]
         trained["model"], trained["state"] = out[0], out[1]
         return out
 
@@ -1976,6 +2041,693 @@ def phase_wiki_kernels(state):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: host-resident tables (--mix_cpu_gpu)
+
+
+def pcie_bytes_per_s() -> float:
+    """The host link's rate each way, from the generation and width the
+    card reports (nvidia-smi, printed): 4 GB/s a lane at Gen5 (64 GB/s at
+    x16), half that a generation down.  The link idles at a lower
+    generation, so the maximum is taken.  Where nvidia-smi reports the link
+    as [N/A], the H100's host interface by its data sheet: PCIe Gen5 x16."""
+    q = ("pcie.link.gen.current,pcie.link.width.current,"
+         "pcie.link.gen.max,pcie.link.width.max")
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={q}", "--format=csv"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip()
+    print(f"PCIe link (nvidia-smi --query-gpu={q}):\n  "
+          + out.replace("\n", "\n  "))
+    vals = [v.strip() for v in out.splitlines()[1].split(",")]
+    gen, width = ((int(vals[2]), int(vals[3])) if vals[2].isdigit()
+                  and vals[3].isdigit() else (5, 16))
+    rate = 4e9 / 2 ** (5 - gen) * width
+    print(f"  bound taken at Gen{gen} x{width}: {rate / 1e9:.0f} GB/s each "
+          f"way")
+    return rate
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Mean ms of fn() on the host clock, synchronised at both ends."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def check_k2_mapped(label: str, table, ss0, ids, grads, adagrad: bool):
+    """K2 on a mapped host table (and its mapped state_sum) against its
+    plain version on CPU copies of the same inputs: within K2_RTOL /
+    K2_ATOL, two runs bit-identical, untouched rows unchanged.  table and
+    ss0 are numpy arrays, ids and grads on the card."""
+    import torch
+    from dglke_tpu_torch.ops import rows
+
+    def run(kernel: bool):
+        emb = table.copy()
+        state = ss0.copy() if adagrad else None
+        if kernel:
+            emb_t = rows.map_host(emb)
+            ss_t = rows.map_host(state) if adagrad else None
+            i, g = ids, grads
+        else:
+            emb_t = torch.from_numpy(emb)
+            ss_t = torch.from_numpy(state) if adagrad else None
+            i, g = ids.cpu(), grads.cpu()
+        if adagrad:
+            fn = (rows.sparse_adagrad_rows if kernel
+                  else rows.sparse_adagrad_plain)
+            fn(emb_t, ss_t, i, g, LR)
+        else:
+            (rows.scatter_add_rows if kernel else rows.scatter_add_plain)(
+                emb_t, i, g)
+        torch.cuda.synchronize()
+        # plain copies: the mapped ranges are released with the arrays
+        return (emb_t.clone(), None if ss_t is None else ss_t.clone())
+
+    (ek, sk), (ep, sp) = run(True), run(False)
+    name = "sparse_adagrad_rows" if adagrad else "scatter_add_rows"
+    what = f"K2 {name} {label} on a mapped host table"
+    err = float((ek - ep).abs().max())
+    if not torch.allclose(ek, ep, rtol=K2_RTOL, atol=K2_ATOL):
+        fail(f"{what}: max |diff| {err} outside rtol {K2_RTOL} atol "
+             f"{K2_ATOL}")
+    if adagrad and not torch.allclose(sk, sp, rtol=K2_RTOL, atol=K2_ATOL):
+        fail(f"{what} state_sum: max |diff| {float((sk - sp).abs().max())}")
+    ek2, sk2 = run(True)
+    if not (torch.equal(ek, ek2) and (not adagrad or torch.equal(sk, sk2))):
+        fail(f"{what}: two runs differ")
+    untouched = torch.ones(table.shape[0], dtype=torch.bool)
+    untouched[ids.long().cpu()] = False
+    base = torch.from_numpy(table)
+    if not bool(untouched.any()) or not torch.equal(ek[untouched],
+                                                    base[untouched]):
+        fail(f"{what}: no untouched row, or one changed")
+    print(f"{what} [{ids.numel()} ids, {table.shape[0]} x {table.shape[1]}, "
+          f"{rows.plan_update(table.shape[1])}]: within rtol {K2_RTOL} / "
+          f"atol {K2_ATOL} of plain (max |diff| {err:.3g}); two runs "
+          f"bit-identical; untouched rows unchanged")
+    return err
+
+
+def phase_host_kernels():
+    """K1 and K2 on tables in mapped host memory (rows.map_host), held to
+    their plain versions on the same inputs: K1 at the flagship's 3,000 ids
+    x 400 and on 1,000 of TransR's 160,000-wide projection rows, in the
+    mapped shape and in the shape a table on the card takes, timed in
+    turns on CUDA events; K2 on both routes (a warp per segment at the flagship; a
+    block per segment on the projection rows), Adagrad and the plain row
+    add.  Each is timed on the card beside its bound over the host link,
+    its plain version on the CPU, and the JAX package's design written in
+    PyTorch (the staging route: index_select into a pinned buffer and one
+    copy to the card; the gradients copied back and the plain update on
+    the CPU).  Returns the two kernels' JSON entries."""
+    import torch
+    from dglke_tpu_torch.ops import rows
+    link = pcie_bytes_per_s()
+    _, ent_ids, rel_ids = _flagship_ids(0)
+    dev = ent_ids.device
+    rng = np.random.default_rng(4)
+    ent_np = (rng.standard_normal((N_ENT, DIM), np.float32) * 0.05)
+    ss_np = rng.random(N_ENT, np.float32)
+    proj_np = rng.standard_normal((N_REL, DIM * DIM), np.float32)
+    proj_ss = rng.random(N_REL, np.float32)
+    out = {}
+    for label, tab_np, ss, ids in (
+            ("flagship entity", ent_np, ss_np, ent_ids),
+            ("TransR projection", proj_np, proj_ss, rel_ids)):
+        width = tab_np.shape[1]
+        t0 = time.time()
+        table = rows.map_host(tab_np.copy())
+        reg_s = time.time() - t0
+        ids_cpu = ids.cpu()
+        want = rows.gather_rows_plain(table, ids_cpu, width)
+        # the chosen shape and the one a table on the card takes
+        shapes = ("wide_loads", rows.gather_shape(width))
+        ms = {}
+        for shape in shapes:
+            got = rows.launch_gather(table, ids, width, shape,
+                                     rows.mapped_address(table))
+            torch.cuda.synchronize()
+            if not torch.equal(got.cpu(), want):
+                fail(f"K1 {shape} on a mapped {label} table: differs from "
+                     f"its plain version")
+            del got
+        chosen = rows.gather_shape(width, mapped=True)
+        if not torch.equal(rows.gather_rows(table, ids, width).cpu(), want):
+            fail(f"K1 gather_rows on a mapped {label} table: differs")
+        # CUDA events around back-to-back calls: each call is device-bound
+        # (the link), and torch.profiler's device trace of kernels on
+        # mapped memory came back empty or partial on the card
+        iters = 50 if width < rows.GATHER_WIDE_MIN else 5
+        ms = {s: [] for s in shapes}
+        for s in (*shapes, *reversed(shapes)):
+            ms[s].append(call_ms(lambda s=s: rows.launch_gather(
+                table, ids, width, s, rows.mapped_address(table)),
+                iters=iters, warmup=2))
+        ms = {s: sum(v) / len(v) for s, v in ms.items()}
+        k1 = call_ms(lambda: rows.gather_rows(table, ids, width),
+                     iters=iters, warmup=2)
+        plain = host_ms(lambda: rows.gather_rows_plain(table, ids_cpu,
+                                                       width), iters=iters)
+        pinned = torch.empty((ids.numel(), width), pin_memory=True)
+        staged_out = torch.empty((ids.numel(), width), device=dev)
+        ids64 = ids_cpu.long()
+
+        def staged():
+            torch.index_select(table, 0, ids64, out=pinned)
+            staged_out.copy_(pinned, non_blocking=True)
+        staged_ms = host_ms(staged, iters=iters)
+        del pinned, staged_out
+        # the link's rate for a plain copy of the whole mapped table (the
+        # full-entity host eval's block uploads)
+        whole = torch.empty(table.shape, device=dev)
+        copy_ms = call_ms(lambda: whole.copy_(table, non_blocking=True),
+                          iters=iters // 5 or 1, warmup=1)
+        del whole
+        uniq = int(torch.unique(ids_cpu).numel())
+        link_bytes = uniq * width * 4
+        hbm_bytes = ids.numel() * 4 + ids.numel() * width * 4
+        bound = max(link_bytes / link * 1e3, hbm_bytes / HBM_BYTES_PER_S * 1e3)
+        print(f"K1 gather_rows on a mapped {label} table [{ids.numel()} ids "
+              f"({uniq} distinct), {tab_np.shape[0]} x {width} fp32 in host "
+              f"memory, mapped in {reg_s:.3f} s], shape {chosen}: exact; "
+              f"ms per call {k1:.5f} (CUDA events; shapes in turns: "
+              + ", ".join(f"{s} {v:.4f}" for s, v in ms.items()) + ")"
+              + f"; bound {bound:.5f} (bytes: {link_bytes / 1e6:.3f} MB over "
+              f"the link), {100 * bound / k1:.1f}% of it, "
+              f"{link_bytes / k1 / 1e6:.2f} GB/s; plain on the CPU "
+              f"{plain:.4f} ms; staging route (index_select into pinned + "
+              f"copy) {staged_ms:.4f} ms on the host clock; a copy of the "
+              f"whole mapped table to the card {copy_ms:.4f} ms "
+              f"({table.numel() * 4 / copy_ms / 1e6:.2f} GB/s)")
+        if ms[chosen] > min(ms.values()):
+            print(f"  note: {chosen} is not the faster shape here")
+        # K2 on the same table: Adagrad and the plain row add
+        grads = torch.randn((ids.numel(), width), device=dev) * 0.1
+        err = max(check_k2_mapped(label, tab_np, ss, ids, grads, True),
+                  check_k2_mapped(label, tab_np, None, ids, grads, False))
+        ss_t = rows.map_host(ss.copy())
+        k2 = call_ms(lambda: rows.sparse_adagrad_rows(table, ss_t, ids,
+                                                      grads, LR),
+                     iters=iters, warmup=2)
+        k2_split = device_ms_by_kernel(lambda: rows.sparse_adagrad_rows(
+            table, ss_t, ids, grads, LR), iters=iters) or {"no trace": 0.0}
+        g_cpu, ss_cpu = grads.cpu(), torch.from_numpy(ss.copy())
+        cpu_tab = table.clone()
+        k2_plain = host_ms(lambda: rows.sparse_adagrad_plain(
+            cpu_tab, ss_cpu, ids_cpu, g_cpu, LR), iters=3)
+        g_pin = torch.empty(grads.shape, pin_memory=True)
+
+        def staged_k2():
+            g_pin.copy_(grads)
+            rows.sparse_adagrad_plain(cpu_tab, ss_cpu, ids_cpu, g_pin, LR)
+        k2_staged = host_ms(staged_k2, iters=3)
+        del g_pin, cpu_tab
+        k2_link = uniq * (width + 1) * 4        # each way
+        k2_hbm = ids.numel() * (width + 1) * 4
+        k2_bound = max(k2_link / link * 1e3, k2_hbm / HBM_BYTES_PER_S * 1e3)
+        print(f"K2 sparse_adagrad_rows on a mapped {label} table: ms per "
+              f"call {k2:.5f} (CUDA events; torch.profiler by kernel: "
+              + ", ".join(f"{k[:40]} {v:.5f}" for k, v in k2_split.items())
+              + f"); bound {k2_bound:.5f} (bytes: {k2_link / 1e6:.3f} MB "
+              f"each way over the link), {100 * k2_bound / k2:.1f}% of it; "
+              f"plain on the CPU {k2_plain:.4f} ms; staging route (gradients "
+              f"to pinned memory + the plain update on the CPU) "
+              f"{k2_staged:.4f} ms on the host clock")
+        out[label] = dict(k1=k1, k1_plain=plain, k1_bound=bound,
+                          k1_staged=staged_ms, k2=k2, k2_plain=k2_plain,
+                          k2_bound=k2_bound, k2_staged=k2_staged, err=err,
+                          wide=ms)
+        del table, ss_t, grads
+    gc.collect()
+    if rows._mapped:
+        fail(f"mapped ranges left after the phase: {len(rows._mapped)}")
+    f, p = out["flagship entity"], out["TransR projection"]
+    common = {"route": "cuda", "source": "dglke_tpu_torch/ops/csrc/rows.cu",
+              "launches": None, "bound_by": "bytes", "paths": HOST_PATHS}
+    return [
+        {"name": "gather_rows (mapped host table)",
+         "counter": "gather_rows",
+         "replaces": "dglke_tpu/ops/pallas/rows.py:89", "max_abs_err": 0.0,
+         "ms": f["k1"], "plain_ms": f["k1_plain"], "bound_ms": f["k1_bound"],
+         "library_ms": f["k1_staged"], "transr_projection_ms": p["k1"],
+         "transr_projection_bound_ms": p["k1_bound"],
+         "transr_projection_library_ms": p["k1_staged"],
+         "shapes_ms": f["wide"], "transr_projection_shapes_ms": p["wide"],
+         **common},
+        {"name": "sparse_adagrad_rows (mapped host table)",
+         "counter": "sparse_adagrad_rows",
+         "replaces": "dglke_tpu/ops/pallas/rows.py:227",
+         "max_abs_err": max(f["err"], p["err"]), "ms": f["k2"],
+         "plain_ms": f["k2_plain"], "bound_ms": f["k2_bound"],
+         "library_ms": f["k2_staged"], "transr_projection_ms": p["k2"],
+         "transr_projection_bound_ms": p["k2_bound"],
+         "transr_projection_library_ms": p["k2_staged"], **common},
+    ]
+
+
+class _RankLog:
+    """Keeps the rank arrays every eval hands to
+    trainer.combine_rank_metrics (the device path's and the host path's)
+    while active."""
+
+    def __init__(self):
+        self.ranks = []
+
+    def __enter__(self):
+        from dglke_tpu_torch import trainer
+        self.real = trainer.combine_rank_metrics
+
+        def keep(ranks, msg):
+            self.ranks.append(np.asarray(ranks).copy())
+            return self.real(ranks, msg)
+        trainer.combine_rank_metrics = keep
+        return self
+
+    def __exit__(self, *exc):
+        from dglke_tpu_torch import trainer
+        trainer.combine_rank_metrics = self.real
+
+
+def phase_host_main():
+    """The flagship through dglke_tpu_torch-train with --mix_cpu_gpu (the
+    TransE_l2 recipe, 1,000 steps, the filtered full-entity test eval) with
+    its launch counts held to EXPECTED_LAUNCHES; then its checkpoint
+    through dglke_tpu_torch-eval twice: adopting host mode from its
+    config.json, and with --no_mix_cpu_gpu on the card.  The three filtered
+    rank arrays must be identical.  Returns the launch counts."""
+    from dglke_tpu_torch.cli import eval as eval_cli
+    data = _fb15k_shaped("data", n_train=300_000)
+    save = os.path.join(WORK, "host_ckpts")
+    argv = ["--dataset", "fb15k_shaped", *_udd_args(data),
+            *_recipe_flags(TRANSE), "--max_step", str(MAIN_STEPS),
+            "--log_interval", str(MAIN_STEPS // 4), "--batch_size_eval",
+            "500", "--test", "--mix_cpu_gpu", "--save_path", save]
+    ranks = _RankLog()
+    with ranks:
+        counts, text, _, state = run_cli("TransE_l2 host", argv)
+    if "pinned and mapped for cuda" not in text:
+        fail("host main path: the tables were not mapped for the card")
+    if type(state).__name__ != "HostState" or state.entity.emb.is_cuda:
+        fail("host main path: the trained tables are not in host memory")
+    mrr = _floats(r"\[0\]Test average MRR: (\S+)", text)
+    train_s = _floats(r"training takes (\S+) seconds", text)
+    eval_s = _floats(r"\[0\]Test takes (\S+) seconds", text)
+    print(f"TransE_l2 host main path: {MAIN_STEPS} steps, "
+          f"{MAIN_STEPS * BATCH / train_s[0]:.1f} triples/s (host clock over "
+          f"the whole loop, first step included), test eval {eval_s[0]:.3f} "
+          f"s, MRR {mrr[0]!r}; launches {counts}")
+    ckpt = os.path.join(save, "TransE_l2_fb15k_shaped_0")
+    for extra, host in (((), True), (("--no_mix_cpu_gpu",), False)):
+        out = io.StringIO()
+        t0 = time.time()
+        with ranks, contextlib.redirect_stdout(out):
+            _cli(eval_cli.main, [*_udd_args(data), "--model_path", ckpt,
+                                 "--batch_size_eval", "500", *extra])
+        said = "host-resident tables" in out.getvalue()
+        if said != host:
+            fail(f"dglke_tpu_torch-eval {' '.join(extra)}: host mode "
+                 f"{said}, expected {host}")
+        how = " ".join(extra) or "(adopts the saved mix_cpu_gpu)"
+        mrr = _floats(r"Test average MRR: (\S+)", out.getvalue())
+        print(f"dglke_tpu_torch-eval {how}: {time.time() - t0:.3f} s, "
+              f"{'host' if host else 'device'} tables, MRR {mrr}")
+    if len(ranks.ranks) != 3 or not all(
+            np.array_equal(ranks.ranks[0], r) for r in ranks.ranks[1:]):
+        fail(f"host main path: filtered ranks differ between the training "
+             f"run's host eval, the eval CLI in host mode and on the card "
+             f"({[len(r) for r in ranks.ranks]} rows)")
+    print(f"filtered ranks of {len(ranks.ranks[0])} rows identical: the "
+          f"training run's host eval, dglke_tpu_torch-eval adopting host "
+          f"mode, and dglke_tpu_torch-eval --no_mix_cpu_gpu on the card")
+    return counts
+
+
+def _host_copy(model, state, device: str):
+    """A HostState of fresh numpy copies of ``state``'s tables, mapped
+    when ``device`` is the card."""
+    from dglke_tpu_torch import host_table
+    import torch
+
+    def table(t):
+        return None if t is None else host_table._host_embedding(
+            t.emb.numpy().copy(), t.state_sum.numpy().copy(),
+            torch.device(device))
+
+    return host_table.HostState(table(state.entity), table(state.relation),
+                                table(state.projection), state.step)
+
+
+def phase_host_step_parity(recipe: dict):
+    """One host step in each corruption direction on the card (K1 and K2
+    on mapped tables) and on the CPU (the plain versions), from identical
+    tables and the same TrainSampler batches: every table, Adagrad state
+    and the loss within rtol 1e-4 / atol 1e-5, as phase_step_parity."""
+    import torch
+    from dglke_tpu_torch import host_table
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    from dglke_tpu_torch.data.sampler import TrainSampler
+    from dglke_tpu_torch.models.ke_model import KEModel
+    cfg = KGEConfig(**recipe, mix_cpu_gpu=True)
+    gpu_model = KEModel(cfg, N_ENT, N_REL, device="cuda")
+    cpu_model = KEModel(cfg, N_ENT, N_REL, device="cpu")
+    cpu_state = host_table.init_host_state(cpu_model, seed=1)
+    gpu_state = _host_copy(gpu_model, cpu_state, "cuda")
+    ds = synthetic_dataset(N_ENT, N_REL, n_train=100_000, seed=0)
+    sampler = TrainSampler(ds, cfg.batch_size, cfg.neg_sample_size, seed=1)
+    for _ in range(2):
+        batch = next(sampler)
+        glog = host_table.host_step(gpu_model, gpu_state, batch)
+        clog = host_table.host_step(cpu_model, cpu_state, batch)
+        torch.cuda.synchronize()
+        pairs = [("loss", glog["loss"].cpu(), clog["loss"])]
+        for name in ("entity", "relation"):
+            g, c = getattr(gpu_state, name), getattr(cpu_state, name)
+            pairs += [(f"{name} emb", g.emb, c.emb),
+                      (f"{name} state_sum", g.state_sum, c.state_sum)]
+        side = "head" if batch["neg_head"] else "tail"
+        for what, a, b in pairs:
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
+                fail(f"host step parity ({side}): {what} differs by "
+                     f"{float((a - b).abs().max())}")
+    print(f"TransE_l2 host step parity [{N_ENT} x {N_REL}]: two steps (batch "
+          f"{cfg.batch_size}) on mapped host tables on the card match the "
+          f"CPU's plain path within rtol 1e-4 / atol 1e-5")
+    del gpu_state, cpu_state
+    gc.collect()
+
+
+def phase_host_profile(label: str, model, state, ds, steps: int = 50):
+    """Where a host step's time goes: the host clock over ``steps`` host
+    steps after as many to warm up, then torch.profiler over ``steps``
+    more for the device's busy share and the kernels by device time.
+    Returns (host ms per step, busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dglke_tpu_torch import host_table
+    from dglke_tpu_torch.data.sampler import TrainSampler
+    cfg = model.config
+    sampler = TrainSampler(ds, cfg.batch_size, cfg.neg_sample_size, seed=2)
+
+    def run(n):
+        for _ in range(n):
+            host_table.host_step(model, state, next(sampler))
+        torch.cuda.synchronize()
+
+    run(steps)
+    t0 = time.perf_counter()
+    run(steps)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(steps)
+        kern = _kernel_events(prof)
+        if kern:
+            break
+        print("  (torch.profiler returned no device event; tracing again)")
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    print(f"{label} host step profile [batch {cfg.batch_size}]: "
+          f"{step_ms:.4f} ms per step on the host clock "
+          f"({cfg.batch_size * 1e3 / step_ms:.1f} triples/s); device busy "
+          f"{busy:.4f} ms per step ({100 * busy / step_ms:.1f}%, idle "
+          f"{100 - 100 * busy / step_ms:.1f}%); "
+          f"{sum(e.count for e in kern) / steps:.1f} kernels per step")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
+              f"x{e.count / steps:.1f}  {e.key[:90]}")
+    return step_ms, busy / step_ms
+
+
+def phase_host_flagship_profile():
+    """The host step profile at the flagship shape: fresh host tables of
+    14,951 x 400 and 1,345 x 400, mapped, on 100,000 train edges."""
+    from dglke_tpu_torch import host_table
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    from dglke_tpu_torch.models.ke_model import KEModel
+    model = KEModel(KGEConfig(**TRANSE, mix_cpu_gpu=True), N_ENT, N_REL,
+                    device="cuda")
+    state = host_table.init_host_state(model, seed=0)
+    ds = synthetic_dataset(N_ENT, N_REL, n_train=100_000, seed=0)
+    phase_host_profile("TransE_l2", model, state, ds)
+    del state
+    gc.collect()
+
+
+def _write_freebase(path: str) -> None:
+    """A dataset in the port's Freebase layout (data/dataset.py:
+    _load_freebase): count-only entity2id.txt / relation2id.txt, integer
+    triples in h-t-r order; the triples from synthetic_dataset at
+    FB_ENT x FB_REL."""
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    ds = synthetic_dataset(n_entities=FB_ENT, n_relations=FB_REL,
+                           n_train=FB_TRAIN, n_valid=1000, n_test=FB_TEST,
+                           seed=0, name="Freebase")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "entity2id.txt"), "w") as f:
+        f.write(f"{FB_ENT}\n")
+    with open(os.path.join(path, "relation2id.txt"), "w") as f:
+        f.write(f"{FB_REL}\n")
+    for split in ("train", "valid", "test"):
+        h, r, t = getattr(ds, split)
+        np.savetxt(os.path.join(path, f"{split}.txt"),
+                   np.stack([h, t, r], axis=1), fmt="%d", delimiter="\t")
+
+
+def _meminfo_gb(key: str) -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def phase_capacity_parity(model, state, ds):
+    """K1 and K2 held to their plain versions on the capacity run's trained
+    tables in mapped host memory (the entity table FB_ENT x 400, larger
+    than the card).  K1 gathers N_ENT_IDS entity ids drawn over all FB_ENT
+    rows, among them the rows on both sides of byte offset FAR_OFFSET
+    (4 GiB) and the last row, and 1,000 relation ids: bit-equal to the host's
+    own rows at those ids.  Then one host step (host_table.host_step) of a
+    TrainSampler batch, whose entity ids run over the 26 bits of FB_ENT - 1
+    that the grouping sorts: the touched entity and relation rows and
+    their state_sum entries must match sparse_adagrad_plain applied, with
+    the step's row gradients (host_table.host_grads on the same tables and
+    batch), to CPU copies of only those rows, ids remapped to compact
+    indices, within K2_RTOL / K2_ATOL; 1,000 rows of each table that the
+    step does not touch stay bit-equal."""
+    import torch
+    from dglke_tpu_torch import host_table
+    from dglke_tpu_torch.data.sampler import TrainSampler
+    from dglke_tpu_torch.ops import rows
+    from dglke_tpu_torch.ops.embedding import gather_rows
+    rng = np.random.default_rng(5)
+    past_4g = -(-FAR_OFFSET // (model.entity_dim * 4))   # first row past it
+    if past_4g >= FB_ENT:
+        fail(f"capacity run: the entity table ends before byte offset "
+             f"{FAR_OFFSET}")
+    picks = {"entity": np.concatenate([
+        [0, past_4g - 1, past_4g, FB_ENT - 1],
+        rng.integers(0, FB_ENT, N_ENT_IDS - 4)]),
+        "relation": rng.integers(0, FB_REL, 1000)}
+    for name, ids in picks.items():
+        table = getattr(state, name)
+        ids = torch.from_numpy(ids.astype(np.int32))
+        got = gather_rows(table, ids.cuda(), table.emb.shape[1])
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), table.emb[ids.long()]):
+            fail(f"capacity run: K1 on the mapped {name} table differs from "
+                 f"its rows on the host")
+    print(f"capacity run: K1 on the mapped tables, {N_ENT_IDS} entity ids "
+          f"over all {FB_ENT} rows (rows {past_4g - 1} and {past_4g} on both "
+          f"sides of byte offset {FAR_OFFSET}, row {FB_ENT - 1}) and 1,000 "
+          f"relation "
+          f"ids: bit-equal to the host's rows")
+
+    cfg = model.config
+    batch = next(iter(TrainSampler(ds, cfg.batch_size, cfg.neg_sample_size,
+                                   seed=3)))
+    _, updates = host_table.host_grads(model, state, batch)
+    torch.cuda.synchronize()
+    held = []
+    for table, ids, grads in updates:
+        uniq, inv = torch.unique(ids.long().cpu(), return_inverse=True)
+        other = rng.integers(0, table.emb.shape[0], 1000)
+        other = torch.from_numpy(other[~np.isin(other, uniq.numpy())])
+        held.append((uniq, inv, grads.cpu(), table.emb[uniq].clone(),
+                     table.state_sum[uniq].clone(), other,
+                     table.emb[other].clone()))
+    host_table.host_step(model, state, batch)
+    torch.cuda.synchronize()
+    for name, (table, ids, _), (uniq, inv, g, emb, ss, other, rest) in zip(
+            ("entity", "relation"), updates, held):
+        rows.sparse_adagrad_plain(emb, ss, inv, g, cfg.lr)
+        got_emb, got_ss = table.emb[uniq], table.state_sum[uniq]
+        err = float((got_emb - emb).abs().max())
+        if not (torch.allclose(got_emb, emb, rtol=K2_RTOL, atol=K2_ATOL)
+                and torch.allclose(got_ss, ss, rtol=K2_RTOL, atol=K2_ATOL)):
+            fail(f"capacity run: the host step's {name} rows differ from "
+                 f"sparse_adagrad_plain by {err} (state_sum "
+                 f"{float((got_ss - ss).abs().max())})")
+        if not torch.equal(table.emb[other], rest):
+            fail(f"capacity run: the host step changed untouched {name} "
+                 f"rows")
+        print(f"capacity run: one host step's {name} write-back ({len(ids)} "
+              f"ids, {len(uniq)} rows, ids up to {int(uniq.max())}, "
+              f"{int(uniq.max()).bit_length()} bits) within rtol {K2_RTOL} "
+              f"/ atol {K2_ATOL} of sparse_adagrad_plain on CPU copies of "
+              f"the touched rows (max |diff| {err:.3g}); {len(other)} "
+              f"untouched rows unchanged")
+
+
+def phase_capacity():
+    """The Freebase TransE_l2 recipe (examples/freebase.sh:8-11) with
+    --mix_cpu_gpu through dglke_tpu_torch-train --dataset Freebase
+    --format built_in, at FB_ENT entities x 400 fp32: an entity table
+    larger than the card's memory, in host memory, mapped for the card.
+    Then K1 and K2 held to their plain versions on those tables
+    (phase_capacity_parity), a 50-step profile after 50, and a filtered
+    full-entity host eval of FB_FULL_EVAL test triples over the same
+    table.  The card's peak allocation over all of it must stay under
+    HOST_PEAK_CEILING.  Returns the launch counts of the CLI run."""
+    import dataclasses
+    import resource
+    import torch
+    from dglke_tpu_torch.host_table import evaluate_host
+    card = torch.cuda.get_device_properties(0).total_memory
+    table = FB_ENT * FB["hidden_dim"] * 4
+    print(f"capacity run: entity table {FB_ENT} x {FB['hidden_dim']} fp32 = "
+          f"{table} bytes ({table / 1e9:.2f} GB) against the card's "
+          f"{card} bytes ({card / 1e9:.2f} GB), {table / card:.3f}x; host "
+          f"MemTotal {_meminfo_gb('MemTotal'):.2f} GB, MemAvailable "
+          f"{_meminfo_gb('MemAvailable'):.2f} GB; RLIMIT_MEMLOCK (ulimit -l) "
+          f"{resource.getrlimit(resource.RLIMIT_MEMLOCK)}")
+    if table <= card:
+        fail(f"capacity run: the entity table ({table} B) is not larger "
+             f"than the card ({card} B)")
+    # why the host tables are not allocated by torch's pinned allocator:
+    # it rounds a request up (to a power of two in the versions seen)
+    ask = (3 << 30) + 4096
+    pinned = torch.empty(ask, dtype=torch.uint8, pin_memory=True)
+    held = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    print(f"  torch's pinned allocator: a request of {ask} bytes holds "
+          f"{held} bytes ({held / ask:.3f}x)")
+    del pinned
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    t0 = time.time()
+    _write_freebase(os.path.join(WORK, "Freebase"))
+    print(f"  Freebase layout written in {time.time() - t0:.1f} s "
+          f"({FB_TRAIN} train, {FB_TEST} test triples)")
+    argv = ["--dataset", "Freebase", "--data_path", WORK, "--format",
+            "built_in", *_recipe_flags(FB), "--max_step", str(MAIN_STEPS),
+            "--log_interval", str(MAIN_STEPS // 4), "--test",
+            "--batch_size_eval", str(FB_EVAL_BATCH),
+            "--neg_sample_size_eval", str(FB_EVAL_NEG), "--no_save_emb",
+            "--mix_cpu_gpu", "--save_path", os.path.join(WORK, "ckpts")]
+    torch.cuda.reset_peak_memory_stats()
+    trained = {}
+    counts, text, model, state = run_cli("Freebase host", argv, trained)
+    init = re.search(r"host tables: (\d+) bytes drawn in (\S+) s; (.+) in "
+                     r"(\S+) s", text)
+    if init.group(3) != "pinned and mapped for cuda":
+        fail("capacity run: the tables were not mapped for the card")
+    train_s = _floats(r"training takes (\S+) seconds", text)
+    eval_s = _floats(r"\[0\]Test takes (\S+) seconds", text)
+    mrr = _floats(r"\[0\]Test average MRR: (\S+)", text)
+    if len(mrr) != 1 or not 0.0 < mrr[0] <= 1.0:
+        fail(f"capacity run: sampled test MRR {mrr} outside (0, 1]")
+    print(f"capacity run: host tables of {init.group(1)} bytes drawn in "
+          f"{init.group(2)} s ({int(init.group(1)) / max(float(init.group(2)), 1e-3) / 1e9:.2f}"
+          f" GB/s), pinned and mapped in {init.group(4)} s; {MAIN_STEPS} "
+          f"steps in {train_s[0]:.3f} s ({MAIN_STEPS * FB['batch_size'] / train_s[0]:.1f}"
+          f" triples/s, host clock, first step included); sampled test eval "
+          f"({FB_TEST} triples x 2 modes, {FB_EVAL_NEG} negatives, filtered) "
+          f"{eval_s[0]:.3f} s, MRR {mrr[0]!r}; launches {counts}")
+    ds = trained["dataset"]
+    phase_capacity_parity(model, state, ds)
+    step_ms, busy = phase_host_profile("Freebase", model, state, ds)
+    cfg = dataclasses.replace(trained["config"], neg_sample_size_eval=-1,
+                              eval_percent=FB_FULL_EVAL / FB_TEST)
+    lines = []
+    t0 = time.time()
+    m = evaluate_host(cfg, ds, model, state, "test", log=lines.append)
+    full_s = time.time() - t0
+    print(f"capacity run: filtered full-entity host eval of "
+          f"{FB_FULL_EVAL} test triples x 2 modes against {FB_ENT} entities "
+          f"in {full_s:.3f} s; the table streamed through the card once at "
+          f"{table / full_s / 1e9:.2f} GB/s (eval seconds included); MRR "
+          f"{m['MRR']!r}, HITS@10 {m['HITS@10']!r}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"capacity run: the card's peak allocation over the run, the "
+          f"profile and the full eval {peak} bytes ({peak / 1e9:.3f} GB; "
+          f"ceiling {HOST_PEAK_CEILING / 1e9:.3f} GB, the table "
+          f"{table / 1e9:.2f} GB)")
+    if peak > HOST_PEAK_CEILING:
+        fail(f"capacity run: {peak} bytes allocated on the card, above the "
+             f"ceiling {HOST_PEAK_CEILING}")
+    del state, model, ds, trained
+    gc.collect()
+    return counts
+
+
+def phase_chunked_save(model, state):
+    """The chunked save (utils/io.py:_save_table) of the wikikg2 path's
+    2,500,604 x 500 fp32 entity table on the card, and of a bf16 copy of
+    it: each read back with np.load, the fp32 one bit-equal to the card's
+    table and the bf16 one equal to its fp32 upcast; the card's allocation
+    during each save stays under one chunk (_STREAM_CHUNK)."""
+    import dataclasses
+    import torch
+    from dglke_tpu_torch.models.ke_model import TrainState
+    from dglke_tpu_torch.ops.embedding import EmbeddingState
+    from dglke_tpu_torch.utils import io as pt_io
+    emb = state.entity.emb
+    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = dataclasses.replace(model.config, emb_dtype=str(dtype)[6:],
+                                  dataset="wikikg2")
+        table = emb if dtype == torch.float32 else emb.to(dtype)
+        st = TrainState(EmbeddingState(table, state.entity.state_sum),
+                        state.relation, step=state.step)
+        path = os.path.join(WORK, f"save_{label}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        pt_io.save_model(cfg, model, st, save_path=path)
+        secs = time.time() - t0
+        added = torch.cuda.max_memory_allocated() - base
+        got = np.load(os.path.join(path, "wikikg2_TransE_l2_entity.npy"),
+                      mmap_mode="r")
+        if got.shape != tuple(emb.shape) or got.dtype != np.float32:
+            fail(f"chunked save {label}: {got.shape} {got.dtype}")
+        step = 1 << 18
+        for a in range(0, emb.shape[0], step):
+            want = table[a:a + step].float().cpu().numpy()
+            if not np.array_equal(got[a:a + step], want):
+                fail(f"chunked save {label}: rows {a}.. differ from the "
+                     f"card's table")
+        if added >= pt_io._STREAM_CHUNK:
+            fail(f"chunked save {label}: the save allocated {added} bytes "
+                 f"on the card, not under one chunk")
+        print(f"chunked save of the wikikg2 entity table, {label} "
+              f"({tuple(emb.shape)}, {table.numel() * table.element_size() / 1e9:.2f}"
+              f" GB on the card, {got.nbytes / 1e9:.2f} GB fp32 npy): "
+              f"{secs:.3f} s ({got.nbytes / secs / 1e9:.2f} GB/s), read back "
+              f"{'bit-equal to the table' if label == 'fp32' else 'equal to its fp32 upcast'}"
+              f"; the card allocated {added} bytes during the save "
+              f"(one chunk: {pt_io._STREAM_CHUNK})")
+        del got, table, st
+        shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 7
 
 # tests/test_planted_quality.py:27-46: (model, structure, overrides)
@@ -2055,22 +2807,39 @@ def main() -> int:
         k1_wiki, k2_wiki = phase_wiki_kernels(state)
         kernels[0].update(k1_wiki)
         kernels[2].update(k2_wiki)
+        phase_chunked_save(model, state)
         del ds, model, state
         phase_step_parity(WIKI, n_ent=WIKI_ENT, n_rel=WIKI_REL)
         phase_step_profile(WIKI, steps=50, n_ent=WIKI_ENT, n_rel=WIKI_REL)
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels += phase_host_kernels()
+        paths["TransE_l2 host"] = phase_host_main()
+        phase_host_step_parity(TRANSE)
+        phase_host_flagship_profile()
         phase_planted()
+        gc.collect()
+        # pinned staging buffers cached by torch go back to the host first
+        getattr(torch._C, "_host_emptyCache", lambda: None)()
+        paths["Freebase host"] = phase_capacity()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # launches: the sum over the main-path runs, each read around its own
-    # run only
+    # run only; a kernel on mapped host tables over the host paths, the
+    # same kernel on the card's own memory over the others
     for k in kernels:
-        k["launches"] = sum(c[k["name"]] for c in paths.values())
+        counter = k.pop("counter", k["name"])
+        on = k.pop("paths", None) or [
+            p for p in paths if p not in HOST_PATHS
+            or k["name"] not in ("gather_rows", "sparse_adagrad_rows")]
+        k["launches"] = sum(paths[p][counter] for p in on)
+        k["launches_by_path"] = {p: paths[p][counter] for p in on}
         if k["launches"] <= 0:
             fail(f"kernel {k['name']} was launched on no main path")
     print("kernels: " + ", ".join(
         f"{k['name']} ({k['route']}, launches "
-        + " + ".join(f"{c[k['name']]} {p}" for p, c in paths.items()) + ")"
-        for k in kernels))
+        + " + ".join(f"{n} {p}" for p, n in k["launches_by_path"].items())
+        + ")" for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -106,8 +106,6 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
 
 # flag -> (is it set?, ROADMAP item that says why it is refused)
 _REFUSED = {
-    "--mix_cpu_gpu": (lambda a: a.mix_cpu_gpu,
-                      "A10 (host-resident tables, host_table.py)"),
     "--dist": (lambda a: a.dist, "A11 (multi-device)"),
     "--sharded_ckpt": (lambda a: getattr(a, "sharded_ckpt", False),
                        "A11 (sharded checkpoints)"),
@@ -142,6 +140,10 @@ def warn_inert_flags(args: argparse.Namespace, log=print) -> None:
     if getattr(args, "force_sync_interval", -1) > 0:
         log("NOTE: --force_sync_interval is a compatibility no-op — the "
             "step is synchronous by construction")
+    if getattr(args, "mix_cpu_gpu", False):
+        log("NOTE: --mix_cpu_gpu keeps tables in host memory (capacity = "
+            "host DRAM, throughput bounded by the host link); drop it "
+            "if the tables fit in HBM")
     if getattr(args, "num_thread", 1) > 1:
         log("NOTE: --num_thread is a compatibility no-op — host sampling "
             "is vectorized numpy")

@@ -2,7 +2,9 @@
 dglke_tpu/cli/eval.py), single device: filtered or raw ranking against all
 entities or sampled negatives, or, for a dataset with a candidate-list test
 split (wikikg90M), Valid metrics when it has answers and the top-10
-test_0.pkl in the checkpoint directory when it has none."""
+test_0.pkl in the checkpoint directory when it has none.  A checkpoint
+trained with --mix_cpu_gpu is evaluated from host memory unless
+--no_mix_cpu_gpu is given."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from dglke_tpu_torch.cli.args import (
 from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import get_dataset
 from dglke_tpu_torch.device import resolve_device
+from dglke_tpu_torch.host_table import load_host_state
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.trainer import (
     CandidateEvalSampler,
@@ -34,8 +37,8 @@ def main(argv=None):
     parser.add_argument("--model_path", type=str, default="ckpts",
                         help="directory containing the saved checkpoint")
     parser.add_argument("--no_mix_cpu_gpu", action="store_true",
-                        help="accepted for compatibility: the tables are "
-                             "always on the device here")
+                        help="evaluate on device-resident tables even when "
+                             "the checkpoint was trained with --mix_cpu_gpu")
     args = parser.parse_args(argv)
     refuse_unported(args)
     warn_inert_flags(args)
@@ -53,12 +56,31 @@ def main(argv=None):
             cfg, model_name=saved.model_name, hidden_dim=saved.hidden_dim,
             gamma=saved.gamma, double_ent=saved.double_ent,
             double_rel=saved.double_rel, dataset=saved.dataset,
-            emb_dtype=saved.emb_dtype)
+            emb_dtype=saved.emb_dtype,
+            # a checkpoint trained with host-resident tables may be larger
+            # than the card: adopt host mode from the saved config
+            # (--no_mix_cpu_gpu forces the device; --mix_cpu_gpu forces
+            # host mode on a checkpoint trained on the device)
+            mix_cpu_gpu=(cfg.mix_cpu_gpu or saved.mix_cpu_gpu)
+            and not args.no_mix_cpu_gpu)
     dataset = get_dataset(cfg.data_path, cfg.dataset, cfg.format,
                           cfg.delimiter, cfg.data_files,
                           cfg.has_edge_importance)
+    if dataset.test_dict is not None and cfg.mix_cpu_gpu:
+        # refuse before loading a table that may not fit on the card:
+        # candidate-list eval needs the table on the device
+        raise SystemExit(
+            "--mix_cpu_gpu cannot evaluate candidate-list datasets "
+            "(wikikg90M-style test_dict): pass --no_mix_cpu_gpu if the "
+            "table fits in HBM, or evaluate on a vocab-sharded mesh")
     model = KEModel(cfg, dataset.n_entities, dataset.n_relations,
                     device=device)
+    if cfg.mix_cpu_gpu:
+        # the table stays in host memory and streams through the card
+        print("Evaluating with host-resident tables (mix_cpu_gpu)")
+        state = load_host_state(cfg, model, args.model_path)
+        evaluate(cfg, dataset, model, state, "test")
+        return 0
     state = load_model_state(cfg, model, args.model_path)
     if dataset.test_dict is not None:
         sampler = CandidateEvalSampler(dataset.test_dict,

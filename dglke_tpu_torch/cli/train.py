@@ -1,7 +1,8 @@
 """`dglke_tpu_torch-train`: the training CLI (counterpart of
 dglke_tpu/cli/train.py), single device.  A dataset with candidate-list
 splits (wikikg90M) is validated and tested by the candidate protocol: Valid
-metrics during training, top-10 predictions into test_0.pkl at the end."""
+metrics during training, top-10 predictions into test_0.pkl at the end.
+With --mix_cpu_gpu the tables live in host memory (host_table.py)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from dglke_tpu_torch.cli.args import (
 from dglke_tpu_torch.data.dataset import get_dataset
 from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex
 from dglke_tpu_torch.device import resolve_device
+from dglke_tpu_torch.host_table import load_host_state
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.trainer import (
     CandidateEvalSampler,
@@ -63,14 +65,28 @@ def main(argv=None):
     model = KEModel(cfg, dataset.n_entities, dataset.n_relations,
                     device=device)
     state = None
-    if args.init_from:
+    if args.init_from and cfg.mix_cpu_gpu:
+        # host-table resume: straight from the npy files into host memory
+        state = load_host_state(cfg, model, args.init_from)
+        print(f"Resumed from {args.init_from} at step {state.step}")
+    elif args.init_from:
         state = load_model_state(cfg, model, args.init_from)
         print(f"Resumed from {args.init_from} at step {state.step}")
     print(f"Init takes {time.time() - init_start:.3f} seconds")
 
-    # Build the eval filter only when a non-candidate eval will run.
     candidate_mode = (dataset.valid_dict is not None
                       or dataset.test_dict is not None)
+    if cfg.mix_cpu_gpu and (
+            (cfg.valid and dataset.valid_dict is not None)
+            or (cfg.test and dataset.test_dict is not None)):
+        # fail before step 1, not at the first eval: candidate-list eval
+        # needs the table on the device, which host mode exists to avoid
+        raise SystemExit(
+            "--mix_cpu_gpu cannot evaluate candidate-list datasets "
+            "(wikikg90M-style valid_dict/test_dict): drop --valid/--test "
+            "here and evaluate the checkpoint without --mix_cpu_gpu "
+            "(artifacts interchange), or on a vocab-sharded mesh")
+    # Build the eval filter only when a non-candidate eval will run.
     filter_index = (FilterIndex(dataset)
                     if cfg.eval_filter and not candidate_mode
                     and (cfg.valid or cfg.test) else None)

@@ -89,6 +89,8 @@ class KGEConfig:
     # -- storage -------------------------------------------------------------
     emb_dtype: str = "float32"  # "bfloat16" stores tables in bf16; the
     # optimizer math and the Adagrad accumulator stay fp32
+    mix_cpu_gpu: bool = False  # host-resident fp32 tables (host_table.py):
+    # capacity is host memory; only a step's rows cross the host link
 
     # ------------------------------------------------------------------------
     @property

@@ -1,0 +1,406 @@
+"""Host-resident embedding tables (--mix_cpu_gpu): train and evaluate
+tables larger than the card (counterpart of dglke_tpu/host_table.py, the
+reference's CPU ExternalEmbedding mode, train.py:46-49).
+
+The semantics are the JAX package's:
+
+  * the tables live in host memory (fp32, whatever emb_dtype says), drawn
+    with numpy from the seed exactly as the JAX package draws them, so a
+    run starts from the same tables bit for bit;
+  * only a batch's rows move: each step gathers the [h | t | neg] entity
+    rows and the relation rows (and TransR's projection rows), computes
+    the loss and the row gradients with KEModel._rows_loss_and_grads, and
+    writes each table back by row-sparse Adagrad with the JAX ordering
+    (every occurrence's mean(g^2) into state_sum first, then the std);
+  * full-entity eval streams the entity table through the device once, in
+    contiguous blocks, each scored against both corruption directions;
+  * checkpoints are the standard npy contract, so host-mode and device
+    checkpoints interchange, across both packages.
+
+What differs is who moves the rows.  The JAX package gathers them with
+numpy, uploads them, downloads the gradients and applies np.add.at on the
+host.  Here, on the card, the tables are pinned in place and mapped into
+the card's address space (ops/rows.py:map_host), and the step's kernels
+work on them there: K1 (gather_rows) reads the rows over the host link
+into rows on the card, K2 (sparse_adagrad_rows) reads and writes each
+touched row and its state once.  Only the touched rows cross the link, and
+the host does no table work.  On the CPU (device="cpu") the same code takes
+the kernels' plain versions.
+
+K2 writes the mapped tables asynchronously on the current stream: every
+host-side read of a host table first waits for the card
+(ops/rows.py:sync_mapped), as utils/io.py:save_model does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from dglke_tpu_torch.config import KGEConfig
+from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex, TrainSampler
+from dglke_tpu_torch.models.ke_model import KEModel
+from dglke_tpu_torch.ops import rows
+from dglke_tpu_torch.ops.embedding import gather_rows, sparse_adagrad_update
+
+
+# Host eval query-chunking knobs (see evaluate_host_with_samplers): bound
+# the [Q, block] score matrix of one call without losing the one-table-pass
+# property.  Module-level so tests can force tiny chunks.
+_Q_CAP_BYTES = 256 << 20
+_Q_MIN_CHUNK = 1024
+
+
+@dataclasses.dataclass
+class HostEmbedding:
+    """Mirror of ops.embedding.EmbeddingState over host memory (duck-typed:
+    gather_rows, sparse_adagrad_update and utils.io.save_model take it as
+    they take a table on the card)."""
+    emb: torch.Tensor          # [num, dim] fp32, CPU, numpy-backed
+    state_sum: torch.Tensor    # [num] fp32, CPU, numpy-backed
+
+
+@dataclasses.dataclass
+class HostState:
+    entity: HostEmbedding
+    relation: HostEmbedding
+    projection: Optional[HostEmbedding]
+    step: int = 0
+    is_host = True             # trainer.evaluate dispatch marker
+
+
+def _host_embedding(emb: np.ndarray, state_sum: np.ndarray,
+                    device: torch.device) -> HostEmbedding:
+    """Host tables as CPU tensors sharing the arrays' memory; for a model
+    on the card, pinned in place and mapped for its kernels."""
+    if device.type == "cuda":
+        return HostEmbedding(rows.map_host(emb), rows.map_host(state_sum))
+    return HostEmbedding(torch.from_numpy(emb), torch.from_numpy(state_sum))
+
+
+def _init_table(rng: np.random.Generator, num: int, dim: int,
+                emb_init: float) -> np.ndarray:
+    # float32-native generation, filled in row chunks of 64 MB: rng.uniform
+    # would materialize a float64 intermediate, twice the table.  The same
+    # draws and arithmetic as the JAX package's _init_table, written in
+    # place, so the bits are the same.
+    emb = np.empty((num, dim), np.float32)
+    step = max(1, (64 << 20) // max(dim * 4, 1))
+    for a in range(0, num, step):
+        blk = emb[a:min(a + step, num)]
+        rng.random(out=blk, dtype=np.float32)
+        blk *= 2.0 * emb_init
+        blk -= emb_init
+    return emb
+
+
+def init_host_state(model: KEModel, seed: int = 0, log=None) -> HostState:
+    """Uniform(-emb_init, emb_init) init, zero Adagrad state (reference
+    tensor_models.py:240-248), drawn with numpy's default_rng(seed) as the
+    JAX package draws it: entity, relation, then TransR's projection
+    (range 1.0).  With ``log``, one line of the seconds the draw and the
+    mapping took."""
+    rng = np.random.default_rng(seed)
+    cfg = model.config
+    t0 = time.time()
+    arrays = [_init_table(rng, model.n_entities, model.entity_dim,
+                          cfg.emb_init),
+              _init_table(rng, model.n_relations, model.relation_dim,
+                          cfg.emb_init)]
+    if model.is_transr:
+        arrays.append(_init_table(rng, model.n_relations, model.proj_dim,
+                                  1.0))
+    t1 = time.time()
+    tables = [_host_embedding(a, np.zeros((a.shape[0],), np.float32),
+                              model.device) for a in arrays]
+    if log is not None:
+        n_bytes = sum(a.nbytes + 4 * a.shape[0] for a in arrays)
+        where = (f"pinned and mapped for {model.device}"
+                 if model.device.type == "cuda" else "wrapped on the CPU")
+        log(f"[proc 0]host tables: {n_bytes} bytes drawn in "
+            f"{t1 - t0:.3f} s; {where} in {time.time() - t1:.3f} s")
+    return HostState(tables[0], tables[1],
+                     tables[2] if model.is_transr else None, 0)
+
+
+def load_host_state(config: KGEConfig, model: KEModel,
+                    path: str) -> HostState:
+    """Restore a HostState straight from the npy artifacts, with no copy
+    through the card (loading the table onto the card is what host mode
+    exists to avoid).  Artifact naming lives in one place:
+    utils.io.table_artifact_arrays."""
+    from dglke_tpu_torch.utils.io import saved_step, table_artifact_arrays
+
+    def load(name):
+        emb, ss = table_artifact_arrays(config, path, name)
+        return _host_embedding(np.ascontiguousarray(emb, dtype=np.float32),
+                               np.ascontiguousarray(ss, dtype=np.float32),
+                               model.device)
+
+    return HostState(load("entity"), load("relation"),
+                     load("projection") if model.is_transr else None,
+                     saved_step(config, path))
+
+
+def host_grads(model: KEModel, state: HostState, batch: dict):
+    """The first half of a host step: the batch's ids to the model's device
+    in one transfer, K1 gathers of the [h | t | neg] entity rows, the
+    relation rows (and TransR's projection rows), and the loss and row
+    gradients of every family by the plain row route
+    (KEModel._rows_loss_and_grads, RESCAL included).  Returns the step's
+    log dict (detached tensors) and, per table, (table, ids, row
+    gradients) for its write-back."""
+    cfg = model.config
+    dev = model.device
+    h, r, t, neg = batch["h"], batch["r"], batch["t"], batch["neg"]
+    b = len(h)
+    packed = torch.from_numpy(
+        np.concatenate([h, t, neg, r]).astype(np.int32)).to(dev)
+    ent_ids, rel_ids = packed[:-b], packed[-b:]
+    impts = (None if batch["impts"] is None
+             else torch.from_numpy(batch["impts"]).to(dev))
+    ent_rows = gather_rows(state.entity, ent_ids, model.entity_dim)
+    rel_rows = gather_rows(state.relation, rel_ids, model.relation_dim)
+    proj_rows = (gather_rows(state.projection, rel_ids, model.proj_dim)
+                 if model.is_transr else None)
+    num_chunks = max(1, len(neg) // cfg.neg_sample_size)
+    _, log, (g_ent, g_rel, g_proj) = model._rows_loss_and_grads(
+        ent_rows, rel_rows, proj_rows, impts, b=b, num_chunks=num_chunks,
+        chunk_size=b // num_chunks, neg_sample_size=len(neg) // num_chunks,
+        neg_head=batch["neg_head"])
+    updates = [(state.entity, ent_ids, g_ent),
+               (state.relation, rel_ids, g_rel)]
+    if model.is_transr:
+        updates.append((state.projection, rel_ids, g_proj))
+    return log, updates
+
+
+def host_step(model: KEModel, state: HostState, batch: dict):
+    """One training step on host tables, in place: host_grads, then each
+    table written back by row-sparse Adagrad with the JAX ordering (the
+    JAX package's host_adagrad_update): on the card K2
+    (sparse_adagrad_rows) on the mapped table and state_sum, on the CPU its
+    plain version.  Returns the step's log dict."""
+    log, updates = host_grads(model, state, batch)
+    for table, ids, grads in updates:
+        sparse_adagrad_update(table, ids, grads, model.config.lr)
+    state.step += 1
+    return log
+
+
+def train_host(config: KGEConfig, dataset, model: Optional[KEModel] = None,
+               state: Optional[HostState] = None, valid_samplers=None,
+               save_fn=None, log=print, device=None):
+    """Host-table training loop (the reference's mix_cpu_gpu trainer,
+    train_pytorch.py:268-403 with CPU-resident ExternalEmbedding): one
+    TrainSampler batch a step through host_step.  Returns (model, state,
+    stats) like trainer.train.  --async_update has no effect here, as in
+    the JAX package."""
+    cfg = config
+    if model is None:
+        model = KEModel(cfg, dataset.n_entities, dataset.n_relations,
+                        device=device)
+    if state is None:
+        state = init_host_state(model, cfg.seed, log=log)
+    sampler = TrainSampler(dataset, cfg.batch_size, cfg.neg_sample_size,
+                           seed=cfg.seed)
+    it = iter(sampler)
+
+    logs = []
+    valid_metrics = None
+    start = tic = time.time()
+    sample_time = update_time = 0.0
+    for step in range(1, cfg.max_step + 1):
+        t0 = time.time()
+        batch = next(it)
+        sample_time += time.time() - t0
+        t0 = time.time()
+        logs.append(host_step(model, state, batch))
+        update_time += time.time() - t0
+
+        if step % cfg.log_interval == 0:
+            for k in logs[0]:
+                v = torch.stack([la[k] for la in logs]).mean().item()
+                log(f"[proc 0][Train]({step}/{cfg.max_step}) "
+                    f"average {k}: {v}")
+            logs = []
+            log(f"[proc 0][Train] {cfg.log_interval} steps take "
+                f"{time.time() - tic:.3f} seconds")
+            log(f"[proc 0]sample: {sample_time:.3f}, update: "
+                f"{update_time:.3f}")
+            tic = time.time()
+            sample_time = update_time = 0.0
+        if (valid_samplers is not None and cfg.valid
+                and step % cfg.eval_interval == 0):
+            valid_metrics = evaluate_host_with_samplers(
+                model, state, valid_samplers, phase="Valid", log=log)
+        if save_fn is not None and cfg.save_interval > 0 \
+                and step % cfg.save_interval == 0:
+            save_fn(state, step)
+
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    total = time.time() - start
+    log(f"[proc 0]training takes {total} seconds")
+    stats = {"train_time": total}
+    if valid_metrics is not None:
+        stats["valid_metrics"] = valid_metrics
+    return model, state, stats
+
+
+def evaluate_host(config: KGEConfig, dataset, model: KEModel,
+                  state: HostState, split: str = "test",
+                  filter_index: Optional[FilterIndex] = None,
+                  log=print, phase: str = "Test") -> Dict[str, float]:
+    """trainer.evaluate for host tables: both corrupt modes of ``split``,
+    against every entity or sampled negatives, filtered or raw."""
+    cfg = config
+    if cfg.eval_filter and filter_index is None:
+        filter_index = FilterIndex(dataset)
+    samplers = [
+        EvalSampler(dataset, split, cfg.batch_size_eval, mode,
+                    filter_index if cfg.eval_filter else None,
+                    eval_percent=cfg.eval_percent, seed=cfg.seed,
+                    neg_sample_size=cfg.neg_sample_size_eval,
+                    neg_deg_sample=cfg.neg_deg_sample_eval)
+        for mode in ("head", "tail")
+    ]
+    return evaluate_host_with_samplers(model, state, samplers, phase=phase,
+                                       log=log)
+
+
+def _upload_block(emb: torch.Tensor, cs: int, block: int,
+                  device: torch.device) -> torch.Tensor:
+    """Rows [cs, cs + block) of a host table on ``device``: on the card one
+    copy from the pinned table, queued on the current stream behind the
+    kernels that write it."""
+    src = emb[cs:cs + block]
+    if device.type == "cpu":
+        return src
+    out = torch.empty(src.shape, dtype=torch.float32, device=device)
+    return out.copy_(src, non_blocking=True)
+
+
+@torch.no_grad()
+def evaluate_host_with_samplers(model: KEModel, state: HostState,
+                                samplers, phase: str = "Test",
+                                log=print) -> Dict[str, float]:
+    """Full-entity ranking with the table streamed from host memory.
+
+    All query batches of both directions are collected first (their
+    pos/side rows are small, gathered by K1 from the host tables); the
+    entity table then crosses the host link once, in contiguous blocks,
+    each block scored against every query row of both directions by
+    KEModel._block_ge_counts (the device path's tie-exact count).  The
+    query axis is cut into chunks of at most _Q_CAP_BYTES of scores, padded
+    to a multiple of the chunk."""
+    from dglke_tpu_torch.trainer import (CandidateEvalSampler,
+                                         combine_rank_metrics,
+                                         evaluate_with_samplers)
+
+    if any(isinstance(s, CandidateEvalSampler) for s in samplers):
+        raise NotImplementedError(
+            "host-table mode evaluates with the full-entity protocol; "
+            "candidate-list (wikikg90M-style) eval needs the table on "
+            "device — drop --mix_cpu_gpu for eval (checkpoints "
+            "interchange) or evaluate on a vocab-sharded mesh")
+    if any(getattr(s, "neg_sample_size", 0) > 0 for s in samplers):
+        # Sampled negatives (--neg_sample_size_eval, the protocol of the
+        # reference's Freebase-scale recipes): the device path's loop, whose
+        # eval_ranks_sampled gathers each group's [h | t | neg] entity rows
+        # and relation rows from the host tables with K1 and ranks them with
+        # _rows_eval_ranks_sampled.  Only the K candidates and the batch
+        # rows cross the link.
+        return evaluate_with_samplers(model, state, samplers, phase=phase,
+                                      log=log)
+    start = time.time()
+    dev = model.device
+    n_ent = model.n_entities
+    dirs = []      # one entry per direction: queries, filters and counts
+    for sampler in samplers:
+        batches = list(sampler)
+        if not batches:
+            continue
+        neg_head = batches[0]["neg_head"]
+        h = np.concatenate([ba["h"] for ba in batches])
+        r = np.concatenate([ba["r"] for ba in batches])
+        t = np.concatenate([ba["t"] for ba in batches])
+        nv = np.concatenate([
+            np.arange(len(ba["h"])) < ba["n_valid"] for ba in batches])
+        if "filter_ids" in batches[0]:
+            fmax = max(ba["filter_ids"].shape[1] for ba in batches)
+            fid = np.zeros((len(h), fmax), np.int32)
+            fm = np.zeros((len(h), fmax), np.uint8)
+            o = 0
+            for ba in batches:
+                n, w = ba["filter_ids"].shape
+                fid[o:o + n, :w] = ba["filter_ids"]
+                fm[o:o + n, :w] = ba["filter_mask"]
+                o += n
+        else:
+            fid = np.zeros((len(h), 8), np.int32)
+            fm = np.zeros((len(h), 8), np.uint8)
+        n = len(h)
+        ids = torch.from_numpy(np.concatenate([h, t, r]).astype(
+            np.int32)).to(dev)
+        ent = gather_rows(state.entity, ids[:2 * n], model.entity_dim)
+        rel_rows = gather_rows(state.relation, ids[2 * n:],
+                               model.relation_dim)
+        proj_rows = (gather_rows(state.projection, ids[2 * n:],
+                                 model.proj_dim) if model.is_transr
+                     else None)
+        pos, side = model._rows_pos_side(ent[:n], ent[n:], rel_rows,
+                                         proj_rows, neg_head=neg_head)
+        dirs.append(dict(neg_head=neg_head, pos=pos, side=side, rel=rel_rows,
+                         proj=proj_rows, fid=torch.from_numpy(fid).to(dev),
+                         fm=torch.from_numpy(fm).to(dev), nv=nv))
+    if not dirs:
+        raise ValueError("evaluation saw zero edges (empty split or "
+                         "eval_percent too small)")
+
+    block = min(model._eval_block_size(max(len(d["nv"]) for d in dirs)),
+                n_ent)
+    # The query axis holds the whole split (collected above so that the
+    # table crosses the link once): chunk it so that one call's score
+    # matrix stays under _Q_CAP_BYTES.
+    q_cap = max(_Q_MIN_CHUNK, _Q_CAP_BYTES // max(block * 4, 1))
+    for d in dirs:
+        n_q = len(d["nv"])
+        pad = (-n_q) % q_cap if n_q > q_cap else 0
+        for k in ("pos", "side", "rel", "proj", "fid", "fm"):
+            if d[k] is not None and pad:
+                d[k] = torch.cat([d[k], d[k].new_zeros(
+                    (pad,) + tuple(d[k].shape[1:]))])
+        d["counts"] = torch.zeros((n_q + pad,), dtype=torch.int64,
+                                  device=dev)
+    for start_row in range(0, n_ent, block):
+        cs = min(start_row, n_ent - block)
+        cand = _upload_block(state.entity.emb, cs, block, dev)
+        gids = cs + torch.arange(block, device=dev)
+        valid = (gids >= start_row) & (gids < n_ent)
+        for d in dirs:
+            local = d["fid"] - cs
+            in_blk = (d["fid"] >= start_row) & (local < block) & (d["fm"] > 0)
+            n_pad = len(d["counts"])
+            q = n_pad if n_pad <= q_cap else q_cap
+            for q0 in range(0, n_pad, q):
+                sl = slice(q0, q0 + q)
+                d["counts"][sl] += model._block_ge_counts(
+                    d["pos"][sl], d["side"][sl], d["rel"][sl],
+                    None if d["proj"] is None else d["proj"][sl], cand,
+                    valid, local[sl], in_blk[sl], neg_head=d["neg_head"])
+
+    ranks = torch.cat([
+        (torch.clamp(d["counts"][:len(d["nv"])], min=0) + 1)[
+            torch.from_numpy(d["nv"]).to(dev)] for d in dirs])
+    metrics = combine_rank_metrics(
+        ranks.cpu().numpy(), "evaluation saw zero edges (empty split or "
+        "eval_percent too small)")
+    for k, v in metrics.items():
+        log(f"[0]{phase} average {k}: {v}")
+    log(f"[0]{phase} takes {time.time() - start:.3f} seconds")
+    return metrics

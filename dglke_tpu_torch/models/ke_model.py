@@ -400,17 +400,25 @@ class KEModel:
         """(pos [B], side rows [B, D], rel rows, TransR's projection rows
         or None) in fp32: the positive score is the ranking threshold, so
         bf16 tables are upcast first.  TransR's side rows come projected."""
-        sf = self.score_fn
         h_rows = gather_rows(state.entity, h, self.entity_dim)
         t_rows = gather_rows(state.entity, t, self.entity_dim)
         rel_rows = gather_rows(state.relation, r, self.relation_dim)
-        proj_rows = None
+        proj_rows = (gather_rows(state.projection, r, self.proj_dim)
+                     if self.is_transr else None)
+        pos, side = self._rows_pos_side(h_rows, t_rows, rel_rows, proj_rows,
+                                        neg_head=neg_head)
+        return pos, side, rel_rows, proj_rows
+
+    def _rows_pos_side(self, h_rows, t_rows, rel_rows, proj_rows, *,
+                       neg_head: bool):
+        """Row-level core of _eval_pos_side on gathered fp32 rows: (pos
+        [B], side rows [B, D], TransR's projected)."""
+        sf = self.score_fn
         if self.is_transr:
-            proj_rows = gather_rows(state.projection, r, self.proj_dim)
             h_rows = sf.project(h_rows, proj_rows)
             t_rows = sf.project(t_rows, proj_rows)
         pos = sf.pos_score(h_rows, rel_rows, t_rows)
-        return pos, (t_rows if neg_head else h_rows), rel_rows, proj_rows
+        return pos, (t_rows if neg_head else h_rows)
 
     def _block_ge_counts(self, pos, side, rel_rows, proj_rows, cand,
                          valid_cols, local, in_blk, *, neg_head: bool):

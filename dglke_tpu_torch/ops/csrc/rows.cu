@@ -36,6 +36,17 @@
 //       one after another.
 //     The threshold between the two is measured on the card (chip_smoke.py
 //     times both shapes across widths) and stated in ops/rows.py.
+//   * host-resident tables (--mix_cpu_gpu): a table in pageable host
+//     memory pinned in place and mapped into the device's address space
+//     (dglke_host_register) is read and written by the same kernels at its
+//     device-side address, so only the batch's touched rows cross the host
+//     link (PCIe), once a step for the gather and once each way for the
+//     update; the link, not HBM, bounds them there.  A mapped table's rows
+//     are gathered by blocks over (row, chunk) with the threads' own loads
+//     (wide = 2) at every width: each thread issues its loads before its
+//     first store, more reads in flight over the link than one warp per
+//     row keeps, and the TMA bulk copy reads host memory right but over
+//     twice as slowly (measured, ops/rows.py:MAPPED_SHAPE).
 //   * update: the TPU kernel serialised duplicate ids inside its DMA window
 //     with conflict flags; a GPU has no such window, and fp32 atomics would
 //     make the sum depend on the order in which blocks run.  The wrapper
@@ -516,8 +527,10 @@ extern "C" {
 
 // dtype: 0 = float32 table, 1 = bfloat16 table.  pitch: table row stride in
 // elements.  out: [n, dim] float32, contiguous.  wide: 0 = one warp per
-// row, 1 = blocks of (row, chunk of 2,048 or 4,096 elements).  Requires
-// 0 < n < 2^31, and with wide, at most 65,535 chunks of 2,048.
+// row, 1 = blocks of (row, chunk of 2,048 or 4,096 elements), aligned fp32
+// rows copied by the TMA engine, 2 = the same blocks with every row read
+// by the threads' own loads (no bulk copy).  Requires 0 < n < 2^31, and
+// with wide, at most 65,535 chunks of 2,048.
 int dglke_gather_rows(const void* table, int dtype, int64_t n_rows,
                       int64_t pitch, const int32_t* ids, int64_t n,
                       float* out, int64_t dim, int wide, void* stream) {
@@ -529,7 +542,7 @@ int dglke_gather_rows(const void* table, int dtype, int64_t n_rows,
   const bool vec = pitch % 4 == 0 && dim % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                    addr % (dtype == 0 ? 16 : 8) == 0;
-  if (wide && dtype == 0 && vec) {
+  if (wide == 1 && dtype == 0 && vec) {
     const dim3 grid(static_cast<unsigned>(n),
                     static_cast<unsigned>((dim + kCopyChunk - 1) / kCopyChunk));
     gather_rows_wide_bulk<<<grid, kWarp, 0, s>>>(
@@ -537,7 +550,11 @@ int dglke_gather_rows(const void* table, int dtype, int64_t n_rows,
   } else if (wide) {
     const dim3 grid(static_cast<unsigned>(n),
                     static_cast<unsigned>((dim + kWideChunk - 1) / kWideChunk));
-    if (dtype == 1 && vec) {
+    if (dtype == 0 && vec) {
+      gather_rows_wide_vec4<float4><<<grid, kWideThreads, 0, s>>>(
+          static_cast<const float4*>(table), ids,
+          reinterpret_cast<float4*>(out), n_rows, pitch / 4, dim / 4);
+    } else if (dtype == 1 && vec) {
       gather_rows_wide_vec4<uint2><<<grid, kWideThreads, 0, s>>>(
           static_cast<const uint2*>(table), ids,
           reinterpret_cast<float4*>(out), n_rows, pitch / 4, dim / 4);
@@ -598,6 +615,25 @@ int dglke_segment_update(void* emb, int dtype, int64_t n_rows, int64_t pitch,
     launch_update<__nv_bfloat16>(a, vec, block_route, lane_vecs, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Pins `bytes` of pageable host memory at `ptr` in place and maps it into
+// the address space of every device (cudaHostRegisterMapped | Portable);
+// *dev_ptr receives the address at which kernels reach it, so that K1 and
+// K2 read and write a table in host memory over the host link, row by row.
+// The pages stay locked until dglke_host_unregister(ptr).
+int dglke_host_register(void* ptr, int64_t bytes, void** dev_ptr) {
+  cudaError_t err = cudaHostRegister(
+      ptr, static_cast<size_t>(bytes),
+      cudaHostRegisterMapped | cudaHostRegisterPortable);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaHostGetDevicePointer(dev_ptr, ptr, 0);
+  if (err != cudaSuccess) cudaHostUnregister(ptr);
+  return static_cast<int>(err);
+}
+
+int dglke_host_unregister(void* ptr) {
+  return static_cast<int>(cudaHostUnregister(ptr));
 }
 
 }  // extern "C"

@@ -12,6 +12,11 @@ the flags, and loaded with ``ctypes``.
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises.  ``launches`` counts kernel
 launches per wrapper, so a run can show that it went through the kernels.
+
+Host-resident tables (--mix_cpu_gpu): ``map_host`` pins a numpy table in
+place and maps it into the card's address space.  K1 and K2 take that CPU
+table with ids (and gradient rows) on the card, and read and write it at
+its device-side address: only the batch's rows cross the host link.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -122,6 +129,8 @@ SIGNATURES = {
     "dglke_segment_update": ([_P, _INT, _I64, _I64, _I64, _P, _P, _P, _P, _P,
                               _P, _P, _I64, ctypes.c_float, _INT, _INT, _P],
                              _INT),
+    "dglke_host_register": ([_P, _I64, ctypes.POINTER(_P)], _INT),
+    "dglke_host_unregister": ([_P], _INT),
 }
 GROUP_SIGNATURES = {
     "dglke_group_ids": ([_P, _INT, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P,
@@ -155,6 +164,81 @@ def check_ids(ids: torch.Tensor, device, name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Host memory mapped for the card (host-resident tables, --mix_cpu_gpu)
+
+
+# Host address -> (bytes, device-side address) of each range map_host
+# registered and has not released yet.
+_mapped: dict = {}
+
+
+def map_host(arr: np.ndarray) -> torch.Tensor:
+    """Pin a C-contiguous, writable numpy array in place and map it into the
+    card's address space (csrc/rows.cu:dglke_host_register); returns the CPU
+    tensor that shares its memory.  gather_rows and sparse_adagrad_rows take
+    that tensor as their table with ids on the card, and reach it at its
+    device-side address.  The pages are unpinned when the array is freed.
+    Pageable memory registered in place, not torch's pinned allocator,
+    which may round a request up to a power of two."""
+    if not (arr.flags.c_contiguous and arr.flags.writeable) or arr.nbytes == 0:
+        raise ValueError("map_host: the array must be C-contiguous, writable "
+                         "and not empty")
+    lib = load_library(SOURCE, SIGNATURES)
+    torch.cuda.init()
+    host = arr.ctypes.data
+    dev = _P()
+    err = lib.dglke_host_register(host, arr.nbytes, ctypes.byref(dev))
+    if err != 0:
+        raise RuntimeError(f"map_host: cudaHostRegister of {arr.nbytes} bytes "
+                           f"failed with error {err}")
+    _mapped[host] = (arr.nbytes, dev.value)
+    # Runs before numpy frees the buffer; not at exit, when the CUDA
+    # context may already be gone (the pages go with the process).
+    weakref.finalize(arr, _unmap_host, lib, host).atexit = False
+    return torch.from_numpy(arr)
+
+
+def _unmap_host(lib, host: int) -> None:
+    if _mapped.pop(host, None) is not None:
+        lib.dglke_host_unregister(host)
+
+
+def mapped_address(t: torch.Tensor):
+    """The device-side address of a CPU tensor's data when all of it lies in
+    a range map_host registered, else None."""
+    if t.device.type != "cpu" or t.numel() == 0:
+        return None
+    p = t.data_ptr()
+    end = p + t.element_size() * (1 + sum(
+        (n - 1) * st for n, st in zip(t.shape, t.stride())))
+    for host, (n_bytes, dev) in _mapped.items():
+        if host <= p and end <= host + n_bytes:
+            return dev + (p - host)
+    return None
+
+
+def sync_mapped() -> None:
+    """Wait for the card before the host reads a mapped table: K2 writes it
+    asynchronously on the current stream.  Nothing to wait for when no
+    table is mapped."""
+    if _mapped:
+        torch.cuda.synchronize()
+
+
+def _reach(t: torch.Tensor, device, name: str, what: str) -> int:
+    """The address at which a kernel on ``device`` reaches ``t``: its data
+    pointer when it lies there, its device-side address when it is a CPU
+    tensor in mapped memory and ``device`` a card.  Anything else raises."""
+    if t.device == device:
+        return t.data_ptr()
+    addr = mapped_address(t) if device.type == "cuda" else None
+    if addr is None:
+        raise ValueError(f"{name}: {what} on {t.device}, ids on {device} (a "
+                         f"CPU table reaches the card only through map_host)")
+    return addr
+
+
+# ---------------------------------------------------------------------------
 # K1: row gather (replaces dglke_tpu/ops/pallas/rows.py:gather_rows)
 
 
@@ -164,45 +248,57 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor,
     return table[ids.long(), :dim].to(torch.float32)
 
 
-GATHER_SHAPES = ("warp", "wide")
+# "wide_loads" is the wide shape with every row read by the threads' own
+# loads, where "wide" copies aligned fp32 rows with the TMA engine.
+GATHER_SHAPES = ("warp", "wide", "wide_loads")
 # Rows of at least this many elements take the wide shape: measured on the
 # card by chip_smoke.py's sweep of both shapes (PERF.md, section 6).
 GATHER_WIDE_MIN = 2048
+# A table in mapped host memory takes the wide shape with the threads' own
+# loads at every width: over PCIe it beats one warp per row on the
+# flagship's 400-wide rows (0.117 against 0.147 ms), and the TMA bulk copy,
+# right but slow on host memory, on TransR's 160,000-wide ones (14.0
+# against 33.2 ms) (chip_smoke.py on an H100; PERF.md, kernel table).
+MAPPED_SHAPE = "wide_loads"
 _WIDE_CHUNK = 2048        # row elements per block of the wide shape, at least
 _MAX_ROWS = (1 << 31) - 1   # gridDim.x
 _MAX_CHUNKS = 65535        # gridDim.y of the wide shape
 
 
-def gather_shape(dim: int) -> str:
+def gather_shape(dim: int, mapped: bool = False) -> str:
     """The K1 launch shape for rows of ``dim`` elements: one warp per row
     ("warp") below GATHER_WIDE_MIN, blocks over (row, chunk) ("wide") from
-    there."""
+    there; MAPPED_SHAPE for a table in mapped host memory."""
+    if mapped:
+        return MAPPED_SHAPE
     return "wide" if dim >= GATHER_WIDE_MIN else "warp"
 
 
 def launch_gather(table: torch.Tensor, ids: torch.Tensor, dim: int,
-                  shape: str) -> torch.Tensor:
-    """Launch K1 on CUDA tensors in the given shape (arguments checked by
-    the caller); counts one launch of gather_rows."""
+                  shape: str, address: int | None = None) -> torch.Tensor:
+    """Launch K1 on the ids' card in the given shape (arguments checked by
+    the caller), reading the table at ``address`` (its mapped address) or
+    at its own; counts one launch of gather_rows."""
     if shape not in GATHER_SHAPES:
         raise ValueError(f"gather_rows: shape {shape!r} not in "
                          f"{GATHER_SHAPES}")
     ids32 = ids.to(torch.int32).contiguous()
     n = ids32.shape[0]
-    out = torch.empty((n, dim), dtype=torch.float32, device=table.device)
+    out = torch.empty((n, dim), dtype=torch.float32, device=ids.device)
     if n == 0:
         return out
-    if n > _MAX_ROWS or (shape == "wide"
+    if n > _MAX_ROWS or (shape != "warp"
                          and -(-dim // _WIDE_CHUNK) > _MAX_CHUNKS):
         raise ValueError(f"gather_rows: {n} rows of {dim} exceed the "
                          f"{shape} launch's grid")
     lib = load_library(SOURCE, SIGNATURES)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream(ids.device).cuda_stream
         err = lib.dglke_gather_rows(
-            table.data_ptr(), _DTYPE_CODE[table.dtype], table.shape[0],
-            table.stride(0), ids32.data_ptr(), n, out.data_ptr(), dim,
-            int(shape == "wide"), stream)
+            table.data_ptr() if address is None else address,
+            _DTYPE_CODE[table.dtype], table.shape[0], table.stride(0),
+            ids32.data_ptr(), n, out.data_ptr(), dim,
+            GATHER_SHAPES.index(shape), stream)
     check_launch(err, "gather_rows")
     launches["gather_rows"] += 1
     return out
@@ -214,12 +310,19 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
 
     Replaces dglke_tpu/ops/pallas/rows.py:gather_rows.  Bound by bytes:
     each row is read once and written once in fp32.  16-byte loads; one
-    warp per narrow row, many blocks per wide row (gather_shape)."""
+    warp per narrow row, many blocks per wide row (gather_shape).  A CPU
+    table mapped by map_host, with ids on the card, is read in place over
+    the host link into rows on the card."""
     dim = table.shape[1] if dim is None else dim
     _check_table(table, "gather_rows")
     if not 0 < dim <= table.shape[1]:
         raise ValueError(f"gather_rows: dim {dim} outside the table's "
                          f"width {table.shape[1]}")
+    if table.device.type == "cpu" and ids.device.type == "cuda":
+        check_ids(ids, ids.device, "gather_rows")
+        address = _reach(table, ids.device, "gather_rows", "table")
+        return launch_gather(table, ids, dim, gather_shape(dim, mapped=True),
+                             address)
     check_ids(ids, table.device, "gather_rows")
     if table.device.type == "cpu":
         return gather_rows_plain(table, ids, dim)
@@ -437,15 +540,19 @@ def scatter_add_plain(table: torch.Tensor, ids: torch.Tensor,
 
 
 def _check_update(emb, state_sum, ids, grads, name) -> int:
+    """Argument checks of K2.  The ids and rows lie on one device; on the
+    CPU so do the table and state_sum, on a card each lies there or in
+    mapped host memory (checked at the launch)."""
     code = _check_table(emb, name)
-    check_ids(ids, emb.device, name)
+    check_ids(ids, emb.device if ids.device.type == "cpu" else ids.device,
+              name)
     n = ids.shape[0]
     if grads.dtype != torch.float32 or not grads.is_contiguous():
         raise TypeError(f"{name}: rows must be contiguous float32")
-    if grads.shape != (n, emb.shape[1]) or grads.device != emb.device:
+    if grads.shape != (n, emb.shape[1]) or grads.device != ids.device:
         raise ValueError(f"{name}: rows {tuple(grads.shape)} on "
-                         f"{grads.device} do not match {n} ids and the "
-                         f"table {tuple(emb.shape)} on {emb.device}")
+                         f"{grads.device} do not match {n} ids on "
+                         f"{ids.device} and the table {tuple(emb.shape)}")
     if state_sum is not None and (
             state_sum.dtype != torch.float32 or not state_sum.is_contiguous()
             or state_sum.shape != (emb.shape[0],)
@@ -457,8 +564,13 @@ def _check_update(emb, state_sum, ids, grads, name) -> int:
 
 def _segment_update(code, emb, state_sum, ids, grads, lr, name) -> bool:
     """Group the ids, then launch the segment update along plan_update's
-    route; False when there was nothing to launch (no ids)."""
+    route on the ids' card; False when there was nothing to launch (no
+    ids)."""
     n = ids.shape[0]
+    dev = ids.device
+    emb_addr = _reach(emb, dev, name, "table")
+    ss_addr = None if state_sum is None else _reach(state_sum, dev, name,
+                                                    "state_sum")
     if n == 0:
         return False
     if n > _MAX_INT32 or emb.shape[1] > _MAX_INT32:
@@ -468,13 +580,13 @@ def _segment_update(code, emb, state_sum, ids, grads, lr, name) -> bool:
     plan = plan_update(emb.shape[1])
     order, _, heads, seg_ids, seg_first, count = g.pointers()
     lib = load_library(SOURCE, SIGNATURES)
-    with torch.cuda.device(emb.device):
-        stream = torch.cuda.current_stream(emb.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dglke_segment_update(
-            emb.data_ptr(), code, emb.shape[0], emb.stride(0), emb.shape[1],
-            None if state_sum is None else state_sum.data_ptr(), order, heads,
-            seg_ids, seg_first, count, grads.data_ptr(), n, float(lr),
-            int(plan.route == "block"), plan.lane_vecs, stream)
+            emb_addr, code, emb.shape[0], emb.stride(0), emb.shape[1],
+            ss_addr, order, heads, seg_ids, seg_first, count,
+            grads.data_ptr(), n, float(lr), int(plan.route == "block"),
+            plan.lane_vecs, stream)
     check_launch(err, name)
     return True
 
@@ -494,9 +606,11 @@ def sparse_adagrad_rows(emb: torch.Tensor, state_sum: torch.Tensor,
     position order and written once (plan_update's route), so the result
     does not depend on the order warps run in: state_sum[u] += sum
     mean(g^2); emb[u] += -lr * sum(g) / (sqrt(state_sum[u]) + 1e-10),
-    rounded once to the table dtype."""
+    rounded once to the table dtype.  A CPU table and state_sum mapped by
+    map_host, with ids and rows on the card, are updated in place over the
+    host link."""
     code = _check_update(emb, state_sum, ids, grads, "sparse_adagrad_rows")
-    if emb.device.type == "cpu":
+    if ids.device.type == "cpu":
         sparse_adagrad_plain(emb, state_sum, ids, grads, lr)
     elif _segment_update(code, emb, state_sum, ids, grads, lr,
                          "sparse_adagrad_rows"):
@@ -509,7 +623,7 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
     [N, D] contiguous fp32) — what the TPU kernel computes, on the same
     core as sparse_adagrad_rows."""
     code = _check_update(table, None, ids, delta, "scatter_add_rows")
-    if table.device.type == "cpu":
+    if ids.device.type == "cpu":
         scatter_add_plain(table, ids, delta)
     elif _segment_update(code, table, None, ids, delta, 0.0,
                          "scatter_add_rows"):

@@ -8,7 +8,8 @@ Evaluation ranks against every entity (filtered or raw), against sampled
 negatives (--neg_sample_size_eval), or against a candidate list
 (wikikg90M).  The log format follows the reference ("[proc 0][Train]
 (step/max) average loss: ..." every log_interval; "[0]Test average MRR:
-...") so existing tooling can parse it.
+...") so existing tooling can parse it.  With --mix_cpu_gpu both loops go
+to host_table.py, whose tables stay in host memory.
 """
 
 from __future__ import annotations
@@ -203,6 +204,14 @@ def train(config: KGEConfig, dataset: KGDataset,
     cfg = config
     model = model or KEModel(cfg, dataset.n_entities, dataset.n_relations,
                              device=device)
+    if cfg.mix_cpu_gpu:
+        # host-resident tables (the reference's --mix_cpu_gpu,
+        # train.py:46-49): capacity is host memory, and the step's kernels
+        # reach the tables over the host link
+        from dglke_tpu_torch.host_table import train_host
+        return train_host(cfg, dataset, model=model, state=state,
+                          valid_samplers=valid_samplers, save_fn=save_fn,
+                          log=log)
     if state is None:
         state = model.init_state()
     device_route = dataset.n_train >= 2 * cfg.batch_size
@@ -277,8 +286,13 @@ def evaluate(config: KGEConfig, dataset: KGDataset, model: KEModel,
     """Filtered (or raw) ranking over both corrupt modes, against every
     entity or, with 0 < neg_sample_size_eval < n_entities, against sampled
     negatives: every eval triple is ranked under head-corruption AND
-    tail-corruption, and the metrics average over both."""
+    tail-corruption, and the metrics average over both.  Host-resident
+    tables (a host_table.HostState) take host_table.evaluate_host."""
     cfg = config
+    if getattr(state, "is_host", False):
+        from dglke_tpu_torch.host_table import evaluate_host
+        return evaluate_host(cfg, dataset, model, state, split,
+                             filter_index=filter_index, log=log, phase=phase)
     if cfg.eval_filter and filter_index is None:
         filter_index = FilterIndex(dataset)
     samplers = [

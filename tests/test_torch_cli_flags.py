@@ -116,25 +116,47 @@ def test_inert_flags_print_one_note(flags):
     assert quiet == []
 
 
+# Modes ported since they were first refused: accepted, with their NOTE
+# line (None: ported, and not refused).
+PORTED = {"--mix_cpu_gpu": "--mix_cpu_gpu keeps tables in host memory"}
+
+
 @pytest.mark.parametrize("flags,item", [
     (("--partition_path", "parts"), "A11"),
     (("--dist",), "A11"),
     (("--sharded_ckpt",), "A11"),
-    (("--mix_cpu_gpu",), "A10"),
+    (("--mix_cpu_gpu",), None),
     (("--profile", "trace"), "A6b"),
     (("--compute_dtype", "bfloat16"), "§C, deliberate"),
 ], ids=lambda f: f[0] if isinstance(f, tuple) else None)
 def test_unported_train_flags_are_refused(flags, item):
+    if flags[0] in PORTED:
+        lines = []
+        pargs.refuse_unported(_train_args(*flags))
+        pargs.warn_inert_flags(_train_args(*flags), log=lines.append)
+        assert len(lines) == 1 and PORTED[flags[0]] in lines[0], lines
+        assert pargs.config_from_args(_train_args(*flags)).mix_cpu_gpu
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP item {item}"):
         pargs.refuse_unported(_train_args(*flags))
     pargs.refuse_unported(_train_args("--compute_dtype", "float32"))
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--mix_cpu_gpu",), "A10"), (("--dist",), "A11"),
+    (("--mix_cpu_gpu",), None), (("--dist",), "A11"),
     (("--compute_dtype", "bfloat16"), "§C, deliberate")],
     ids=lambda f: f[0] if isinstance(f, tuple) else None)
 def test_unported_eval_flags_are_refused(monkeypatch, tmp_path, flags, item):
+    if flags[0] in PORTED:
+        # accepted: the eval goes on to read its dataset
+        def reached(*a, **k):
+            raise _Parsed
+
+        monkeypatch.setattr(peval, "get_dataset", reached)
+        with pytest.raises(_Parsed):
+            peval.main(["--model_path", str(tmp_path), "--device", "cpu",
+                        *flags])
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP item {item}"):
         peval.main(["--model_path", str(tmp_path), "--device", "cpu",
                     *flags])

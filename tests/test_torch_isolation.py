@@ -4,6 +4,7 @@ package, its entry points run on the CUDA device unless asked for the CPU
 the CUDA toolkit."""
 
 import ast
+import dataclasses
 import os
 
 import numpy as np
@@ -15,6 +16,7 @@ from dglke_tpu_torch import device as pt_device
 from dglke_tpu_torch import trainer as pt_trainer
 from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import synthetic_dataset
+from dglke_tpu_torch.host_table import train_host
 from dglke_tpu_torch.models.infer import EmbSimInfer, InferModel
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.ops import outer_update, rows
@@ -81,6 +83,11 @@ ENTRY_POINTS = {
     "resolve_device": lambda: pt_device.resolve_device(),
     "KEModel": lambda: KEModel(_cfg(), 50, 4),
     "train": lambda: pt_trainer.train(_cfg(), _ds(), log=lambda *a: None),
+    # host-resident tables have no CPU fallback either
+    "train --mix_cpu_gpu": lambda: pt_trainer.train(
+        dataclasses.replace(_cfg(), mix_cpu_gpu=True), _ds(),
+        log=lambda *a: None),
+    "train_host": lambda: train_host(_cfg(), _ds(), log=lambda *a: None),
     "state_from_numpy": lambda: state_from_numpy(_state_arrays()),
     # the JAX package's gpu id -1 selects the card all the same
     "InferModel": lambda: InferModel(_cfg(), device=-1),

@@ -211,9 +211,9 @@ def test_bf16_checkpoint_round_trip(tmp_path):
 
 
 # The modes the port does not run yet are refused with their ROADMAP item;
-# --async_update and sampled eval (--neg_sample_size_eval), ported since,
-# are accepted and run.
-PORTED = {"--async_update", "--neg_sample_size_eval"}
+# --async_update, sampled eval (--neg_sample_size_eval) and host-resident
+# tables (--mix_cpu_gpu), ported since, are accepted and run.
+PORTED = {"--async_update", "--neg_sample_size_eval", "--mix_cpu_gpu"}
 
 
 @pytest.mark.parametrize("flags", [
