@@ -105,6 +105,24 @@ Phases (any failure exits non-zero and prints no result line):
      CPU; the host step profile;
   7. the planted quality gate of every family on the card (MRR >= 0.85,
      HITS@10 >= 0.99, the JAX package's calibrated configs);
+  7c. multi-device training (--dist): the card has to hold every rank, and
+     NCCL takes one rank a card, so two rank processes of this script
+     share cuda:0 over host-staged gloo (``--dist-worker``; torch's
+     launcher variables, a free localhost port, a timeout, only their own
+     PIDs killed).  One step of each plan (vocab-sharded, replicated) at
+     the flagship shapes and at RESCAL's (K3 on every replica) against
+     one device's step on the 2,000-row global batch, replicas bit-equal
+     across ranks; the flagship under --dist on 2 ranks x batch 1,000,
+     each plan, 500 steps and the filtered test eval, the metrics of both
+     ranks equal to one device's dglke_tpu_torch-eval of the npy
+     checkpoint written through rank 0; RESCAL under --dist (vocab), 100
+     steps; ogbl-wikikg2 at full width (2,500,604 x 500, 2.5 GB a rank)
+     under --dist --table_sharding vocab, 200 steps saved every 100
+     (--sharded_ckpt) and resumed for 100 with the sampled test eval, the
+     loaded tables bit-equal to the saved ones; and --dist on one rank
+     over NCCL against the run without --dist, bit-equal.  Launches exact
+     on every rank; each rank's host ms, collective bytes and collective
+     ms per step printed (not multi-card numbers);
   7b. the capacity run: the Freebase TransE_l2 recipe
      (examples/freebase.sh:8-11) with --mix_cpu_gpu through the CLI at
      FB_ENT entities, an entity table larger than the card (cuts listed at
@@ -2302,9 +2320,9 @@ class _RankLog:
         from dglke_tpu_torch import trainer
         self.real = trainer.combine_rank_metrics
 
-        def keep(ranks, msg):
+        def keep(ranks, *args, **kwargs):
             self.ranks.append(np.asarray(ranks).copy())
-            return self.real(ranks, msg)
+            return self.real(ranks, *args, **kwargs)
         trainer.combine_rank_metrics = keep
         return self
 
@@ -2728,6 +2746,511 @@ def phase_chunked_save(model, state):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7c: multi-device training (--dist, dglke_tpu_torch/parallel/)
+#
+# The machine has one card, and NCCL takes one rank a card, so the ranks of
+# these phases share cuda:0 and their collectives run over gloo through
+# host memory (parallel/collectives.py); the NCCL route runs at one rank.
+# Each rank is a process of its own, started from this script
+# (``--dist-worker``) with torch's launcher variables; it calls the normal
+# entry points (cli.train.main, or the plan's step for the parity checks)
+# and prints one RESULT line: its launch counts, the collective bytes and
+# ms and the host ms per step of its training loop, and digests of its
+# tables.  None of their numbers is a multi-card number.
+
+DIST_RANKS = 2
+DIST_TIMEOUT = 900          # seconds a rank set may take, then killed
+DIST_STEPS = 500            # the flagship under --dist, each plan
+DIST_RESCAL_STEPS = 100     # RESCAL under --dist (K3 on every replica)
+# wikikg2 under --dist --table_sharding vocab: 200 steps saved every 100
+# (--sharded_ckpt), then resumed for 100 more with the recipe's sampled
+# test eval
+DIST_WIKI_STEPS, DIST_WIKI_EVERY, DIST_WIKI_RESUME = 200, 100, 100
+NCCL_STEPS = 100            # --dist on one rank over NCCL
+DIST_TIMED = 20             # steps timed after each plan's parity step
+DIST_NOTE = ("2 ranks sharing one H100 over host-staged gloo: not a "
+             "multi-card number")
+# The plan's step against one device's step on the card (shapes differ:
+# cuBLAS may take other kernels for the half batch, as for phase 3's step
+# against the CPU).
+DIST_RTOL, DIST_ATOL = 1e-4, 1e-5
+# Launches of each rank, read around its whole CLI run.  A step launches
+# K1 twice (the entity rows, on their owner's shard or the rank's replica;
+# the relation rows), a grouping and K2 for each table it updates (the
+# entity update on the owner's shard, or over the all-gathered list of
+# 2 x 3,000 ids on every replica; the relation update over 2 x 1,000), and
+# on RESCAL K3 (with its grouping) in place of the relation K2.  The
+# flagship's filtered test eval of 2,000 triples at batch 500: over the
+# vocab-sharded table every rank ranks all 8 batches, 2 K1 each (the
+# routed [h | t] rows; the relation rows), scoring its own rows in slices;
+# over replicas each rank ranks its stride, 4 batches of 4 K1 (h, t, the
+# relation rows and the 14,951 candidate rows).  wikikg2's sampled test
+# eval of 20,000 triples: every rank ranks all 40 groups of batches, 2 K1
+# each.  An owner that receives no id launches nothing (none does here).
+for _label, _k1, _steps in (("TransE_l2 dist vocab", 16, DIST_STEPS),
+                            ("TransE_l2 dist replicated", 16, DIST_STEPS),
+                            ("wikikg2 dist save", 0, DIST_WIKI_STEPS),
+                            ("wikikg2 dist resume", 80, DIST_WIKI_RESUME),
+                            ("TransE_l2 nccl", 0, NCCL_STEPS),
+                            ("TransE_l2 nccl baseline", 0, NCCL_STEPS)):
+    EXPECTED_LAUNCHES[_label] = {"gather_rows": 2 * _steps + _k1,
+                                 "group_ids": 2 * _steps,
+                                 "group_ids_sort": 0,
+                                 "sparse_adagrad_rows": 2 * _steps,
+                                 "outer_adagrad_update": 0}
+EXPECTED_LAUNCHES["RESCAL dist vocab"] = {
+    "gather_rows": 2 * DIST_RESCAL_STEPS,
+    "group_ids": 2 * DIST_RESCAL_STEPS, "group_ids_sort": 0,
+    "sparse_adagrad_rows": DIST_RESCAL_STEPS,
+    "outer_adagrad_update": DIST_RESCAL_STEPS}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(name: str, spec: dict, world: int = DIST_RANKS):
+    """Start ``world`` rank processes of this script in worker mode with
+    ``spec``, each with torch's launcher variables (ranks on this host, the
+    rendezvous on a free localhost port); wait for them under DIST_TIMEOUT
+    and kill only the processes started here.  Prints rank 0's output
+    and the others' tails; returns each rank's RESULT dict and output."""
+    os.makedirs(WORK, exist_ok=True)
+    spec_path = os.path.join(WORK, f"dist_{name}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(world))
+        log = open(os.path.join(WORK, f"dist_{name}.rank{rank}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             spec_path], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+    t0 = time.time()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DIST_TIMEOUT - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        fail(f"dist {name}: the ranks did not finish in {DIST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    print(f"dist {name}: {world} rank(s), {time.time() - t0:.1f} s")
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        shown = text if rank == 0 else "\n".join(text.splitlines()[-4:])
+        print("\n".join(f"  [rank {rank}] {ln}" for ln in shown.splitlines()
+                        if not ln.startswith("RESULT ")))
+        if p.returncode != 0:
+            fail(f"dist {name}: rank {rank} exited {p.returncode}")
+    out = []
+    for rank, text in enumerate(texts):
+        lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        if len(lines) != 1:
+            fail(f"dist {name}: rank {rank} printed no result")
+        out.append(json.loads(lines[0][len("RESULT "):]))
+    return out, texts
+
+
+def _digest(state) -> dict:
+    """blake2b of every table and Adagrad state of a TrainState (this
+    rank's part), read to the host in 64 MB chunks, and its step."""
+    import hashlib
+
+    import torch
+    out = {"step": int(state.step)}
+    tables = {"entity": state.entity, "relation": state.relation,
+              "projection": state.projection}
+    for name, t in tables.items():
+        if t is None:
+            continue
+        for part, x in (("", t.emb), ("_state", t.state_sum)):
+            h = hashlib.blake2b(digest_size=16)
+            flat = x.reshape(x.shape[0], -1)
+            step = max(1, (64 << 20) // max(1, flat[:1].numel() * 4))
+            for a in range(0, flat.shape[0], step):
+                h.update(flat[a:a + step].contiguous().view(
+                    torch.uint8).cpu().numpy().tobytes())
+            out[name + part] = h.hexdigest()
+    return out
+
+
+def _worker_cli(spec: dict) -> dict:
+    """dglke_tpu_torch-train with spec["argv"] on this rank; its launch
+    counts around the whole run, per-step numbers of its training loop,
+    digests of the tables it trained (and of those it loaded)."""
+    import torch
+    from dglke_tpu_torch.cli import train as train_cli
+    from dglke_tpu_torch.ops import rows
+    if spec.get("ogb"):
+        _serve_as_ogb(_wikikg2_dataset())
+    seen = {}
+    real = {k: getattr(train_cli, k) for k in
+            ("init_distributed", "train", "load_sharded")}
+
+    def init(*a, **k):
+        seen["comm"] = real["init_distributed"](*a, **k)
+        return seen["comm"]
+
+    def train(*a, **k):
+        comm = seen["comm"]
+        torch.cuda.synchronize()
+        comm.reset_counters()
+        t0 = time.perf_counter()
+        out = real["train"](*a, **k)
+        torch.cuda.synchronize()
+        seen["train_s"] = time.perf_counter() - t0
+        seen["coll"] = comm.counters()
+        seen["steps"] = a[0].max_step
+        seen["final"] = _digest(out[1])
+        return out
+
+    def load(*a, **k):
+        state = real["load_sharded"](*a, **k)
+        seen["loaded"] = _digest(state)
+        return state
+
+    for k, f in (("init_distributed", init), ("train", train),
+                 ("load_sharded", load)):
+        setattr(train_cli, k, f)
+    rows.reset_launches()
+    rc = train_cli.main(spec["argv"])
+    comm, steps = seen["comm"], max(1, seen["steps"])
+    return {"rc": rc, "launches": dict(rows.launches),
+            "backend": comm.backend, "layout": comm.layout,
+            "host_ms_per_step": seen["train_s"] * 1e3 / steps,
+            "coll_bytes_per_step": seen["coll"]["bytes"] / steps,
+            "coll_ms_per_step": seen["coll"]["ms"] / steps,
+            "final": seen["final"], "loaded": seen.get("loaded")}
+
+
+def _clone(state):
+    from dglke_tpu_torch.models.ke_model import TrainState
+    from dglke_tpu_torch.ops.embedding import EmbeddingState
+
+    def table(t):
+        return None if t is None else EmbeddingState(t.emb.clone(),
+                                                      t.state_sum.clone())
+
+    return TrainState(table(state.entity), table(state.relation),
+                      step=state.step, projection=table(state.projection))
+
+
+def _worker_step(spec: dict) -> dict:
+    """One step of each plan at full width on this rank's slice of a
+    global batch, against one device's step on the whole batch (both on
+    the card, from the same tables); then DIST_TIMED steps on the host
+    clock with the plan's collective counters."""
+    import torch
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.parallel.mesh import ShardingPlan, init_distributed
+    comm = init_distributed("cuda")
+    rank, world, dev = comm.rank, comm.world, comm.device
+    out = {"backend": comm.backend, "layout": comm.layout, "cases": {}}
+    for recipe in (TRANSE, RESCAL):
+        cfg = KGEConfig(**recipe)
+        b, n_neg = cfg.batch_size, cfg.num_chunks * cfg.neg_sample_size
+        rng = np.random.default_rng(11)
+        ids = [torch.from_numpy(rng.integers(0, n, world * size).astype(
+            np.int32)).to(dev) for n, size in
+            ((N_ENT, b), (N_REL, b), (N_ENT, b), (N_ENT, n_neg))]
+        mine = [x[rank * len(x) // world:(rank + 1) * len(x) // world]
+                for x in ids]
+        one = KEModel(cfg, N_ENT, N_REL, device=dev)
+        full = one.init_state()
+        ref = _clone(full)
+        one.train_step(ref, *ids, None, neg_head=True)
+        for ts in ("vocab", "replicated"):
+            plan = ShardingPlan(comm, ts, N_ENT)
+            model = KEModel(cfg, N_ENT, N_REL, plan=plan)
+            state = plan.shard_state(_clone(full))
+            model.train_step(state, *mine, None, neg_head=True)
+            lo, n_real = plan.lo, plan.n_real
+            worst = {}
+            for name in ("entity", "relation"):
+                got, want = getattr(state, name), getattr(ref, name)
+                rows_ = slice(lo, lo + n_real) if name == "entity" and \
+                    plan.vocab else slice(None)
+                for part, g, w in (("", got.emb, want.emb[rows_]),
+                                   ("_state", got.state_sum,
+                                    want.state_sum[rows_])):
+                    g = g[:n_real] if name == "entity" and plan.vocab else g
+                    worst[name + part] = [
+                        float((g - w).abs().max()),
+                        bool(torch.allclose(g, w, rtol=DIST_RTOL,
+                                            atol=DIST_ATOL))]
+            digest = _digest(state)
+            # steady steps on the host clock, with the collective counters
+            torch.cuda.synchronize()
+            comm.reset_counters()
+            t0 = time.perf_counter()
+            for i in range(DIST_TIMED):
+                model.train_step(state, *mine, None, neg_head=i % 2 == 0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / DIST_TIMED
+            c = comm.counters()
+            out["cases"][f"{recipe['model_name']} {ts}"] = {
+                "worst": worst, "digest": digest, "host_ms_per_step": ms,
+                "coll_bytes_per_step": c["bytes"] / DIST_TIMED,
+                "coll_ms_per_step": c["ms"] / DIST_TIMED}
+            del state, model
+        del full, ref, one
+        torch.cuda.empty_cache()
+    comm.close()
+    return out
+
+
+def dist_worker(spec_path: str) -> int:
+    """One rank of a dist phase (``chip_smoke.py --dist-worker spec``)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    result = (_worker_step(spec) if spec["kind"] == "step"
+              else _worker_cli(spec))
+    print("RESULT " + json.dumps(result))
+    return 0
+
+
+def _rank_numbers(label: str, res) -> None:
+    """The three numbers of each rank: host ms per step, collective bytes
+    and ms per step on the host clock."""
+    for rank, r in enumerate(res):
+        print(f"{label} rank {rank}: host {r['host_ms_per_step']:.4f} ms a "
+              f"step, collectives {r['coll_bytes_per_step']:.0f} bytes and "
+              f"{r['coll_ms_per_step']:.4f} ms a step (host clock)")
+
+
+def _hold_launches(label: str, res) -> dict:
+    """Each rank's launches held to EXPECTED_LAUNCHES[label]; returns their
+    sum over the ranks."""
+    want = EXPECTED_LAUNCHES[label]
+    total = dict.fromkeys(want, 0)
+    for rank, r in enumerate(res):
+        got = r["launches"]
+        if any(got[k] != v for k, v in want.items()):
+            fail(f"{label} rank {rank}: launches {got}, expected {want}")
+        for k in want:
+            total[k] += got[k]
+    print(f"{label}: launches exact on every rank ({want} a rank)")
+    return total
+
+
+def _hold_backend(label: str, res, backend: str, layout: str) -> None:
+    for rank, r in enumerate(res):
+        if (r["backend"], r["layout"]) != (backend, layout):
+            fail(f"{label} rank {rank}: backend {r['backend']} "
+                 f"({r['layout']}), expected {backend} ({layout})")
+
+
+def phase_dist_step_parity():
+    """Two ranks sharing cuda:0 (gloo): one step of each plan at the
+    flagship shapes (14,951 x 400, 1,000 rows and 1,000 negatives a rank)
+    and at RESCAL's (hidden 500: K3 on every replica) against one device's
+    step on the 2,000-row global batch, also on the card, within
+    DIST_RTOL / DIST_ATOL; replicated tables bit-equal across the ranks;
+    then DIST_TIMED steps of each plan with their per-rank numbers."""
+    res, _ = run_ranks("step", {"kind": "step"})
+    _hold_backend("dist step", res, "gloo", "2 ranks share cuda:0")
+    card = card_line()
+    for case in res[0]["cases"]:
+        for rank, r in enumerate(res):
+            for what, (diff, ok) in r["cases"][case]["worst"].items():
+                if not ok:
+                    fail(f"dist step {case} rank {rank}: {what} differs "
+                         f"from one device's step by {diff}")
+        d0, d1 = (r["cases"][case]["digest"] for r in res)
+        same = [k for k in d0 if k != "step" and d0[k] == d1[k]]
+        want = ["relation", "relation_state"] + (
+            ["entity", "entity_state"] if case.endswith("replicated")
+            else [])
+        if sorted(same) != sorted(want):
+            fail(f"dist step {case}: bit-equal across ranks {same}, "
+                 f"expected exactly {want}")
+        worst = max(v[0] for r in res for v in r["cases"][case]["worst"]
+                    .values())
+        print(f"dist step {case}: both ranks within rtol {DIST_RTOL} / "
+              f"atol {DIST_ATOL} of one device's step on the global batch "
+              f"(max |diff| {worst:.3g}); replicated tables bit-equal "
+              f"across ranks: {', '.join(sorted(want))}")
+        _rank_numbers(f"dist step {case} [{DIST_NOTE}; {card}]",
+                      [r["cases"][case] for r in res])
+
+
+def _dist_flagship(label: str, table_sharding: str, recipe: dict,
+                   steps: int, test: bool):
+    """The recipe on the FB15k-shaped data through dglke_tpu_torch-train
+    --dist on two ranks sharing the card; returns (results, texts, the
+    checkpoint directory)."""
+    data = _fb15k_shaped("data", n_train=300_000)
+    save = os.path.join(WORK, "dist_" + label.replace(" ", "_"))
+    argv = ["--dist", "--table_sharding", table_sharding,
+            "--dataset", "fb15k_shaped", *_udd_args(data),
+            *_recipe_flags(recipe), "--max_step", str(steps),
+            "--log_interval", str(steps // 2), "--save_path", save]
+    argv += (["--test", "--batch_size_eval", "500"] if test
+             else ["--no_save_emb"])
+    res, texts = run_ranks(label.replace(" ", "_"),
+                           {"kind": "cli", "argv": argv})
+    _hold_backend(label, res, "gloo", "2 ranks share cuda:0")
+    if f"Using 2-rank mesh (tables: {table_sharding}; backend gloo: 2 "\
+            f"ranks share cuda:0)" not in texts[0]:
+        fail(f"{label}: rank 0 did not print its mesh line")
+    losses = _floats(r"average loss: (\S+)", texts[0])
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: loss not finite: {losses}")
+    return res, texts, os.path.join(save, "TransE_l2_fb15k_shaped_0")
+
+
+def phase_dist_flagship():
+    """The flagship under --dist on 2 ranks x batch 1,000, each plan,
+    DIST_STEPS steps and the filtered test eval: launches exact on each
+    rank, the metrics equal on both ranks and equal to one device's
+    dglke_tpu_torch-eval of the npy checkpoint written at the end (the
+    vocab plan's 14,951 rows leave one shard padded); then RESCAL under
+    --dist (vocab) for DIST_RESCAL_STEPS steps, K3 on every replica.
+    Returns the launch counts summed over the ranks, by path."""
+    from dglke_tpu_torch.cli import eval as eval_cli
+    paths = {}
+    card = card_line()
+    for ts in ("vocab", "replicated"):
+        label = f"TransE_l2 dist {ts}"
+        res, texts, ckpt = _dist_flagship(label, ts, TRANSE, DIST_STEPS,
+                                          test=True)
+        paths[label] = _hold_launches(label, res)
+        metrics = [dict(re.findall(rf"\[{r}\]Test average (\S+): (\S+)",
+                                   texts[r])) for r in range(DIST_RANKS)]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _cli(eval_cli.main, [*_udd_args(_fb15k_shaped(
+                "data", n_train=300_000)), "--model_path", ckpt,
+                "--batch_size_eval", "500"])
+        one = dict(re.findall(r"\[0\]Test average (\S+): (\S+)",
+                              out.getvalue()))
+        if not one or any(m != one for m in metrics):
+            fail(f"{label}: test metrics {metrics} on the ranks, {one} from "
+                 f"one device's eval of the npy checkpoint")
+        print(f"{label}: {DIST_STEPS} steps of 2 x {BATCH} rows; test "
+              f"metrics on both ranks equal one device's eval of the npy "
+              f"checkpoint written through rank 0: MRR {one['MRR']}, "
+              f"HITS@10 {one['HITS@10']}")
+        _rank_numbers(f"{label} [{DIST_NOTE}; {card}]", res)
+    label = "RESCAL dist vocab"
+    res, _, _ = _dist_flagship(label, "vocab", RESCAL, DIST_RESCAL_STEPS,
+                               test=False)
+    paths[label] = _hold_launches(label, res)
+    d0, d1 = (r["final"] for r in res)
+    if d0["relation"] != d1["relation"] or \
+            d0["relation_state"] != d1["relation_state"]:
+        fail("RESCAL dist vocab: the relation replicas differ across ranks")
+    print("RESCAL dist vocab: the 1,345 x 250,000 relation replicas "
+          "bit-equal across ranks after K3 on each")
+    _rank_numbers(f"{label} [{DIST_NOTE}; {card}]", res)
+    return paths
+
+
+def phase_dist_wikikg2():
+    """ogbl-wikikg2 at full width (2,500,604 x 500 fp32, 2.5 GB a rank)
+    under --dist --table_sharding vocab on two ranks, the recipe of
+    examples/wikikg2.sh:11-14 through the stand-in ogb module (the cuts of
+    phase 6): DIST_WIKI_STEPS steps with --sharded_ckpt --save_interval
+    DIST_WIKI_EVERY, then resumed from that checkpoint for
+    DIST_WIKI_RESUME steps with the sampled test eval.  The step counter
+    goes on, and the tables each rank loads are bit-equal to those it
+    saved.  Returns the launch counts summed over the ranks, by path."""
+    save = os.path.join(WORK, "dist_wiki")
+    common = ["--dist", "--table_sharding", "vocab", "--dataset", "wikikg2",
+              "--data_path", WORK, "--format", "built_in",
+              *_recipe_flags(WIKI), "--no_eval_filter",
+              "--batch_size_eval", str(WIKI_EVAL_BATCH),
+              "--neg_sample_size_eval", str(WIKI_EVAL_NEG),
+              "--log_interval", str(DIST_WIKI_EVERY)]
+    card = card_line()
+    paths = {}
+    first, _ = run_ranks("wiki_save", {"kind": "cli", "ogb": True, "argv": [
+        *common, "--max_step", str(DIST_WIKI_STEPS), "--sharded_ckpt",
+        "--save_interval", str(DIST_WIKI_EVERY), "--save_path", save]})
+    paths["wikikg2 dist save"] = _hold_launches("wikikg2 dist save", first)
+    ckpt = os.path.join(save, "TransE_l2_wikikg2_0")
+    second, texts = run_ranks("wiki_resume", {
+        "kind": "cli", "ogb": True, "argv": [
+            *common, "--max_step", str(DIST_WIKI_RESUME), "--init_from",
+            ckpt, "--test", "--no_save_emb", "--save_path",
+            os.path.join(WORK, "dist_wiki_resume")]})
+    paths["wikikg2 dist resume"] = _hold_launches("wikikg2 dist resume",
+                                                  second)
+    for rank, (a, b) in enumerate(zip(first, second)):
+        if a["final"] != b["loaded"]:
+            fail(f"wikikg2 dist rank {rank}: the tables loaded "
+                 f"{b['loaded']} differ from those saved {a['final']}")
+        if b["final"]["step"] != DIST_WIKI_STEPS + DIST_WIKI_RESUME:
+            fail(f"wikikg2 dist rank {rank}: step {b['final']['step']} "
+                 f"after the resume")
+    mrr = [_floats(rf"\[{r}\]Test average MRR: (\S+)", texts[r])
+           for r in range(DIST_RANKS)]
+    if len(mrr[0]) != 1 or mrr[0] != mrr[1] or not 0 < mrr[0][0] <= 1:
+        fail(f"wikikg2 dist: sampled test MRR {mrr} on the ranks")
+    print(f"wikikg2 dist [{WIKI_ENT} x {WIKI['hidden_dim']} fp32, "
+          f"{-(-WIKI_ENT // DIST_RANKS)} rows a rank]: saved at steps "
+          f"{DIST_WIKI_EVERY} and {DIST_WIKI_STEPS} (--sharded_ckpt), "
+          f"resumed on 2 ranks with every table bit-equal to the saved one "
+          f"(blake2b of each rank's shard and replicas), step "
+          f"{DIST_WIKI_STEPS} -> {DIST_WIKI_STEPS + DIST_WIKI_RESUME}; "
+          f"sampled test MRR {mrr[0][0]!r} on both ranks")
+    for name, res in (("save", first), ("resume", second)):
+        _rank_numbers(f"wikikg2 dist {name} [{DIST_NOTE}; {card}]", res)
+    return paths
+
+
+def phase_dist_nccl():
+    """--dist on one rank over NCCL (the flagship, vocab plan, NCCL_STEPS
+    steps) against the same run without --dist on the same seed: the
+    backend line says nccl, launches exact, and the saved tables are
+    bit-equal.  Returns the launch counts by path."""
+    data = _fb15k_shaped("data", n_train=300_000)
+    argv = ["--dataset", "fb15k_shaped", *_udd_args(data),
+            *_recipe_flags(TRANSE), "--max_step", str(NCCL_STEPS),
+            "--log_interval", str(NCCL_STEPS)]
+    res, texts = run_ranks("nccl", {"kind": "cli", "argv": [
+        "--dist", "--table_sharding", "vocab", *argv, "--save_path",
+        os.path.join(WORK, "nccl")]}, world=1)
+    _hold_backend("TransE_l2 nccl", res, "nccl", "one card a rank")
+    if "Using 1-rank mesh (tables: vocab; backend nccl: one card a rank)" \
+            not in texts[0]:
+        fail("TransE_l2 nccl: no nccl mesh line")
+    paths = {"TransE_l2 nccl": _hold_launches("TransE_l2 nccl", res)}
+    counts, _, _, _ = run_cli("TransE_l2 nccl baseline", [
+        *argv, "--save_path", os.path.join(WORK, "nodist")])
+    paths["TransE_l2 nccl baseline"] = counts
+    a = os.path.join(WORK, "nccl", "TransE_l2_fb15k_shaped_0")
+    b = os.path.join(WORK, "nodist", "TransE_l2_fb15k_shaped_0")
+    for table in ("entity", "entity_state", "relation", "relation_state",
+                  "step"):
+        f = f"fb15k_shaped_TransE_l2_{table}.npy"
+        if not np.array_equal(np.load(os.path.join(a, f)),
+                              np.load(os.path.join(b, f))):
+            fail(f"TransE_l2 nccl: {f} differs from the run without --dist")
+    print(f"TransE_l2 nccl: {NCCL_STEPS} steps on 1 rank over NCCL; every "
+          f"saved table bit-equal to the run without --dist")
+    _rank_numbers(f"TransE_l2 nccl [1 rank over NCCL; {card_line()}]", res)
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # Phase 7
 
 # tests/test_planted_quality.py:27-46: (model, structure, overrides)
@@ -2818,6 +3341,13 @@ def main() -> int:
         phase_host_step_parity(TRANSE)
         phase_host_flagship_profile()
         phase_planted()
+        # the ranks' processes take the card next: free what this one holds
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dist_step_parity()
+        paths.update(phase_dist_flagship())
+        paths.update(phase_dist_wikikg2())
+        paths.update(phase_dist_nccl())
         gc.collect()
         # pinned staging buffers cached by torch go back to the host first
         getattr(torch._C, "_host_emptyCache", lambda: None)()
@@ -2849,4 +3379,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main())

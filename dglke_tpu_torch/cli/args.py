@@ -1,10 +1,9 @@
 """CLI argument surface -> KGEConfig (counterpart of dglke_tpu/cli/args.py).
 
 Every flag of the JAX package's train and eval parsers parses here, plus
-``--device``.  Flags that select nothing on one device are accepted and
-noted (``warn_inert_flags``); flags of modes not ported yet, and the
-settings the port does not take, are refused with the ROADMAP item that
-says why.
+``--device``.  Flags that select nothing are accepted and noted
+(``warn_inert_flags``); flags of modes not ported yet, and the settings
+the port does not take, are refused with the ROADMAP item that says why.
 """
 
 from __future__ import annotations
@@ -78,10 +77,15 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "stays fp32)")
     p.add_argument("--table_sharding", default="replicated",
                    choices=["replicated", "vocab"],
-                   help="how tables are laid out over devices: no effect "
-                        "on one device")
+                   help="how tables are laid out over the ranks of --dist: "
+                        "whole on every rank, or the entity table's rows "
+                        "cut over them")
     p.add_argument("--mix_cpu_gpu", action="store_true")
-    p.add_argument("--dist", action="store_true")
+    p.add_argument("--dist", action="store_true",
+                   help="one rank of a multi-device run: the process group "
+                        "starts from MASTER_ADDR / MASTER_PORT / RANK / "
+                        "WORLD_SIZE / LOCAL_RANK (torchrun or "
+                        "dglke_tpu_torch-dist_train set them)")
     add_device_args(p, gpu_nargs="+")
 
 
@@ -99,18 +103,17 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                         "a group of steps (deterministic form of the "
                         "reference's async updater; rows scored one step "
                         "stale)")
-    p.add_argument("--sharded_ckpt", action="store_true")
-    p.add_argument("--partition_path", type=str, default=None)
+    p.add_argument("--sharded_ckpt", action="store_true",
+                   help="save each rank's tables under sharded_state/ "
+                        "(resume with --init_from on as many ranks)")
+    p.add_argument("--partition_path", type=str, default=None,
+                   help="--dist: read each rank's edges from the "
+                        "dglke_tpu_torch-partition artifacts here")
     p.add_argument("--profile", type=str, default=None)
 
 
 # flag -> (is it set?, ROADMAP item that says why it is refused)
 _REFUSED = {
-    "--dist": (lambda a: a.dist, "A11 (multi-device)"),
-    "--sharded_ckpt": (lambda a: getattr(a, "sharded_ckpt", False),
-                       "A11 (sharded checkpoints)"),
-    "--partition_path": (lambda a: getattr(a, "partition_path", None)
-                         is not None, "A11 (multi-device)"),
     "--profile": (lambda a: getattr(a, "profile", None) is not None,
                   "A6b (the port benchmark maps it onto torch.profiler)"),
     "--compute_dtype bfloat16": (
@@ -124,6 +127,12 @@ def refuse_unported(args: argparse.Namespace) -> None:
         if is_set(args):
             raise SystemExit(f"{flag} is not ported to dglke_tpu_torch: it "
                              f"is ROADMAP item {item}; use dglke_tpu")
+    if args.dist and args.mix_cpu_gpu:
+        # refused before anything runs, as the JAX package does
+        raise SystemExit(
+            "--mix_cpu_gpu is a single-host mode (tables live in one "
+            "host's memory); combine --dist with tables on the cards "
+            "(--table_sharding vocab cuts big tables over the ranks)")
 
 
 def warn_inert_flags(args: argparse.Namespace, log=print) -> None:
@@ -136,7 +145,8 @@ def warn_inert_flags(args: argparse.Namespace, log=print) -> None:
             "CPU")
     if getattr(args, "num_proc", 1) > 1:
         log("NOTE: --num_proc is a compatibility no-op — dglke_tpu_torch "
-            "trains on one device in one process")
+            "runs one process per device (--dist ranks start through "
+            "torchrun or dglke_tpu_torch-dist_train)")
     if getattr(args, "force_sync_interval", -1) > 0:
         log("NOTE: --force_sync_interval is a compatibility no-op — the "
             "step is synchronous by construction")
@@ -147,12 +157,16 @@ def warn_inert_flags(args: argparse.Namespace, log=print) -> None:
     if getattr(args, "num_thread", 1) > 1:
         log("NOTE: --num_thread is a compatibility no-op — host sampling "
             "is vectorized numpy")
-    if getattr(args, "rel_part", False):
+    dist = getattr(args, "dist", False)
+    if getattr(args, "rel_part", False) and not dist:
         log("NOTE: --rel_part only takes effect with --dist (it selects "
             "soft relation partitioning of the edge list across hosts); "
             "single-device training uses one global sampler")
-    if getattr(args, "table_sharding", "replicated") == "vocab":
+    if getattr(args, "table_sharding", "replicated") == "vocab" and not dist:
         log("NOTE: --table_sharding vocab has no effect on one device")
+    if getattr(args, "partition_path", None) is not None and not dist:
+        log("NOTE: --partition_path only takes effect with --dist; "
+            "single-device training reads the whole dataset")
 
 
 def config_from_args(args: argparse.Namespace) -> KGEConfig:

@@ -4,7 +4,14 @@ entities or sampled negatives, or, for a dataset with a candidate-list test
 split (wikikg90M), Valid metrics when it has answers and the top-10
 test_0.pkl in the checkpoint directory when it has none.  A checkpoint
 trained with --mix_cpu_gpu is evaluated from host memory unless
---no_mix_cpu_gpu is given."""
+--no_mix_cpu_gpu is given.
+
+With --dist each process is one rank (parallel/mesh.py): a sharded
+checkpoint (--sharded_ckpt) is restored onto as many ranks as wrote it,
+under the table sharding it records; an npy checkpoint is cut as
+--table_sharding says.  Over a vocab-sharded table every rank ranks every
+batch and reports the global metrics; over replicated tables each ranks
+its stride."""
 
 from __future__ import annotations
 
@@ -23,12 +30,18 @@ from dglke_tpu_torch.data.dataset import get_dataset
 from dglke_tpu_torch.device import resolve_device
 from dglke_tpu_torch.host_table import load_host_state
 from dglke_tpu_torch.models.ke_model import KEModel
+from dglke_tpu_torch.parallel.mesh import ShardingPlan, init_distributed
 from dglke_tpu_torch.trainer import (
     CandidateEvalSampler,
     evaluate,
     evaluate_candidates,
 )
-from dglke_tpu_torch.utils.io import load_model_state
+from dglke_tpu_torch.utils.io import (
+    has_sharded,
+    load_model_state,
+    load_sharded,
+    sharded_layout,
+)
 
 
 def main(argv=None):
@@ -42,11 +55,22 @@ def main(argv=None):
     args = parser.parse_args(argv)
     refuse_unported(args)
     warn_inert_flags(args)
-    if os.path.isdir(os.path.join(args.model_path, "sharded_state")):
-        raise SystemExit("sharded checkpoints are not ported to "
-                         "dglke_tpu_torch yet: they are ROADMAP item A11")
+    sharded = has_sharded(args.model_path)
+    if sharded:
+        # this package's format only; the JAX package's is refused by name
+        layout = sharded_layout(args.model_path)
+        args.table_sharding = layout["table_sharding"]
     cfg = config_from_args(args)
-    device = resolve_device(args.device)
+    comm = init_distributed(args.device) if args.dist else None
+    try:
+        return _main(args, cfg, comm, sharded)
+    finally:
+        if comm is not None:
+            comm.close()
+
+
+def _main(args, cfg, comm, sharded):
+    device = resolve_device(args.device) if comm is None else comm.device
     # adopt the model's hyper-parameters from the checkpoint's config.json,
     # so that eval flags can stay minimal
     conf = os.path.join(args.model_path, "config.json")
@@ -63,9 +87,18 @@ def main(argv=None):
             # host mode on a checkpoint trained on the device)
             mix_cpu_gpu=(cfg.mix_cpu_gpu or saved.mix_cpu_gpu)
             and not args.no_mix_cpu_gpu)
+    if comm is not None and cfg.mix_cpu_gpu:
+        raise SystemExit(
+            "the checkpoint was trained with --mix_cpu_gpu, a single-host "
+            "mode: evaluate it without --dist, or with --no_mix_cpu_gpu")
     dataset = get_dataset(cfg.data_path, cfg.dataset, cfg.format,
                           cfg.delimiter, cfg.data_files,
                           cfg.has_edge_importance)
+    plan = None
+    if comm is not None:
+        plan = ShardingPlan(comm, cfg.table_sharding, dataset.n_entities)
+        if comm.rank == 0:
+            print(plan.describe())
     if dataset.test_dict is not None and cfg.mix_cpu_gpu:
         # refuse before loading a table that may not fit on the card:
         # candidate-list eval needs the table on the device
@@ -74,23 +107,28 @@ def main(argv=None):
             "(wikikg90M-style test_dict): pass --no_mix_cpu_gpu if the "
             "table fits in HBM, or evaluate on a vocab-sharded mesh")
     model = KEModel(cfg, dataset.n_entities, dataset.n_relations,
-                    device=device)
+                    device=device, plan=plan)
     if cfg.mix_cpu_gpu:
         # the table stays in host memory and streams through the card
         print("Evaluating with host-resident tables (mix_cpu_gpu)")
         state = load_host_state(cfg, model, args.model_path)
         evaluate(cfg, dataset, model, state, "test")
         return 0
-    state = load_model_state(cfg, model, args.model_path)
+    state = (load_sharded(cfg, model, args.model_path) if sharded
+             else load_model_state(cfg, model, args.model_path))
     if dataset.test_dict is not None:
-        sampler = CandidateEvalSampler(dataset.test_dict,
-                                       cfg.batch_size_eval)
+        # strided over replicated tables; every rank ranks every query
+        # over a vocab-sharded one
+        strided = plan is not None and not plan.vocab
+        sampler = CandidateEvalSampler(
+            dataset.test_dict, cfg.batch_size_eval,
+            plan.rank if strided else 0, plan.n if strided else 1)
         evaluate_candidates(
             model, state, sampler,
             mode="Valid" if sampler.ans is not None else "Test",
-            save_path=args.model_path)
+            save_path=args.model_path, plan=plan)
         return 0
-    evaluate(cfg, dataset, model, state, "test")
+    evaluate(cfg, dataset, model, state, "test", plan=plan)
     return 0
 
 

@@ -92,6 +92,13 @@ class KGEConfig:
     mix_cpu_gpu: bool = False  # host-resident fp32 tables (host_table.py):
     # capacity is host memory; only a step's rows cross the host link
 
+    # -- parallelism (--dist) ------------------------------------------------
+    # 'replicated' keeps the whole tables on every rank; 'vocab' cuts the
+    # entity table's rows over the ranks (parallel/mesh.py)
+    table_sharding: str = "replicated"
+    rel_part: bool = False  # --dist without --partition_path: soft relation
+    # partitioning of the edges over the ranks instead of a random split
+
     # ------------------------------------------------------------------------
     @property
     def emb_init(self) -> float:
@@ -126,6 +133,8 @@ class KGEConfig:
             raise ValueError(f"{self.loss_genre} loss cannot be pairwise")
         if self.emb_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown emb_dtype {self.emb_dtype}")
+        if self.table_sharding not in ("replicated", "vocab"):
+            raise ValueError(f"unknown table_sharding {self.table_sharding}")
         if self.steps_per_call < 1:
             raise ValueError(f"steps_per_call must be at least 1, got "
                              f"{self.steps_per_call}")
@@ -159,10 +168,16 @@ class KGEConfig:
         d.update({"emp_file": emap_file, "rmap_file": rmap_file})
         return d
 
-    def save(self, path: str, emap_file=None, rmap_file=None) -> None:
+    def save(self, path: str, emap_file=None, rmap_file=None,
+             **extras) -> None:
+        """Write config.json; ``extras`` are checkpoint keys that are not
+        fields (ckpt_table_sharding / ckpt_mesh_size of a sharded
+        checkpoint, the JAX package's names), which ``load`` ignores."""
         os.makedirs(path, exist_ok=True)
+        d = self.to_json_dict(emap_file, rmap_file)
+        d.update(extras)
         with open(os.path.join(path, "config.json"), "w") as f:
-            json.dump(self.to_json_dict(emap_file, rmap_file), f, indent=4)
+            json.dump(d, f, indent=4)
 
     @classmethod
     def load(cls, config_file: str) -> "KGEConfig":

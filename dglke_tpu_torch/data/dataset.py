@@ -57,6 +57,9 @@ class KGDataset:
     # {"h,r->t": {"hr": [N,2], "t_candidate": [N,K], "t_correct_index": [N]}}
     valid_dict: Optional[dict] = None
     test_dict: Optional[dict] = None
+    # True when train holds one rank's edge partition (partition_for_host):
+    # an eval filter must then come from the whole dataset
+    train_partitioned: bool = False
 
     @property
     def has_edge_importance(self) -> bool:

@@ -1,6 +1,6 @@
 """Host-side sampling (counterpart of dglke_tpu/data/sampler.py): the
-training sampler of the host-fed route, the filter index and the eval
-sampler.
+edge partitioners of --dist, the training sampler of the host-fed route,
+the filter index and the eval sampler.
 
 Most training batches are sampled on the device (trainer.DevicePipeline);
 datasets smaller than two batches take the host-fed route, one
@@ -12,11 +12,134 @@ reference's --neg_sample_size_eval protocol).
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+import dataclasses
+import math
+from typing import Iterator, List, Optional
 
 import numpy as np
 
 from dglke_tpu_torch.data.dataset import KGDataset
+
+# ---------------------------------------------------------------------------
+# Edge partitioners (the reference's sampler.py:32-290; copies of the JAX
+# package's, which give the same parts for the same edges)
+
+
+def random_partition(triples, n_parts: int,
+                     rng: Optional[np.random.RandomState] = None
+                     ) -> List[np.ndarray]:
+    """Shuffle edges, split into n_parts nearly equal index ranges."""
+    n = len(triples[0])
+    rng = rng or np.random.RandomState(0)
+    perm = rng.permutation(n)
+    part_size = math.ceil(n / n_parts)
+    return [perm[i * part_size:(i + 1) * part_size] for i in range(n_parts)]
+
+
+def balanced_relation_partition(triples, n_parts: int):
+    """Each relation lives entirely in one part; parts greedily balanced by
+    edge count (the reference's BalancedRelationPartition).
+
+    Returns (edge_parts, rel_parts, cross_part=False)."""
+    r = triples[1]
+    uniq, counts = np.unique(r, return_counts=True)
+    order = np.argsort(-counts)
+    part_sizes = np.zeros(n_parts, np.int64)
+    rel_parts: List[List[int]] = [[] for _ in range(n_parts)]
+    assignment = np.zeros(int(uniq.max()) + 1 if len(uniq) else 1, np.int64)
+    for idx in order:
+        rel, cnt = uniq[idx], counts[idx]
+        p = int(np.argmin(part_sizes))
+        part_sizes[p] += cnt
+        rel_parts[p].append(int(rel))
+        assignment[rel] = p
+    edge_part_of = assignment[r]
+    edge_parts = [np.nonzero(edge_part_of == p)[0] for p in range(n_parts)]
+    rel_parts = [np.asarray(sorted(rp), np.int64) for rp in rel_parts]
+    return edge_parts, rel_parts, False
+
+
+def soft_relation_partition(triples, n_parts: int, threshold: float = 0.05):
+    """Relations with more than ``threshold`` of the per-part edge share
+    are split across all parts ("cross" relations); the rest are pinned to
+    one part, greedily balancing edge counts (the reference's
+    SoftRelationPartition).
+
+    Returns (edge_parts, rel_parts, cross_part, cross_rels)."""
+    r = triples[1]
+    n = len(r)
+    uniq, counts = np.unique(r, return_counts=True)
+    # cross iff count > min(threshold * E, E / n_parts)
+    big = counts > min(threshold * n, n / n_parts)
+    cross_rels = set(int(x) for x in uniq[big])
+
+    part_sizes = np.zeros(n_parts, np.int64)
+    rel_parts: List[List[int]] = [[] for _ in range(n_parts)]
+    n_rel_max = int(uniq.max()) + 1 if len(uniq) else 1
+    assignment = np.full(n_rel_max, -1, np.int64)
+    for idx in np.argsort(-counts):
+        rel, cnt = int(uniq[idx]), int(counts[idx])
+        if rel in cross_rels:
+            continue
+        p = int(np.argmin(part_sizes))
+        part_sizes[p] += cnt
+        rel_parts[p].append(rel)
+        assignment[rel] = p
+
+    rng = np.random.RandomState(0)
+    edge_parts: List[List[np.ndarray]] = [[] for _ in range(n_parts)]
+    pinned = assignment[r]
+    # pinned edges go to their relation's part
+    for p in range(n_parts):
+        edge_parts[p].append(np.nonzero(pinned == p)[0])
+    # cross edges are spread to even out part sizes
+    cross_idx = np.nonzero(pinned < 0)[0]
+    rng.shuffle(cross_idx)
+    sizes = np.array([len(e[0]) for e in edge_parts], np.int64)
+    target = (n + n_parts - 1) // n_parts
+    start = 0
+    for p in range(n_parts):
+        take = min(max(0, target - int(sizes[p])), len(cross_idx) - start)
+        edge_parts[p].append(cross_idx[start:start + take])
+        start += take
+    # leftovers round-robin
+    p = 0
+    while start < len(cross_idx):
+        edge_parts[p % n_parts].append(cross_idx[start:start + 1])
+        start += 1
+        p += 1
+    edge_parts = [np.concatenate(e) for e in edge_parts]
+    # every part also owns the cross relations
+    rel_parts = [np.asarray(sorted(rp + list(cross_rels)), np.int64)
+                 for rp in rel_parts]
+    return edge_parts, rel_parts, len(cross_rels) > 0, sorted(cross_rels)
+
+
+def partition_for_host(dataset: KGDataset, rank: int, n_parts: int,
+                       rel_part: bool = False) -> KGDataset:
+    """Rank ``rank``'s slice of the training edges, for --dist without
+    offline partition artifacts: soft relation partitioning with
+    ``rel_part`` (each relation pinned to one rank, heavy ones crossing),
+    else a seeded random split.  Eval splits and id maps stay whole.
+    Deterministic: every rank calls it with the same dataset and no
+    coordination."""
+    if n_parts <= 1:
+        return dataset
+    if rel_part:
+        edge_parts = soft_relation_partition(dataset.train, n_parts)[0]
+    else:
+        edge_parts = random_partition(dataset.train, n_parts)
+    idx = np.sort(edge_parts[rank])
+    if len(idx) == 0:
+        raise ValueError(
+            f"host {rank}/{n_parts} received an empty edge partition "
+            f"({dataset.n_train} train edges)")
+    train = tuple(np.asarray(col)[idx] for col in dataset.train)
+    return dataclasses.replace(dataset, train=train, train_partitioned=True)
+
+
+# ---------------------------------------------------------------------------
+# Training sampler
 
 
 class TrainSampler:

@@ -25,6 +25,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def rank_device(device=None, local_rank: int = 0) -> torch.device:
+    """The device of one rank of a --dist run: the CPU when asked for, else
+    the card cuda:{local_rank % device_count} (a bare "cuda" would be
+    cuda:0 in every rank).  Raises without a card, as resolve_device."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return dev
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
 def resolve_api_device(device=None) -> torch.device:
     """resolve_device for the inference API, which also takes the JAX
     package's (and dgl-ke's) integer gpu id as a compatibility value: an

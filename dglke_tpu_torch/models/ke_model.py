@@ -12,6 +12,12 @@ RESCAL with fp32 tables takes the gradient w.r.t. one vector per edge
 instead of its relation rows, and writes the relation update through the
 outer-product Adagrad kernel.  Head-corrupt and tail-corrupt steps
 alternate (``neg_head``).
+
+Under a parallel.mesh.ShardingPlan (--dist) each rank steps on its own
+slice of the global batch: its loss is scaled by its share of the global
+batch, entity rows come through the plan (K1 on the owner's shard under
+vocab sharding), and every update goes through the plan to the tables'
+owners or replicas (K2, and K3 on RESCAL's relation replicas).
 """
 
 from __future__ import annotations
@@ -58,10 +64,13 @@ class KEModel:
     themselves live in a TrainState."""
 
     def __init__(self, config: KGEConfig, n_entities: int, n_relations: int,
-                 device=None):
+                 device=None, plan=None):
         config.validate()
         self.config = config
-        self.device = resolve_device(device)
+        # a rank of a --dist run runs on its plan's device
+        self.plan = plan
+        self.device = (plan.device if plan is not None and device is None
+                       else resolve_device(device))
         self.n_entities = n_entities
         self.n_relations = n_relations
         self.score_fn, self.entity_dim, self.relation_dim = \
@@ -158,7 +167,8 @@ class KEModel:
                        neg_head: bool):
         """Loss and gradients w.r.t. the gathered rows.  Returns (loss,
         log, (ent_ids [3B+CK], ent_grads [3B+CK, De], rel_grads,
-        proj_grads or None)).  rel_grads is [B, Dr], or for RESCAL's
+        proj_grads or None)); under vocab sharding ent_ids is the
+        parallel.mesh.Route of the gather, which the update reuses.  rel_grads is [B, Dr], or for RESCAL's
         factored route the rank-1 factors ("outer", a [B, Dr], b [B, De])."""
         b = h.shape[0]
         # Chunk structure: the batch splits into C chunks of Bc positives,
@@ -168,8 +178,7 @@ class KEModel:
         neg_sample_size = neg.shape[0] // num_chunks
         # One entity gather for [h | t | neg]; the rows become leaves of
         # the autograd graph, so gradients stop at them.
-        ent_ids = torch.cat([h, t, neg])
-        ent_rows = gather_rows(state.entity, ent_ids, self.entity_dim)
+        ent_rows, ent_ids = self._gather_entity(state, torch.cat([h, t, neg]))
         rel_rows = gather_rows(state.relation, r, self.relation_dim)
         chunks = dict(b=b, num_chunks=num_chunks, chunk_size=chunk_size,
                       neg_sample_size=neg_sample_size, neg_head=neg_head)
@@ -182,6 +191,25 @@ class KEModel:
             loss, log, grads = self._rows_loss_and_grads(
                 ent_rows, rel_rows, proj_rows, impts, **chunks)
         return loss, log, (ent_ids,) + grads
+
+    def _gather_entity(self, state: TrainState, ids):
+        """fp32 entity rows at ``ids`` and what the update of those rows
+        takes: the ids, or under vocab sharding the plan's Route (the rows
+        gathered by K1 on their owners' shards)."""
+        if self.plan is not None and self.plan.vocab:
+            return self.plan.routed_gather(state.entity, ids,
+                                           self.entity_dim)
+        return gather_rows(state.entity, ids, self.entity_dim), ids
+
+    def _batch_share(self, loss, log):
+        """Under a plan, this rank's part of the global batch's mean loss
+        (and log values): each rank's mean scaled by 1/n, so that the
+        gradients summed over the ranks are those of the global mean.  The
+        regularization is a sum over rows and is not scaled."""
+        if self.plan is None or self.plan.n == 1:
+            return loss, log
+        share = 1.0 / self.plan.n
+        return loss * share, {k: v * share for k, v in log.items()}
 
     def _rows_loss_and_grads(self, ent_rows, rel_rows, proj_rows, impts, *,
                              b: int, num_chunks: int, chunk_size: int,
@@ -210,7 +238,8 @@ class KEModel:
                 pos, negs = checkpoint(scores, *leaves, use_reentrant=False)
             else:
                 pos, negs = scores(*leaves)
-            loss, log = self.loss_gen.get_total_loss(pos, negs, impts)
+            loss, log = self._batch_share(
+                *self.loss_gen.get_total_loss(pos, negs, impts))
             if cfg.regularization_coef > 0.0 and cfg.regularization_norm > 0:
                 # over the concatenated gathered rows, duplicates and
                 # negatives included
@@ -257,8 +286,8 @@ class KEModel:
                 tmp.reshape(num_chunks, chunk_size, -1),
                 ent_rows[2 * b:].reshape(num_chunks, neg_sample_size,
                                          -1).transpose(1, 2))
-            loss, log = self.loss_gen.get_total_loss(
-                pos, negs.reshape(-1, neg_sample_size), impts)
+            loss, log = self._batch_share(*self.loss_gen.get_total_loss(
+                pos, negs.reshape(-1, neg_sample_size), impts))
             if reg_on:
                 # entity rows only: the kernel applies the relation rows'
                 reg = regularization(cfg.regularization_coef,
@@ -290,8 +319,7 @@ class KEModel:
         _, log, (ent_ids, ent_grads, rel_grads, proj_grads) = \
             self.loss_and_grads(state, h, r, t, neg, impts,
                                 neg_head=neg_head)
-        sparse_adagrad_update(state.entity, ent_ids, ent_grads,
-                              self.config.lr)
+        self._update_entity(state, ent_ids, ent_grads)
         self._update_relation(state, r, rel_grads, proj_grads)
         state.step += 1
         return state, log
@@ -316,15 +344,36 @@ class KEModel:
     def flush_async(self, state: TrainState, pending) -> TrainState:
         """Apply a pending entity update; None launches nothing."""
         if pending is not None:
-            sparse_adagrad_update(state.entity, pending[0], pending[1],
-                                  self.config.lr)
+            self._update_entity(state, pending[0], pending[1])
         return state
+
+    def _update_entity(self, state: TrainState, ids, grads) -> None:
+        """The entity update of a step: K2 on this device's table, or
+        through the plan (to the owners' shards along the gather's Route,
+        or all-gathered onto every replica)."""
+        lr = self.config.lr
+        if self.plan is None:
+            sparse_adagrad_update(state.entity, ids, grads, lr)
+        elif self.plan.vocab:
+            self.plan.routed_update(state.entity, ids, grads, lr)
+        else:
+            self.plan.allgather_update(state.entity, ids, grads, lr)
 
     def _update_relation(self, state: TrainState, r, rel_grads,
                          proj_grads) -> None:
         """The relation update of a step (the outer-product kernel on
-        RESCAL's factored route) and TransR's projection update."""
+        RESCAL's factored route) and TransR's projection update.  Under a
+        plan every rank's (ids, gradients) are all-gathered first, in rank
+        order, and each replica applies them all."""
         cfg = self.config
+        if self.plan is not None:
+            gather = self.plan.allgather
+            r = gather(r)
+            rel_grads = (rel_grads[:1] + tuple(gather(x) for x in
+                                               rel_grads[1:])
+                         if isinstance(rel_grads, tuple)
+                         else gather(rel_grads))
+            proj_grads = None if proj_grads is None else gather(proj_grads)
         if isinstance(rel_grads, tuple) and rel_grads[0] == "outer":
             outer_adagrad_update(state.relation, r, rel_grads[1],
                                  rel_grads[2], cfg.lr,
@@ -347,7 +396,12 @@ class KEModel:
         (total count >= pos) - (count over the filtered list >= pos), with
         the true entity itself a member of the filtered list.  filter_ids:
         [B, F] padded entity ids of known true triples; filter_mask: [B, F]
-        nonzero for real entries.  Blocked over the entity axis."""
+        nonzero for real entries.  Blocked over the entity axis.  On a
+        vocab-sharded table, eval_ranks_sharded."""
+        if self.plan is not None and self.plan.vocab:
+            return self.eval_ranks_sharded(state, h, r, t, filter_ids,
+                                           filter_mask, neg_head=neg_head,
+                                           block=block)
         b = h.shape[0]
         if block is None:
             block = self._eval_block_size(b)
@@ -385,6 +439,40 @@ class KEModel:
                                             neg_head=neg_head)
         return torch.clamp(counts, min=0) + 1
 
+    @torch.no_grad()
+    def eval_ranks_sharded(self, state: TrainState, h, r, t, filter_ids,
+                           filter_mask, *, neg_head: bool,
+                           block: Optional[int] = None) -> torch.Tensor:
+        """eval_ranks on a vocab-sharded entity table (JAX:
+        _sharded_eval_group_fn): every rank holds the same batch, gathers
+        its positive side through the plan's routed gather, scores ITS OWN
+        rows in contiguous blocks and counts the scores that reach each
+        positive (padded rows and the tail block's re-covered rows masked),
+        minus the filter hits on its shard; one all-reduce of the [B]
+        counts gives ranks identical to one device's.  Only the counts
+        cross ranks."""
+        plan = self.plan
+        b = h.shape[0]
+        pos, side, rel_rows, proj_rows = self._eval_pos_side(
+            state, h, r, t, neg_head=neg_head)
+        per, offset = plan.per, plan.lo
+        block = min(block or self._eval_block_size(b), per)
+        dev = pos.device
+        counts = torch.zeros(b, dtype=torch.int64, device=dev)
+        lrow = filter_ids.to(torch.int64) - offset   # filter row on the shard
+        for start in range(0, per, block):
+            cs = min(start, per - block)
+            cand = state.entity.emb[cs:cs + block, :self.entity_dim].float()
+            gids = cs + torch.arange(block, device=dev)
+            valid = (gids >= start) & (offset + gids < self.n_entities)
+            local = lrow - cs
+            in_blk = (lrow >= start) & (local < block) & (filter_mask > 0)
+            counts += self._block_ge_counts(pos, side, rel_rows, proj_rows,
+                                            cand, valid, local, in_blk,
+                                            neg_head=neg_head)
+        counts = plan.allreduce_counts(counts)
+        return torch.clamp(counts, min=0) + 1
+
     def _eval_block_size(self, b: int) -> int:
         """Candidate tile width for block-streamed full-entity eval."""
         if self.score_fn.name in ("TransE_l2", "DistMult", "ComplEx",
@@ -400,8 +488,13 @@ class KEModel:
         """(pos [B], side rows [B, D], rel rows, TransR's projection rows
         or None) in fp32: the positive score is the ranking threshold, so
         bf16 tables are upcast first.  TransR's side rows come projected."""
-        h_rows = gather_rows(state.entity, h, self.entity_dim)
-        t_rows = gather_rows(state.entity, t, self.entity_dim)
+        if self.plan is not None and self.plan.vocab:
+            # one routed gather for both sides
+            ht = self._gather_entity(state, torch.cat([h, t]))[0]
+            h_rows, t_rows = ht[:h.shape[0]], ht[h.shape[0]:]
+        else:
+            h_rows = gather_rows(state.entity, h, self.entity_dim)
+            t_rows = gather_rows(state.entity, t, self.entity_dim)
         rel_rows = gather_rows(state.relation, r, self.relation_dim)
         proj_rows = (gather_rows(state.projection, r, self.proj_dim)
                      if self.is_transr else None)
@@ -459,7 +552,7 @@ class KEModel:
         relation rows."""
         n = h.numel()
         ids = torch.cat([h.reshape(-1), t.reshape(-1), neg.reshape(-1)])
-        ent = gather_rows(state.entity, ids, self.entity_dim)
+        ent = self._gather_entity(state, ids)[0]
         rel_rows = gather_rows(state.relation, r.reshape(-1),
                                self.relation_dim)
         proj_rows = (gather_rows(state.projection, r.reshape(-1),
@@ -542,9 +635,9 @@ class KEModel:
         tables too (the JAX package scores a bf16 table in bf16)."""
         sf = self.score_fn
         b, k = cand_ids.shape
-        ent = gather_rows(state.entity, torch.cat(
+        ent = self._gather_entity(state, torch.cat(
             [h.reshape(-1).to(torch.int64), cand_ids.reshape(-1).to(
-                torch.int64)]), self.entity_dim)
+                torch.int64)]))[0]
         h_rows, cand = ent[:b], ent[b:]
         rel_rows = gather_rows(state.relation, r, self.relation_dim)
         if self.is_transr:

@@ -10,6 +10,13 @@ negatives (--neg_sample_size_eval), or against a candidate list
 (step/max) average loss: ..." every log_interval; "[0]Test average MRR:
 ...") so existing tooling can parse it.  With --mix_cpu_gpu both loops go
 to host_table.py, whose tables stay in host memory.
+
+Under a parallel.mesh.ShardingPlan (--dist) every rank runs its own
+device pipeline over its own edge partition, ``batch_size`` rows a step
+(the global batch is rank 0's rows, then rank 1's, ...), and logs on rank
+0 only.  Eval over a vocab-sharded table ranks the same batches on every
+rank and gives every rank the global metrics; over replicated tables each
+rank ranks its stride of the split and the partial sums are combined.
 """
 
 from __future__ import annotations
@@ -42,6 +49,10 @@ _PERM_TAG = 0x7065726D    # 'perm'
 _NEG_TAG = 0x6E656753     # 'negS'
 
 
+def _quiet(*args, **kwargs) -> None:
+    pass
+
+
 def _stream_seed(*words: int) -> int:
     """A 64-bit generator seed hashed from integer words."""
     return int(np.random.SeedSequence(list(words)).generate_state(
@@ -60,7 +71,7 @@ class DevicePipeline:
     batch."""
 
     def __init__(self, model: KEModel, dataset: KGDataset, batch_size: int,
-                 neg_total: int, seed: int = 0):
+                 neg_total: int, seed: int = 0, rank: int = 0):
         self.device = model.device
         self.n_edges = dataset.n_train
         if self.n_edges < batch_size:
@@ -77,6 +88,9 @@ class DevicePipeline:
         self.b = batch_size
         self.neg_total = neg_total
         self.seed = seed
+        # a rank's streams are seeded from (seed, rank); rank 0's are the
+        # single-device streams
+        self.rank_words = (rank,) if rank else ()
         self.neg_gen = torch.Generator(self.device)
         self.epoch = 0
         self.cur = self._permutation(0)
@@ -86,7 +100,8 @@ class DevicePipeline:
 
     def _permutation(self, epoch: int) -> torch.Tensor:
         gen = torch.Generator(self.device)
-        gen.manual_seed(_stream_seed(self.seed, _PERM_TAG, epoch))
+        gen.manual_seed(_stream_seed(self.seed, _PERM_TAG, epoch,
+                                     *self.rank_words))
         return torch.randperm(self.n_edges, generator=gen,
                               device=self.device)
 
@@ -106,7 +121,8 @@ class DevicePipeline:
             self.nxt = self._permutation(self.epoch + 1)
         h, r, t = self.triples[:, idx]
         self.neg_gen.manual_seed(_stream_seed(self.seed, _NEG_TAG,
-                                              self.step_idx))
+                                              self.step_idx,
+                                              *self.rank_words))
         neg = torch.randint(0, self.model.n_entities, (self.neg_total,),
                             generator=self.neg_gen, device=self.device,
                             dtype=torch.int32)
@@ -191,7 +207,7 @@ def train(config: KGEConfig, dataset: KGDataset,
           model: Optional[KEModel] = None,
           state: Optional[TrainState] = None,
           valid_samplers: Optional[list] = None,
-          save_fn=None, log=print, device=None) -> tuple:
+          save_fn=None, log=print, device=None, plan=None) -> tuple:
     """Run the training loop for config.max_step steps; returns (model,
     state, stats).  Runs on the card unless ``device="cpu"`` (or a model
     on the CPU) is given.
@@ -200,10 +216,24 @@ def train(config: KGEConfig, dataset: KGDataset,
     pipeline, a smaller one by the host-fed TrainSampler, as in the JAX
     package.  Steps run in groups of ``steps_per_group``; with
     --async_update each step's entity update is applied after the next
-    step's gather, and the group's last one at its end."""
+    step's gather, and the group's last one at its end.
+
+    ``plan``: this rank's parallel.mesh.ShardingPlan (--dist); ``dataset``
+    is then this rank's edge partition, and ``model`` (built with the
+    plan when omitted) steps through it.  Every rank takes max_step steps
+    of batch_size rows from its own device pipeline, seeded from (seed,
+    rank); a partition under one batch is refused, and the host-fed route
+    does not run.  The step group is agreed on the smallest partition."""
     cfg = config
     model = model or KEModel(cfg, dataset.n_entities, dataset.n_relations,
-                             device=device)
+                             device=device, plan=plan)
+    if plan is not None and model.plan is not plan:
+        raise ValueError("train(plan=...) needs a model built with the "
+                         "same plan")
+    if cfg.mix_cpu_gpu and plan is not None:
+        raise ValueError("--mix_cpu_gpu keeps tables in one host's memory; "
+                         "it is incompatible with a ShardingPlan (drop one "
+                         "of the two)")
     if cfg.mix_cpu_gpu:
         # host-resident tables (the reference's --mix_cpu_gpu,
         # train.py:46-49): capacity is host memory, and the step's kernels
@@ -212,15 +242,32 @@ def train(config: KGEConfig, dataset: KGDataset,
         return train_host(cfg, dataset, model=model, state=state,
                           valid_samplers=valid_samplers, save_fn=save_fn,
                           log=log)
+    n_train = dataset.n_train
+    rank = 0
+    if plan is not None:
+        rank = plan.rank
+        if rank != 0:
+            log = _quiet   # logs on rank 0 only
+        # every rank must agree on the step group: the smallest partition
+        n_train = int(plan.comm.all_reduce(torch.tensor(
+            [n_train], dtype=torch.int64), op="min")[0])
+        if n_train < cfg.batch_size:
+            raise ValueError(
+                f"--dist: a rank's edge partition holds {n_train} edges, "
+                f"under one batch of {cfg.batch_size}; use fewer ranks or "
+                f"a smaller batch_size")
     if state is None:
-        state = model.init_state()
-    device_route = dataset.n_train >= 2 * cfg.batch_size
-    s = steps_per_group(cfg, dataset.n_train, device_route, log=log)
+        state = (plan.init_state(model) if plan is not None
+                 else model.init_state())
+    device_route = plan is not None or n_train >= 2 * cfg.batch_size
+    s = steps_per_group(cfg, n_train, device_route, log=log)
     if device_route:
         feed = DevicePipeline(model, dataset, cfg.batch_size,
                               cfg.num_chunks * cfg.neg_sample_size,
-                              seed=cfg.seed)
-        log(f"[proc 0]device-resident pipeline: {s} steps a group")
+                              seed=cfg.seed, rank=rank)
+        log(f"[proc 0]device-resident pipeline: {s} steps a group"
+            + (f", {plan.n} ranks x {cfg.batch_size} rows a step"
+               if plan is not None else ""))
     else:
         feed = HostFeed(model, dataset, cfg.batch_size, cfg.neg_sample_size,
                         seed=cfg.seed)
@@ -233,8 +280,13 @@ def train(config: KGEConfig, dataset: KGDataset,
 
     def flush_logs(step):
         nonlocal logs, tic
-        for k in logs[0]:
-            v = torch.stack([entry[k] for entry in logs]).mean().item()
+        keys = list(logs[0])
+        means = torch.stack([torch.stack([entry[k] for entry in logs]).mean()
+                             for k in keys])
+        if plan is not None:
+            # each rank logged its part of the global batch's values
+            means = plan.comm.all_reduce(means)
+        for k, v in zip(keys, means.tolist()):
             log(f"[proc 0][Train]({step}/{cfg.max_step}) average {k}: {v}")
         logs = []
         log(f"[proc 0][Train] {cfg.log_interval} steps take "
@@ -265,7 +317,8 @@ def train(config: KGEConfig, dataset: KGDataset,
         if (cfg.valid and valid_samplers is not None
                 and crossed(step, prev, cfg.eval_interval)):
             valid_metrics = evaluate_with_samplers(
-                model, state, valid_samplers, phase="Valid", log=log)
+                model, state, valid_samplers, phase="Valid", log=log,
+                plan=plan)
         if (save_fn is not None and cfg.save_interval > 0
                 and crossed(step, prev, cfg.save_interval)):
             save_fn(state, step)
@@ -282,35 +335,65 @@ def train(config: KGEConfig, dataset: KGDataset,
 def evaluate(config: KGEConfig, dataset: KGDataset, model: KEModel,
              state: TrainState, split: str = "test",
              filter_index: Optional[FilterIndex] = None,
-             log=print, phase: str = "Test") -> Dict[str, float]:
+             log=print, phase: str = "Test", plan=None) -> Dict[str, float]:
     """Filtered (or raw) ranking over both corrupt modes, against every
     entity or, with 0 < neg_sample_size_eval < n_entities, against sampled
     negatives: every eval triple is ranked under head-corruption AND
     tail-corruption, and the metrics average over both.  Host-resident
-    tables (a host_table.HostState) take host_table.evaluate_host."""
+    tables (a host_table.HostState) take host_table.evaluate_host.
+
+    Under a ``plan``: with a vocab-sharded table every rank ranks the same
+    batches (the table axis is what is split) and computes the global
+    metrics; with replicated tables each rank ranks its stride of the
+    split and combine_rank_metrics adds the ranks' partial sums.  The
+    filter must come from the whole train split, never a partition."""
     cfg = config
     if getattr(state, "is_host", False):
         from dglke_tpu_torch.host_table import evaluate_host
         return evaluate_host(cfg, dataset, model, state, split,
                              filter_index=filter_index, log=log, phase=phase)
     if cfg.eval_filter and filter_index is None:
+        if getattr(dataset, "train_partitioned", False):
+            raise ValueError(
+                "filtered eval on a rank's edge partition: the filter would "
+                "cover only this rank's train slice; build FilterIndex from "
+                "the whole dataset and pass it as filter_index")
         filter_index = FilterIndex(dataset)
+    rank, ranks = ((plan.rank, plan.n) if plan is not None and not plan.vocab
+                   else (0, 1))
     samplers = [
         EvalSampler(dataset, split, cfg.batch_size_eval, mode,
                     filter_index if cfg.eval_filter else None,
-                    eval_percent=cfg.eval_percent, seed=cfg.seed,
+                    eval_percent=cfg.eval_percent, rank=rank, ranks=ranks,
+                    seed=cfg.seed,
                     neg_sample_size=cfg.neg_sample_size_eval,
                     neg_deg_sample=cfg.neg_deg_sample_eval)
         for mode in ("head", "tail")
     ]
     return evaluate_with_samplers(model, state, samplers, phase=phase,
-                                  log=log)
+                                  log=log, plan=plan)
 
 
-def combine_rank_metrics(ranks: np.ndarray,
-                         empty_msg: str) -> Dict[str, float]:
-    """MRR/MR/HITS@{1,3,10} from one process's rank array."""
+def combine_rank_metrics(ranks: np.ndarray, empty_msg: str,
+                         plan=None) -> Dict[str, float]:
+    """MRR/MR/HITS@{1,3,10} from this process's rank array.
+
+    Under a replicated plan of several ranks each rank ranked its own
+    stride, so six float64 partial sums (count, sum of ranks, of 1/rank,
+    HITS@1/3/10) are all-gathered and added (JAX trainer.py:433-460); an
+    empty stride joins with zeros.  Otherwise the local ranks are the
+    global ones.  No rank at all raises ``empty_msg``."""
     r = np.asarray(ranks, np.float64)
+    if plan is not None and not plan.vocab and plan.n > 1:
+        local = torch.tensor([r.size, r.sum(), (1.0 / r).sum(),
+                              (r <= 1).sum(), (r <= 3).sum(),
+                              (r <= 10).sum()], dtype=torch.float64)
+        tot = plan.comm.all_gather(local[None]).sum(0).tolist()
+        if tot[0] == 0:
+            raise ValueError(empty_msg)
+        return {"MRR": tot[2] / tot[0], "MR": tot[1] / tot[0],
+                "HITS@1": tot[3] / tot[0], "HITS@3": tot[4] / tot[0],
+                "HITS@10": tot[5] / tot[0]}
     if r.size == 0:
         raise ValueError(empty_msg)
     return metrics_from_ranks(r)
@@ -322,15 +405,17 @@ SAMPLED_GROUP = 32
 
 
 def evaluate_with_samplers(model: KEModel, state: TrainState, samplers,
-                           phase: str = "Test",
-                           log=print) -> Dict[str, float]:
+                           phase: str = "Test", log=print,
+                           plan=None) -> Dict[str, float]:
     """Rank every batch of every sampler: against all entities, against
     its sampled negatives (groups of SAMPLED_GROUP batches a call), or, for
-    one CandidateEvalSampler, among its candidates (Valid-mode metrics)."""
+    one CandidateEvalSampler, among its candidates (Valid-mode metrics).
+    Under a plan the metrics are global and logged by every rank, each
+    with its own index ("[1]Test average MRR: ..." on rank 1)."""
     if any(isinstance(s, CandidateEvalSampler) for s in samplers):
         (sampler,) = samplers
         return evaluate_candidates(model, state, sampler, mode="Valid",
-                                   log=log)
+                                   log=log, plan=plan)
     start = time.time()
     ranks = []
     for sampler in samplers:
@@ -348,10 +433,11 @@ def evaluate_with_samplers(model: KEModel, state: TrainState, samplers,
              else np.zeros((0,), np.int64))
     metrics = combine_rank_metrics(
         ranks, "evaluation saw zero edges (empty eval split, or "
-        "eval_percent too small)")
+        "eval_percent too small)", plan)
+    proc = 0 if plan is None else plan.rank
     for k, v in metrics.items():
-        log(f"[0]{phase} average {k}: {v}")
-    log(f"[0]{phase} takes {time.time() - start:.3f} seconds")
+        log(f"[{proc}]{phase} average {k}: {v}")
+    log(f"[{proc}]{phase} takes {time.time() - start:.3f} seconds")
     return metrics
 
 
@@ -394,31 +480,41 @@ class CandidateEvalSampler:
     """The candidate-list split of a wikikg90M-style dataset: queries (h, r)
     [N, 2], each with its candidates [N, K] and, where the split has them,
     the answer's position among them [N] (the reference's
-    WikiEvalSampler).  Ranked batch_size queries a call."""
+    WikiEvalSampler).  Ranked batch_size queries a call; (rank, ranks)
+    strides the split (replicated tables under --dist)."""
 
-    def __init__(self, edges: dict, batch_size: int):
+    def __init__(self, edges: dict, batch_size: int, rank: int = 0,
+                 ranks: int = 1):
         d = edges["h,r->t"]
-        self.hr = np.asarray(d["hr"], np.int32)
-        self.ans = (np.asarray(d["t_correct_index"], np.int32)
+        sl = slice(rank, None, ranks)
+        self.hr = np.asarray(d["hr"], np.int32)[sl]
+        self.ans = (np.asarray(d["t_correct_index"], np.int32)[sl]
                     if "t_correct_index" in d else None)
-        self.cand = np.asarray(d["t_candidate"], np.int32)
+        self.cand = np.asarray(d["t_candidate"], np.int32)[sl]
         self.batch_size = batch_size
 
 
 def evaluate_candidates(model: KEModel, state: TrainState,
                         sampler: CandidateEvalSampler, mode: str = "Valid",
                         save_path: Optional[str] = None,
-                        log=print) -> Optional[Dict[str, float]]:
+                        log=print, plan=None) -> Optional[Dict[str, float]]:
     """Candidate-list eval.  Valid mode: MRR/MR/HITS from each answer's
     rank among its candidates (candidate_ranks: the answer counts itself,
     so the best rank is 2).  Test mode: each query's top-10 candidate
-    positions (candidate_top) into save_path/test_0.pkl, the reference's
-    layout {"h,r->t": {"t_pred_top10": [N, min(10, K)] int32, and
-    "t_correct_index" [N] where the split has answers}}."""
+    positions (candidate_top) into save_path/test_{rank}.pkl, the
+    reference's layout {"h,r->t": {"t_pred_top10": [N, min(10, K)] int32,
+    and "t_correct_index" [N] where the split has answers}}.
+
+    Under a plan: over replicated tables the sampler holds this rank's
+    stride, the Valid metrics add the ranks' partial sums, and each rank
+    writes its stride; over a vocab-sharded table every rank ranks every
+    query (the candidates' rows come through the routed gather) and
+    writes the stride rank::n of the predictions, the same files."""
     if mode == "Valid" and sampler.ans is None:
         raise ValueError(
             "Valid-mode candidate eval needs answer indices "
             "(t_correct_index missing from the candidate split)")
+    rank = 0 if plan is None else plan.rank
     dev = model.device
     b = sampler.batch_size
     n_cand = sampler.cand.shape[1]
@@ -436,16 +532,18 @@ def evaluate_candidates(model: KEModel, state: TrainState,
         ranks = (torch.cat(out).cpu().numpy() if out
                  else np.zeros((0,), np.int64))
         metrics = combine_rank_metrics(
-            ranks, "candidate evaluation saw zero queries")
+            ranks, "candidate evaluation saw zero queries", plan)
         for k, v in metrics.items():
-            log(f"[0]{mode} average {k}: {v}")
+            log(f"[{rank}]{mode} average {k}: {v}")
         return metrics
     top10 = (torch.cat(out).cpu().numpy().astype(np.int32) if out
              else np.zeros((0, min(10, n_cand)), np.int32))
-    result = {"h,r->t": {"t_pred_top10": top10}}
+    sl = (slice(rank, None, plan.n) if plan is not None and plan.vocab
+          else slice(None))
+    result = {"h,r->t": {"t_pred_top10": top10[sl]}}
     if sampler.ans is not None:
-        result["h,r->t"]["t_correct_index"] = sampler.ans
+        result["h,r->t"]["t_correct_index"] = sampler.ans[sl]
     if save_path:
-        with open(os.path.join(save_path, "test_0.pkl"), "wb") as f:
+        with open(os.path.join(save_path, f"test_{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
     return None

@@ -2,8 +2,11 @@
 (train, eval, predict, emb_sim, convert), found by introspecting both
 parsers, and means the same value; the flags that select nothing on one
 device print the JAX package's NOTE lines, and the modes the port does not
-run are refused with their ROADMAP item.  examples/freebase.sh's command
-lines (--table_sharding vocab) parse and pass the refusals.
+run are refused with their ROADMAP item.  The modes ported since they were
+first refused (--mix_cpu_gpu; --dist, --sharded_ckpt, --partition_path)
+are accepted, and --dist with --mix_cpu_gpu is refused before anything
+runs, as in the JAX package.  examples/freebase.sh's command lines
+(--table_sharding vocab) parse and pass the refusals.
 """
 
 import argparse
@@ -117,25 +120,34 @@ def test_inert_flags_print_one_note(flags):
 
 
 # Modes ported since they were first refused: accepted, with their NOTE
-# line (None: ported, and not refused).
-PORTED = {"--mix_cpu_gpu": "--mix_cpu_gpu keeps tables in host memory"}
+# line (None: no line) and the config field they set, if any.
+PORTED = {"--mix_cpu_gpu": ("--mix_cpu_gpu keeps tables in host memory",
+                            "mix_cpu_gpu"),
+          "--dist": (None, None),
+          "--sharded_ckpt": (None, None),
+          "--partition_path": ("--partition_path only takes effect with "
+                               "--dist", None)}
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--partition_path", "parts"), "A11"),
-    (("--dist",), "A11"),
-    (("--sharded_ckpt",), "A11"),
+    (("--partition_path", "parts"), None),
+    (("--dist",), None),
+    (("--sharded_ckpt",), None),
     (("--mix_cpu_gpu",), None),
     (("--profile", "trace"), "A6b"),
     (("--compute_dtype", "bfloat16"), "§C, deliberate"),
 ], ids=lambda f: f[0] if isinstance(f, tuple) else None)
 def test_unported_train_flags_are_refused(flags, item):
     if flags[0] in PORTED:
+        note, field = PORTED[flags[0]]
         lines = []
         pargs.refuse_unported(_train_args(*flags))
         pargs.warn_inert_flags(_train_args(*flags), log=lines.append)
-        assert len(lines) == 1 and PORTED[flags[0]] in lines[0], lines
-        assert pargs.config_from_args(_train_args(*flags)).mix_cpu_gpu
+        assert lines == [] if note is None else (
+            len(lines) == 1 and note in lines[0]), lines
+        if field is not None:
+            assert getattr(pargs.config_from_args(_train_args(*flags)),
+                           field)
         return
     with pytest.raises(SystemExit, match=f"ROADMAP item {item}"):
         pargs.refuse_unported(_train_args(*flags))
@@ -143,16 +155,18 @@ def test_unported_train_flags_are_refused(flags, item):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--mix_cpu_gpu",), None), (("--dist",), "A11"),
+    (("--mix_cpu_gpu",), None), (("--dist",), None),
     (("--compute_dtype", "bfloat16"), "§C, deliberate")],
     ids=lambda f: f[0] if isinstance(f, tuple) else None)
 def test_unported_eval_flags_are_refused(monkeypatch, tmp_path, flags, item):
     if flags[0] in PORTED:
-        # accepted: the eval goes on to read its dataset
+        # accepted: the eval goes on to start its rank (--dist) or to read
+        # its dataset
         def reached(*a, **k):
             raise _Parsed
 
         monkeypatch.setattr(peval, "get_dataset", reached)
+        monkeypatch.setattr(peval, "init_distributed", reached)
         with pytest.raises(_Parsed):
             peval.main(["--model_path", str(tmp_path), "--device", "cpu",
                         *flags])
@@ -185,3 +199,47 @@ def test_freebase_example_lines_parse(i):
     assert notes == ["NOTE: --table_sharding vocab has no effect on one "
                      "device"]
     assert pargs.config_from_args(args).model_name == args.model_name
+
+
+@pytest.mark.parametrize("cli", ["train", "eval"])
+def test_dist_with_mix_cpu_gpu_is_refused_before_anything_runs(
+        monkeypatch, tmp_path, cli):
+    """The JAX package's refusal (cli/train.py:42-49): host tables live in
+    one host's memory.  Refused before the process group starts."""
+    def started(*a, **k):
+        raise AssertionError("the rank started")
+
+    main = {"train": ptrain, "eval": peval}[cli]
+    monkeypatch.setattr(main, "init_distributed", started)
+    argv = ["--dist", "--mix_cpu_gpu", "--device", "cpu"]
+    if cli == "eval":
+        argv += ["--model_path", str(tmp_path)]
+    with pytest.raises(SystemExit, match="--mix_cpu_gpu is a single-host "
+                                         "mode"):
+        main.main(argv)
+
+
+def test_dist_notes_are_not_printed_under_dist():
+    """--rel_part, --table_sharding vocab and --partition_path select
+    something under --dist: no NOTE there."""
+    lines = []
+    pargs.warn_inert_flags(_train_args(
+        "--dist", "--rel_part", "--table_sharding", "vocab",
+        "--partition_path", "parts"), log=lines.append)
+    assert lines == []
+    cfg = pargs.config_from_args(_train_args("--dist", "--rel_part",
+                                             "--table_sharding", "vocab"))
+    assert (cfg.rel_part, cfg.table_sharding) == (True, "vocab")
+
+
+def test_dist_save_interval_needs_sharded_ckpt(monkeypatch, tmp_path):
+    """--save_interval under --dist of several ranks requires
+    --sharded_ckpt (the JAX package's cli/train.py:203-208), refused once
+    the rank knows the world size, before any dataset is read."""
+    import types
+    comm = types.SimpleNamespace(world=2, device=None, close=lambda: None)
+    monkeypatch.setattr(ptrain, "init_distributed", lambda device: comm)
+    with pytest.raises(SystemExit, match="requires --sharded_ckpt"):
+        ptrain.main(["--dist", "--device", "cpu", "--save_interval", "10",
+                     "--save_path", str(tmp_path)])
+    assert not os.listdir(tmp_path)

@@ -21,6 +21,7 @@ from dglke_tpu_torch.models.infer import EmbSimInfer, InferModel
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.ops import outer_update, rows
 from dglke_tpu_torch.ops.embedding import EmbeddingState
+from dglke_tpu_torch.parallel.mesh import init_distributed
 from dglke_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
 torch.set_num_threads(2)
@@ -73,6 +74,10 @@ def _ds():
                              n_valid=10, n_test=10)
 
 
+_DIST_ENV = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1", "RANK": "0",
+             "WORLD_SIZE": "2"}
+
+
 def _state_arrays():
     from dglke_tpu_torch.utils.convert import NumpyState, NumpyTable
     t = NumpyTable(np.zeros((5, 4), np.float32), np.zeros(5, np.float32))
@@ -92,6 +97,9 @@ ENTRY_POINTS = {
     # the JAX package's gpu id -1 selects the card all the same
     "InferModel": lambda: InferModel(_cfg(), device=-1),
     "EmbSimInfer": lambda: EmbSimInfer(-1, "entity.npy"),
+    # a --dist rank: its device is a card unless the CPU is asked for
+    "rank_device": lambda: pt_device.rank_device(None, local_rank=1),
+    "init_distributed": lambda: init_distributed(environ=_DIST_ENV),
 }
 
 
@@ -119,6 +127,34 @@ def test_entry_points_run_on_the_cpu_when_asked(no_gpu):
     assert model.device.type == "cpu"
     state = state_from_numpy(_state_arrays(), device="cpu")
     assert state_to_numpy(state).entity.emb.shape == (5, 4)
+    assert pt_device.rank_device("cpu", local_rank=3).type == "cpu"
+
+
+def test_dist_layout_is_chosen_without_fallback(monkeypatch):
+    """The backend follows from the layout: the CPU takes gloo; ranks on
+    cards of their own NCCL, ranks sharing a card gloo (host-staged);
+    the rank's card is cuda:{LOCAL_RANK % device_count}."""
+    from dglke_tpu_torch.parallel import mesh
+    assert mesh.choose_layout("cpu", 0, 2)[1] == "gloo"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
+                        torch.backends.cudnn.allow_tf32)
+    dev, backend, layout = mesh.choose_layout("cuda", 1, 2)
+    assert (str(dev), backend, layout) == ("cuda:1", "nccl",
+                                           "one card a rank")
+    dev, backend, layout = mesh.choose_layout("cuda", 3, 4)
+    assert (str(dev), backend, layout) == ("cuda:1", "gloo",
+                                           "2 ranks share cuda:1")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert mesh.choose_layout("cuda", 1, 2)[1:] == (
+        "gloo", "2 ranks share cuda:0")
+    with pytest.raises(SystemExit, match="MASTER_PORT, RANK"):
+        mesh.DistEnv.from_environ({"MASTER_ADDR": "h", "WORLD_SIZE": "2"})
+    env = mesh.DistEnv.from_environ(dict(_DIST_ENV, LOCAL_RANK="1"))
+    assert (env.rank, env.world, env.local_rank, env.local_world) == (
+        0, 2, 1, 2)
 
 
 def test_kernel_module_runs_on_the_cpu_without_nvcc(monkeypatch):

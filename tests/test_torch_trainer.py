@@ -211,16 +211,27 @@ def test_bf16_checkpoint_round_trip(tmp_path):
 
 
 # The modes the port does not run yet are refused with their ROADMAP item;
-# --async_update, sampled eval (--neg_sample_size_eval) and host-resident
-# tables (--mix_cpu_gpu), ported since, are accepted and run.
-PORTED = {"--async_update", "--neg_sample_size_eval", "--mix_cpu_gpu"}
+# --async_update, sampled eval (--neg_sample_size_eval), host-resident
+# tables (--mix_cpu_gpu), --dist and --sharded_ckpt, ported since, are
+# accepted and run (--dist here as one rank of a gloo group on the CPU).
+PORTED = {"--async_update", "--neg_sample_size_eval", "--mix_cpu_gpu",
+          "--dist", "--sharded_ckpt"}
 
 
 @pytest.mark.parametrize("flags", [
     ["--dist"], ["--mix_cpu_gpu"], ["--async_update"], ["--sharded_ckpt"],
     ["--neg_sample_size_eval", "10"]], ids=lambda f: f[0].lstrip("-"))
-def test_cli_refuses_unported_modes(raw_udd, tmp_path, flags, capsys):
+def test_cli_refuses_unported_modes(raw_udd, tmp_path, flags, capsys,
+                                    monkeypatch):
+    import socket
     argv = _cli(raw_udd, str(tmp_path), "--device", "cpu", "--test", *flags)
+    if flags[0] == "--dist":
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", port),
+                     ("RANK", 0), ("WORLD_SIZE", 1)):
+            monkeypatch.setenv(k, str(v))
     if flags[0] not in PORTED:
         with pytest.raises(SystemExit, match="ROADMAP item"):
             train_main(argv)
