@@ -42,6 +42,20 @@ Phases (any failure exits non-zero and prints no result line):
      EXPECTED_LAUNCHES; then two flagship steps on the card against the
      CPU's plain path; then a flagship step on the host clock, and under
      torch.profiler the device's busy share and the kernels by device time;
+  3b. --compute_dtype bfloat16: the flagship through the CLI with the flag
+     (the same 1,000 steps, data and eval; launch counts those of the fp32
+     run; the tables fp32), its test MRR and HITS@10 beside the fp32
+     run's; RESCAL with the flag (BF16_RESCAL_STEPS steps, the stock route:
+     K3 never, K2 on the 250,000-wide relation rows); the step profiles of
+     both beside their fp32 ones; one bf16 step of TransE_l2, RESCAL and
+     TransR (examples/fb15k.sh, hidden 200) in each direction against the
+     CPU's on the same tables, at the CPU test's bf16 tolerances;
+  3c. --profile: the flagship through dglke_tpu_torch-train --profile DIR,
+     200 steps: the Chrome trace parses, holds the steps [2s, 4s) and
+     lists K1, the grouping and K2 by their CUDA names as many times as
+     those steps x their launches a step; the tables bit-equal to the same
+     run's without --profile (a trace with no device event is taken once
+     more);
   4. the same CLI run with --async_update (launch counts held), and a
      dataset smaller than two batches (1,500 train edges at batch 1,000)
      through the CLI, which must take the host-fed route, launch K1, the
@@ -104,7 +118,16 @@ Phases (any failure exits non-zero and prints no result line):
      ranks of all three identical.  Two host steps on the card against the
      CPU; the host step profile;
   7. the planted quality gate of every family on the card (MRR >= 0.85,
-     HITS@10 >= 0.99, the JAX package's calibrated configs);
+     HITS@10 >= 0.99, the JAX package's calibrated configs), in fp32 and
+     with --compute_dtype bfloat16, side by side;
+  7d. beside phase 7, in a process of its own on the host (``--ldg-worker``):
+     the native LDG partitioner at Freebase scale, planted_line_big with
+     86,054,152 entities and 344,214,592 train edges, k = 4, twice: every
+     node assigned, no part over 1.5 n / k, the cut recounted equal and
+     below a random assignment's, the two runs bit-equal; after phase 7c,
+     dglke_tpu_torch-partition -k 2 (native LDG) on the flagship-shaped
+     data and dglke_tpu_torch-train --dist --partition_path on two ranks
+     sharing the card, launches exact on each;
   7c. multi-device training (--dist): the card has to hold every rank, and
      NCCL takes one rank a card, so two rank processes of this script
      share cuda:0 over host-staged gloo (``--dist-worker``; torch's
@@ -113,7 +136,7 @@ Phases (any failure exits non-zero and prints no result line):
      the flagship shapes and at RESCAL's (K3 on every replica) against
      one device's step on the 2,000-row global batch, replicas bit-equal
      across ranks; the flagship under --dist on 2 ranks x batch 1,000,
-     each plan, 500 steps and the filtered test eval, the metrics of both
+     each plan, 200 steps and the filtered test eval, the metrics of both
      ranks equal to one device's dglke_tpu_torch-eval of the npy
      checkpoint written through rank 0; RESCAL under --dist (vocab), 100
      steps; ogbl-wikikg2 at full width (2,500,604 x 500, 2.5 GB a rank)
@@ -150,6 +173,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1239,10 +1263,12 @@ def run_cli(label: str, argv: list, trained=None):
 
 
 def phase_main_path(recipe: dict, batch_size_eval: int,
-                    steps: int = MAIN_STEPS, extra=(), label=None):
+                    steps: int = MAIN_STEPS, extra=(), label=None,
+                    metrics=None):
     """dglke_tpu_torch-train on the card with the recipe's flags (and
     ``extra``) on the FB15k-shaped data, 1,000 steps and --test; returns the
-    launch counts of that run only."""
+    launch counts of that run only.  ``metrics``, a dict, receives the test
+    MRR and HITS@10 and the triples/s under ``label``."""
     name = recipe["model_name"]
     label = label or name
     argv = ["--dataset", "fb15k_shaped",
@@ -1265,6 +1291,10 @@ def phase_main_path(recipe: dict, batch_size_eval: int,
           f"{steps * BATCH / train_s[0]:.1f} triples/s (host clock over the "
           f"whole loop, first step included), test eval {eval_s[0]:.3f} s, "
           f"MRR {mrr[0]!r}, last loss {losses[-1]:.4f}; launches {counts}")
+    if metrics is not None:
+        metrics[label] = (mrr[0], _floats(r"\[0\]Test average HITS@10: "
+                                          r"(\S+)", text)[0],
+                          steps * BATCH / train_s[0])
     return counts
 
 
@@ -1358,14 +1388,16 @@ def phase_step_profile(recipe: dict, steps: int, n_ent: int = N_ENT,
                        n_rel: int = N_REL):
     """Where a step's time goes: the host clock over `steps`
     DevicePipeline steps, then torch.profiler over the same number for the
-    device's busy share and the kernels by device time."""
+    device's busy share and the kernels by device time.  Returns (host ms,
+    device busy ms, kernels) a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.data.dataset import synthetic_dataset
     from dglke_tpu_torch.models.ke_model import KEModel
     from dglke_tpu_torch.trainer import DevicePipeline
-    name = recipe["model_name"]
+    name = recipe["model_name"] + (
+        " bf16" if recipe.get("compute_dtype") == "bfloat16" else "")
     cfg = KGEConfig(**recipe)
     batch = cfg.batch_size
     ds = synthetic_dataset(n_ent, n_rel, n_train=100_000, seed=0)
@@ -1400,6 +1432,7 @@ def phase_step_profile(recipe: dict, steps: int, n_ent: int = N_ENT,
               f"x{e.count / steps:.1f}  {e.key[:90]}")
     del state, model
     torch.cuda.empty_cache()
+    return step_ms, busy, sum(e.count for e in kern) / steps
 
 
 # ---------------------------------------------------------------------------
@@ -2760,7 +2793,8 @@ def phase_chunked_save(model, state):
 
 DIST_RANKS = 2
 DIST_TIMEOUT = 900          # seconds a rank set may take, then killed
-DIST_STEPS = 500            # the flagship under --dist, each plan
+DIST_STEPS = 200            # the flagship under --dist, each plan (cut
+# from 500 when the bf16, profile and LDG phases joined the script)
 DIST_RESCAL_STEPS = 100     # RESCAL under --dist (K3 on every replica)
 # wikikg2 under --dist --table_sharding vocab: 200 steps saved every 100
 # (--sharded_ckpt), then resumed for 100 more with the recipe's sampled
@@ -2929,9 +2963,11 @@ def _worker_cli(spec: dict) -> dict:
                  ("load_sharded", load)):
         setattr(train_cli, k, f)
     rows.reset_launches()
-    rc = train_cli.main(spec["argv"])
+    with _RankLog() as ranks:
+        rc = train_cli.main(spec["argv"])
     comm, steps = seen["comm"], max(1, seen["steps"])
     return {"rc": rc, "launches": dict(rows.launches),
+            "eval_ranks": [r.tolist() for r in ranks.ranks],
             "backend": comm.backend, "layout": comm.layout,
             "host_ms_per_step": seen["train_s"] * 1e3 / steps,
             "coll_bytes_per_step": seen["coll"]["bytes"] / steps,
@@ -3135,19 +3171,34 @@ def phase_dist_flagship():
         metrics = [dict(re.findall(rf"\[{r}\]Test average (\S+): (\S+)",
                                    texts[r])) for r in range(DIST_RANKS)]
         out = io.StringIO()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), _RankLog() as one_ranks:
             _cli(eval_cli.main, [*_udd_args(_fb15k_shaped(
                 "data", n_train=300_000)), "--model_path", ckpt,
                 "--batch_size_eval", "500"])
         one = dict(re.findall(r"\[0\]Test average (\S+): (\S+)",
                               out.getvalue()))
-        if not one or any(m != one for m in metrics):
-            fail(f"{label}: test metrics {metrics} on the ranks, {one} from "
-                 f"one device's eval of the npy checkpoint")
-        print(f"{label}: {DIST_STEPS} steps of 2 x {BATCH} rows; test "
-              f"metrics on both ranks equal one device's eval of the npy "
-              f"checkpoint written through rank 0: MRR {one['MRR']}, "
-              f"HITS@10 {one['HITS@10']}")
+        (want,) = one_ranks.ranks
+        # Every rank ranks all batches over the vocab-sharded table, its
+        # stride of them over replicas; the integer ranks must be one
+        # device's, all of them.  The replicas add their partial sums of
+        # 1/rank, which rounds the MRR in another order than one device's
+        # mean: there the MRR is held through the ranks it comes from.
+        got = [np.asarray(r["eval_ranks"][0]) for r in res]
+        same = (all(np.array_equal(g, want) for g in got) if ts == "vocab"
+                else np.array_equal(np.sort(np.concatenate(got)),
+                                    np.sort(want)))
+        keys = list(one) if ts == "vocab" else [k for k in one
+                                                 if k != "MRR"]
+        if not one or not same or any({k: m.get(k) for k in keys} != {
+                k: one[k] for k in keys} for m in metrics):
+            fail(f"{label}: test metrics {metrics} (ranks equal: {same}) on "
+                 f"the ranks, {one} from one device's eval of the npy "
+                 f"checkpoint")
+        print(f"{label}: {DIST_STEPS} steps of 2 x {BATCH} rows; the "
+              f"{len(want)} filtered test ranks and the metrics on both "
+              f"ranks equal one device's eval of the npy checkpoint written "
+              f"through rank 0: MRR {one['MRR']} ({metrics[0]['MRR']} on "
+              f"the ranks), HITS@10 {one['HITS@10']}")
         _rank_numbers(f"{label} [{DIST_NOTE}; {card}]", res)
     label = "RESCAL dist vocab"
     res, _, _ = _dist_flagship(label, "vocab", RESCAL, DIST_RESCAL_STEPS,
@@ -3251,6 +3302,398 @@ def phase_dist_nccl():
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: --compute_dtype bfloat16 training
+
+BF16 = ("--compute_dtype", "bfloat16")
+# TransR as examples/fb15k.sh runs it (hidden 200: 40,000-wide projection
+# rows), for the bf16 step against the CPU.
+TRANSR = dict(model_name="TransR", hidden_dim=200, gamma=8.0, lr=0.015,
+              batch_size=BATCH, neg_sample_size=NEG,
+              neg_adversarial_sampling=True, regularization_coef=5e-8)
+# RESCAL under bf16 compute takes the stock route, as in the JAX package:
+# no K3; the relation rows' gradient [1,000 x 250,000] goes through the
+# grouping and K2's block route.  BF16_RESCAL_STEPS steps, no eval.
+BF16_RESCAL_STEPS = 200
+EXPECTED_LAUNCHES["TransE_l2 bf16"] = dict(EXPECTED_LAUNCHES["TransE_l2"])
+EXPECTED_LAUNCHES["RESCAL bf16"] = {
+    "gather_rows": 2 * BF16_RESCAL_STEPS, "group_ids": 2 * BF16_RESCAL_STEPS,
+    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * BF16_RESCAL_STEPS,
+    "outer_adagrad_update": 0}
+# The CPU test's tolerances (tests/test_torch_compute_bf16.py), in bf16
+# roundings (2^-8): each table's update within 8 of the largest update
+# (RotatE's 32 does not apply here), the Adagrad state's increment within
+# 16, the loss within 2 relative.
+BF16_ULP = 2.0 ** -8
+# The bf16 flagship's test MRR against the fp32 run's on the same data: a
+# sanity bound (bf16 scores move the training, not the eval); the gap
+# itself is printed.
+BF16_MRR_TOL = 0.05
+
+
+def phase_bf16_main(fp32_metrics: dict):
+    """The flagship with --compute_dtype bfloat16 through the CLI on the
+    phase-3 data (1,000 steps, filtered test eval), launches held (those of
+    the fp32 run), the tables fp32; its test metrics beside the fp32
+    run's.  Then RESCAL with the flag, BF16_RESCAL_STEPS steps on the
+    stock route (K3 never, K2 on the relation rows).  Returns the launch
+    counts by path."""
+    import torch
+    metrics = {}
+    paths = {"TransE_l2 bf16": phase_main_path(
+        TRANSE, batch_size_eval=500, extra=BF16, label="TransE_l2 bf16",
+        metrics=metrics)}
+    (mrr, hits, rate), (mrr32, hits32, rate32) = (
+        metrics["TransE_l2 bf16"], fp32_metrics["TransE_l2"])
+    print(f"TransE_l2 bf16 against fp32 on the same data: test MRR "
+          f"{mrr!r} / {mrr32!r} (gap {mrr - mrr32:+.6f}), HITS@10 {hits!r} / "
+          f"{hits32!r}; {rate:.1f} / {rate32:.1f} triples/s (CLI loop)")
+    if abs(mrr - mrr32) > BF16_MRR_TOL:
+        fail(f"TransE_l2 bf16: test MRR {mrr!r} further than {BF16_MRR_TOL} "
+             f"from the fp32 run's {mrr32!r}")
+    argv = ["--dataset", "fb15k_shaped",
+            *_udd_args(_fb15k_shaped("data", n_train=300_000)),
+            *_recipe_flags(RESCAL), *BF16, "--max_step",
+            str(BF16_RESCAL_STEPS), "--log_interval",
+            str(BF16_RESCAL_STEPS // 2), "--no_save_emb",
+            "--save_path", os.path.join(WORK, "bf16_ckpts")]
+    counts, text, model, state = run_cli("RESCAL bf16", argv)
+    if model._rescal_factored():
+        fail("RESCAL bf16: the factored route (K3) was taken")
+    if {state.entity.emb.dtype, state.relation.emb.dtype} != {
+            torch.float32}:
+        fail("RESCAL bf16: the tables are not fp32")
+    train_s = _floats(r"training takes (\S+) seconds", text)[0]
+    print(f"RESCAL bf16 (stock route, K2 on the 1,000 x {RESCAL_WIDTH} "
+          f"relation rows a step): {BF16_RESCAL_STEPS} steps, "
+          f"{BF16_RESCAL_STEPS * BATCH / train_s:.1f} triples/s (CLI loop); "
+          f"launches {counts}")
+    paths["RESCAL bf16"] = counts
+    return paths
+
+
+def print_bf16_profiles(profiles: dict) -> None:
+    for name in ("TransE_l2", "RESCAL"):
+        (h32, d32, k32), (h16, d16, k16) = (profiles[name],
+                                            profiles[name + " bf16"])
+        print(f"{name} step, bf16 compute against fp32 [{card_line()}]: "
+              f"device busy {d16:.4f} / {d32:.4f} ms, host {h16:.4f} / "
+              f"{h32:.4f} ms, busy share {100 * d16 / h16:.1f}% / "
+              f"{100 * d32 / h32:.1f}%, kernels {k16:.1f} / {k32:.1f} a step")
+
+
+def phase_bf16_step_parity(recipe: dict, n_ent: int = N_ENT,
+                           n_rel: int = N_REL):
+    """One bf16-compute step in each corruption direction on the card
+    (cuBLAS' bf16 products with fp32 out) and on the CPU (the plain
+    versions, products of upcast bf16), each from the same fp32 tables:
+    every table's update and Adagrad increment and the loss within the CPU
+    test's bf16 tolerances; the tables stay fp32."""
+    import torch
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.models.ke_model import KEModel
+    name = recipe["model_name"]
+    cfg = KGEConfig(**recipe, compute_dtype="bfloat16")
+    batch = cfg.batch_size
+    n_neg = cfg.num_chunks * cfg.neg_sample_size
+    rng = np.random.default_rng(2)
+    gpu_model = KEModel(cfg, n_ent, n_rel, device="cuda")
+    cpu_model = KEModel(cfg, n_ent, n_rel, device="cpu")
+    init = gpu_model.init_state()
+    worst = {}
+    for neg_head in (True, False):
+        ids = [rng.integers(0, n, size).astype(np.int32) for n, size in
+               ((n_ent, batch), (n_rel, batch), (n_ent, batch),
+                (n_ent, n_neg))]
+        gpu_state, cpu_state = _clone(init), _cpu_copy(init)
+        _, glog = gpu_model.train_step(
+            gpu_state, *(torch.from_numpy(x).cuda() for x in ids), None,
+            neg_head=neg_head)
+        _, clog = cpu_model.train_step(
+            cpu_state, *(torch.from_numpy(x) for x in ids), None,
+            neg_head=neg_head)
+        g, c = float(glog["loss"]), float(clog["loss"])
+        if abs(g - c) > 2 * BF16_ULP * abs(c):
+            fail(f"{name} bf16 step: loss {g!r} on the card, {c!r} on the "
+                 f"CPU")
+        for table in ("entity", "relation", "projection"):
+            t0, tg, tc = (getattr(s, table) for s in (init, gpu_state,
+                                                      cpu_state))
+            if t0 is None:
+                continue
+            if tg.emb.dtype != torch.float32:
+                fail(f"{name} bf16 step: the {table} table is {tg.emb.dtype}")
+            for part, k in (("emb", 8), ("state_sum", 16)):
+                base = getattr(t0, part)
+                dg = getattr(tg, part) - base
+                dc = getattr(tc, part).to(base.device) - base
+                scale = float(dc.abs().max())
+                err = float((dg - dc).abs().max())
+                worst[f"{table} {part}"] = max(
+                    worst.get(f"{table} {part}", 0.0),
+                    err / (BF16_ULP * scale) if scale else 0.0)
+                if err > k * BF16_ULP * scale:
+                    fail(f"{name} bf16 step ({'head' if neg_head else 'tail'})"
+                         f": the {table} {part} update differs from the "
+                         f"CPU's by {err} (largest update {scale})")
+        del gpu_state, cpu_state
+    print(f"{name} bf16 step parity [{n_ent} x {n_rel}, hidden "
+          f"{recipe['hidden_dim']}]: one step in each direction on the card "
+          f"within the CPU test's tolerance of the CPU's (largest "
+          f"difference, in bf16 roundings of the largest update: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()) + ")")
+    del init
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: --profile
+
+PROFILE_STEPS = 200
+# dglke_tpu_torch-train --profile DIR on the flagship, PROFILE_STEPS steps,
+# no eval: two K1, two groupings and two K2 a step.  The same run without
+# --profile, for the bit-equal tables.
+for _label in ("TransE_l2 profile", "TransE_l2 profile baseline"):
+    EXPECTED_LAUNCHES[_label] = {"gather_rows": 2 * PROFILE_STEPS,
+                                 "group_ids": 2 * PROFILE_STEPS,
+                                 "group_ids_sort": 0,
+                                 "sparse_adagrad_rows": 2 * PROFILE_STEPS,
+                                 "outer_adagrad_update": 0}
+# The hand-written kernels a flagship step launches, by the name the trace
+# gives them, and how many times a step (entity and relation rows).
+PROFILE_KERNELS = {"gather_rows_vec4": 2, "group_ids": 2,
+                   "segment_update_warp": 2}
+
+
+def _profile_run(label: str, trace_dir=None):
+    save = os.path.join(WORK, label.replace(" ", "_"))
+    argv = ["--dataset", "fb15k_shaped",
+            *_udd_args(_fb15k_shaped("data", n_train=300_000)),
+            *_recipe_flags(TRANSE), "--max_step", str(PROFILE_STEPS),
+            "--log_interval", str(PROFILE_STEPS // 4), "--save_path", save]
+    if trace_dir is not None:
+        argv += ["--profile", trace_dir]
+    counts, text, _, _ = run_cli(label, argv)
+    return counts, text, os.path.join(save, "TransE_l2_fb15k_shaped_0")
+
+
+def _trace_kernels(path: str):
+    """(the step spans' numbers, device kernel events by name) of a
+    Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted(int(m.group(1)) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and (m := re.fullmatch(r"step (\d+)", str(e.get("name")))))
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    return steps, kernels
+
+
+def phase_profile():
+    """The flagship through dglke_tpu_torch-train --profile DIR, 200 steps:
+    the trace parses, holds the window's steps [2s, 4s), and lists the
+    hand-written kernels by their CUDA names, each as many times as the
+    window's steps x its launches a step; the checkpoint is bit-equal to
+    the same run's without --profile.  A trace with no device event is
+    taken once more (said so), and fails if empty again.  Returns the
+    launch counts by path."""
+    paths = {}
+    for attempt in range(2):
+        trace_dir = os.path.join(WORK, f"trace{attempt}")
+        shutil.rmtree(os.path.join(WORK, "TransE_l2_profile"),
+                      ignore_errors=True)
+        counts, text, ckpt = _profile_run("TransE_l2 profile", trace_dir)
+        if "[proc 0]profiler trace written" not in text:
+            fail("profile run: no '[proc 0]profiler trace written' line")
+        path = os.path.join(trace_dir, "trace_rank0.json")
+        steps, kernels = _trace_kernels(path)
+        if kernels:
+            break
+        print("profile run: the trace holds no device event; running it "
+              "again")
+    else:
+        fail("profile run: the trace holds no device event, twice")
+    paths["TransE_l2 profile"] = counts
+    s = len(steps) // 2
+    if not steps or steps != list(range(2 * s, 4 * s)):
+        fail(f"profile run: the trace's steps are {steps}, not [2s, 4s)")
+    found = {}
+    for want, per_step in PROFILE_KERNELS.items():
+        n = sum(c for k, c in kernels.items() if want in k)
+        found[want] = n
+        if n != per_step * len(steps):
+            fail(f"profile run: {want} {n} times in the trace, expected "
+                 f"{per_step} x {len(steps)} steps")
+    print(f"profile run: {os.path.getsize(path)} bytes of Chrome trace, "
+          f"steps {steps[0]}-{steps[-1]} (s = {s}); hand-written kernels "
+          f"by name: {found} ({len(steps)} steps x {PROFILE_KERNELS}); "
+          f"{sum(kernels.values())} device kernels in all")
+    counts, _, plain = _profile_run("TransE_l2 profile baseline")
+    paths["TransE_l2 profile baseline"] = counts
+    for table in ("entity", "entity_state", "relation", "relation_state"):
+        f = f"fb15k_shaped_TransE_l2_{table}.npy"
+        if not np.array_equal(np.load(os.path.join(ckpt, f)),
+                              np.load(os.path.join(plain, f))):
+            fail(f"profile run: {f} differs from the run without --profile")
+    print("profile run: every saved table bit-equal to the run without "
+          "--profile")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 7d: the native LDG partitioner at Freebase scale, and the partition
+# path end to end
+
+# planted_line_big(21,513,538 clusters of 4): 86,054,152 entities (Freebase:
+# 86,054,151) and 344,216,592 edges (Freebase's train split: 338,586,276).
+LDG_CLUSTERS, LDG_PER, LDG_K = 21_513_538, 4, 4
+LDG_TIMEOUT = 900
+DIST_PART_STEPS = 100
+EXPECTED_LAUNCHES["TransE_l2 dist partition"] = {
+    "gather_rows": 2 * DIST_PART_STEPS, "group_ids": 2 * DIST_PART_STEPS,
+    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * DIST_PART_STEPS,
+    "outer_adagrad_update": 0}
+
+
+def ldg_worker() -> int:
+    """``chip_smoke.py --ldg-worker``: the native LDG (k = LDG_K) on the
+    Freebase-scale planted line graph, on the host, twice; prints one
+    RESULT line.  Runs in its own process beside the card phases, so that
+    its ~20 GB are gone before the capacity run."""
+    import resource
+    from dglke_tpu_torch.data import native
+    from dglke_tpu_torch.data.dataset import planted_line_big
+    t0 = time.time()
+    native.load()
+    build_s = time.time() - t0
+    t0 = time.time()
+    ds = planted_line_big(n_clusters=LDG_CLUSTERS, per=LDG_PER)
+    h, _, t = ds.train
+    n = ds.n_entities
+    h, t = h.astype(np.int64), t.astype(np.int64)
+    gen_s = time.time() - t0
+    t0 = time.time()
+    a1, c1 = native.ldg_partition_native(h, t, n, LDG_K, 0)
+    s1 = time.time() - t0
+    # the second run (ctypes lets go of the GIL) beside the numpy checks
+    second = {}
+
+    def again():
+        t0 = time.time()
+        second["run"] = native.ldg_partition_native(h, t, n, LDG_K, 0)
+        second["s"] = time.time() - t0
+
+    thread = threading.Thread(target=again)
+    thread.start()
+    sizes = np.bincount(a1, minlength=LDG_K)
+    recount = int(np.count_nonzero(a1[h] != a1[t]))
+    rand = np.random.RandomState(0).randint(0, LDG_K, n).astype(np.int32)
+    rand_cut = int(np.count_nonzero(rand[h] != rand[t]))
+    thread.join()
+    (a2, c2), s2 = second["run"], second["s"]
+    print("RESULT " + json.dumps({
+        "n_nodes": n, "n_edges": len(h), "build_s": build_s, "gen_s": gen_s,
+        "ldg_s": [s1, s2], "cut": c1, "cut2": c2, "recount": recount,
+        "random_cut": rand_cut, "sizes": sizes.tolist(),
+        "min_assign": int(a1.min()), "bit_equal": bool(np.array_equal(a1, a2)),
+        "peak_rss_gb": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1e6}))
+    return 0
+
+
+def start_ldg():
+    """The LDG worker, started now; phase_ldg collects it."""
+    os.makedirs(WORK, exist_ok=True)
+    log = open(os.path.join(WORK, "ldg.log"), "w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--ldg-worker"], cwd=ROOT, stdout=log,
+                            stderr=subprocess.STDOUT)
+    return proc, log, time.time()
+
+
+def phase_ldg(started) -> None:
+    """The native LDG at Freebase scale (86,054,152 nodes, 344,216,592
+    edges), on the machine's host: every node assigned, the largest part
+    at most 1.5 n / k, the returned cut equal to the cut recounted in
+    numpy and below a random assignment's, a second run bit-equal."""
+    proc, log, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, LDG_TIMEOUT - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        fail(f"native LDG: not done in {LDG_TIMEOUT} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"native LDG worker exited {proc.returncode}:\n{text[-3000:]}")
+    r = json.loads(lines[0][len("RESULT "):])
+    n, k = r["n_nodes"], LDG_K
+    if r["min_assign"] < 0 or sum(r["sizes"]) != n:
+        fail(f"native LDG: not every node assigned ({r['sizes']})")
+    if max(r["sizes"]) > 1.5 * n / k:
+        fail(f"native LDG: a part of {max(r['sizes'])} nodes, over 1.5 n/k")
+    if r["cut"] != r["recount"] or r["cut"] != r["cut2"]:
+        fail(f"native LDG: cut {r['cut']} / {r['cut2']}, recounted "
+             f"{r['recount']}")
+    if not r["cut"] < r["random_cut"]:
+        fail(f"native LDG: cut {r['cut']} not below random {r['random_cut']}")
+    if not r["bit_equal"]:
+        fail("native LDG: a second run assigned differently")
+    print(f"native LDG at Freebase scale [{n:,} nodes, {r['n_edges']:,} "
+          f"edges, k = {k}; host of the card's machine]: build "
+          f"{r['build_s']:.2f} s, graph {r['gen_s']:.2f} s, LDG "
+          f"{r['ldg_s'][0]:.2f} s (alone) and {r['ldg_s'][1]:.2f} s (beside "
+          f"the numpy checks; bit-equal), cut "
+          f"{r['cut']:,} (recounted equal; random assignment "
+          f"{r['random_cut']:,}), parts {r['sizes']}, peak RSS "
+          f"{r['peak_rss_gb']:.2f} GB")
+
+
+def phase_dist_partition():
+    """dglke_tpu_torch-partition -k 2 (LDG, native) on the flagship-shaped
+    dataset, then dglke_tpu_torch-train --dist --partition_path on two
+    ranks sharing the card over gloo, DIST_PART_STEPS steps: launches
+    exact on each rank.  Returns the launch counts summed over the ranks."""
+    from dglke_tpu_torch.cli import partition as partition_cli
+    data = _fb15k_shaped("data", n_train=300_000)
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = partition_cli.main(["--dataset", "fb15k_shaped", "--data_path",
+                                 data, "--format", "udd_hrt", "--data_files",
+                                 "entities.tsv", "relations.tsv",
+                                 "train.tsv", "valid.tsv", "test.tsv",
+                                 "-k", "2"])
+    if rc != 0:
+        fail(f"dglke_tpu_torch-partition returned {rc}")
+    print(f"dglke_tpu_torch-partition -k 2 (native LDG): "
+          f"{time.time() - t0:.2f} s; " + out.getvalue().strip()
+          .splitlines()[-1])
+    label = "TransE_l2 dist partition"
+    argv = ["--dist", "--table_sharding", "vocab", "--dataset",
+            "fb15k_shaped", "--data_path", data, "--partition_path",
+            os.path.join(data, "fb15k_shaped"), *_recipe_flags(TRANSE),
+            "--max_step", str(DIST_PART_STEPS), "--log_interval",
+            str(DIST_PART_STEPS // 2), "--no_save_emb", "--save_path",
+            os.path.join(WORK, "dist_partition")]
+    res, texts = run_ranks("partition", {"kind": "cli", "argv": argv})
+    _hold_backend(label, res, "gloo", "2 ranks share cuda:0")
+    losses = _floats(r"average loss: (\S+)", texts[0])
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: loss not finite: {losses}")
+    paths = {label: _hold_launches(label, res)}
+    _rank_numbers(f"{label} [{DIST_NOTE}; {card_line()}]", res)
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # Phase 7
 
 # tests/test_planted_quality.py:27-46: (model, structure, overrides)
@@ -3275,6 +3718,10 @@ PLANTED = [
 
 
 def phase_planted():
+    """The gate of every family in fp32 and with --compute_dtype bfloat16
+    (the CPU test holds the port's bf16 runs to it wherever the JAX
+    package's pass; both pass in every family at this size), side by
+    side."""
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.data.dataset import planted_dataset
     from dglke_tpu_torch.trainer import evaluate, train
@@ -3282,16 +3729,19 @@ def phase_planted():
     for name, structure, overrides in PLANTED:
         ds = planted_dataset(structure,
                              n_clusters=8 if structure == "cycle" else 10)
-        cfg = KGEConfig(**{**PLANTED_BASE, "model_name": name, **overrides})
-        t0 = time.time()
-        model, state, _ = train(cfg, ds, log=quiet)
-        m = evaluate(cfg, ds, model, state, "test", log=quiet)
-        if m["MRR"] < 0.85 or m["HITS@10"] < 0.99:
-            fail(f"planted {name} gate failed on the card: {m}")
-        print(f"planted {name} ({structure}) gate: MRR {m['MRR']:.4f}, "
-              f"HITS@10 {m['HITS@10']:.4f} (gate MRR >= 0.85, HITS@10 >= "
-              f"0.99), {cfg.max_step} steps + eval in "
-              f"{time.time() - t0:.1f} s")
+        out = []
+        for dtype in ("float32", "bfloat16"):
+            cfg = KGEConfig(**{**PLANTED_BASE, "model_name": name,
+                               **overrides, "compute_dtype": dtype})
+            t0 = time.time()
+            model, state, _ = train(cfg, ds, log=quiet)
+            m = evaluate(cfg, ds, model, state, "test", log=quiet)
+            if m["MRR"] < 0.85 or m["HITS@10"] < 0.99:
+                fail(f"planted {name} {dtype} gate failed on the card: {m}")
+            out.append(f"{dtype} MRR {m['MRR']:.4f}, HITS@10 "
+                       f"{m['HITS@10']:.4f} ({time.time() - t0:.1f} s)")
+        print(f"planted {name} ({structure}) gate (MRR >= 0.85, HITS@10 >= "
+              f"0.99, {cfg.max_step} steps + eval): " + "; ".join(out))
 
 
 def main() -> int:
@@ -3312,9 +3762,16 @@ def main() -> int:
         kernels[0].update(k1_wide)
         kernels.append(k3)
         phase_outer_routes()
-        paths = {"TransE_l2": phase_main_path(TRANSE, batch_size_eval=500)}
+        main_metrics = {}
+        paths = {"TransE_l2": phase_main_path(TRANSE, batch_size_eval=500,
+                                              metrics=main_metrics)}
         phase_step_parity(TRANSE)
-        phase_step_profile(TRANSE, steps=50)
+        profiles = {"TransE_l2": phase_step_profile(TRANSE, steps=50)}
+        paths.update(phase_bf16_main(main_metrics))
+        profiles["TransE_l2 bf16"] = phase_step_profile(
+            dict(TRANSE, compute_dtype="bfloat16"), steps=50)
+        phase_bf16_step_parity(TRANSE)
+        paths.update(phase_profile())
         paths["TransE_l2 async"] = phase_main_path(
             TRANSE, batch_size_eval=500, extra=("--async_update",),
             label="TransE_l2 async")
@@ -3322,7 +3779,12 @@ def main() -> int:
         paths["RESCAL"] = phase_main_path(RESCAL,
                                           batch_size_eval=RESCAL_EVAL_BATCH)
         phase_step_parity(RESCAL)
-        phase_step_profile(RESCAL, steps=20)
+        profiles["RESCAL"] = phase_step_profile(RESCAL, steps=20)
+        profiles["RESCAL bf16"] = phase_step_profile(
+            dict(RESCAL, compute_dtype="bfloat16"), steps=20)
+        phase_bf16_step_parity(RESCAL)
+        phase_bf16_step_parity(TRANSR)
+        print_bf16_profiles(profiles)
         paths.update(phase_serving())
         paths["wikikg2"], ds, model, state = phase_wikikg2()
         phase_sampled_ranks(ds, model, state)
@@ -3340,7 +3802,11 @@ def main() -> int:
         paths["TransE_l2 host"] = phase_host_main()
         phase_host_step_parity(TRANSE)
         phase_host_flagship_profile()
+        # the native LDG runs on the host beside the planted gates, and is
+        # done before the capacity run needs the host's memory
+        ldg = start_ldg()
         phase_planted()
+        phase_ldg(ldg)
         # the ranks' processes take the card next: free what this one holds
         gc.collect()
         torch.cuda.empty_cache()
@@ -3348,6 +3814,7 @@ def main() -> int:
         paths.update(phase_dist_flagship())
         paths.update(phase_dist_wikikg2())
         paths.update(phase_dist_nccl())
+        paths.update(phase_dist_partition())
         gc.collect()
         # pinned staging buffers cached by torch go back to the host first
         getattr(torch._C, "_host_emptyCache", lambda: None)()
@@ -3381,4 +3848,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":
         sys.exit(dist_worker(sys.argv[2]))
+    if sys.argv[1:] == ["--ldg-worker"]:
+        sys.exit(ldg_worker())
     sys.exit(main())

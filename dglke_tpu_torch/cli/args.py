@@ -1,9 +1,10 @@
 """CLI argument surface -> KGEConfig (counterpart of dglke_tpu/cli/args.py).
 
 Every flag of the JAX package's train and eval parsers parses here, plus
-``--device``.  Flags that select nothing are accepted and noted
-(``warn_inert_flags``); flags of modes not ported yet, and the settings
-the port does not take, are refused with the ROADMAP item that says why.
+``--device``, and every mode it selects runs.  Flags that select nothing
+are accepted and noted (``warn_inert_flags``); ``refuse_unported`` refuses
+what the JAX package refuses before anything runs (--dist with
+--mix_cpu_gpu).
 """
 
 from __future__ import annotations
@@ -69,8 +70,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--has_edge_importance", action="store_true")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="score precision: only float32 runs here (scores "
-                        "are full fp32); bfloat16 is refused")
+                   help="training score precision: bfloat16 scores bf16 "
+                        "casts of the gathered rows in the training loss "
+                        "(products out in fp32); tables, gradients, the "
+                        "update and eval stay fp32")
     p.add_argument("--emb_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="embedding table storage dtype (the optimizer "
@@ -109,24 +112,14 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--partition_path", type=str, default=None,
                    help="--dist: read each rank's edges from the "
                         "dglke_tpu_torch-partition artifacts here")
-    p.add_argument("--profile", type=str, default=None)
-
-
-# flag -> (is it set?, ROADMAP item that says why it is refused)
-_REFUSED = {
-    "--profile": (lambda a: getattr(a, "profile", None) is not None,
-                  "A6b (the port benchmark maps it onto torch.profiler)"),
-    "--compute_dtype bfloat16": (
-        lambda a: a.compute_dtype == "bfloat16",
-        "§C, deliberate differences (scores stay full fp32)"),
-}
+    p.add_argument("--profile", type=str, default=None,
+                   help="write a torch.profiler trace (Chrome/Perfetto "
+                        "JSON, host and device) of steady-state steps into "
+                        "this directory")
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    for flag, (is_set, item) in _REFUSED.items():
-        if is_set(args):
-            raise SystemExit(f"{flag} is not ported to dglke_tpu_torch: it "
-                             f"is ROADMAP item {item}; use dglke_tpu")
+    """Refuse, before anything runs, what the JAX package refuses."""
     if args.dist and args.mix_cpu_gpu:
         # refused before anything runs, as the JAX package does
         raise SystemExit(

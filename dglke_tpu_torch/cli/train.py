@@ -215,7 +215,7 @@ def _main(args, cfg, comm):
 
     model, state, _ = train(cfg, dataset, model=model, state=state,
                             valid_samplers=valid_samplers, save_fn=save_fn,
-                            plan=plan)
+                            plan=plan, profile_dir=args.profile)
     if not cfg.no_save_emb:
         save(state)
     if cfg.test and dataset.test_dict is not None:

@@ -86,7 +86,10 @@ class KGEConfig:
     steps_per_call: int = 16  # steps a group (aligned with the log, eval
     # and save intervals by the trainer); async updates flush at its end
 
-    # -- storage -------------------------------------------------------------
+    # -- compute and storage -------------------------------------------------
+    compute_dtype: str = "float32"  # "bfloat16": the training loss scores
+    # bf16 casts of the gathered rows (products out in fp32); tables, loss,
+    # gradients and the update stay fp32, and eval scores in fp32
     emb_dtype: str = "float32"  # "bfloat16" stores tables in bf16; the
     # optimizer math and the Adagrad accumulator stay fp32
     mix_cpu_gpu: bool = False  # host-resident fp32 tables (host_table.py):
@@ -131,8 +134,9 @@ class KGEConfig:
                              "negative sampling")
         if self.pairwise and self.loss_genre not in ("Logistic", "Hinge"):
             raise ValueError(f"{self.loss_genre} loss cannot be pairwise")
-        if self.emb_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"unknown emb_dtype {self.emb_dtype}")
+        for name in ("compute_dtype", "emb_dtype"):
+            if getattr(self, name) not in ("float32", "bfloat16"):
+                raise ValueError(f"unknown {name} {getattr(self, name)}")
         if self.table_sharding not in ("replicated", "vocab"):
             raise ValueError(f"unknown table_sharding {self.table_sharding}")
         if self.steps_per_call < 1:

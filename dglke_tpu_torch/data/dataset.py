@@ -414,6 +414,76 @@ def synthetic_dataset(n_entities: int = 1000, n_relations: int = 20,
                      valid=sample(n_valid), test=sample(n_test))
 
 
+def _planted_big(name: str, ks, iis, jjs, per: int, n_entities: int,
+                 n_relations: int, rng, n_test: int) -> KGDataset:
+    """Each (relation k, cluster i, cluster j) edge of the plan expanded to
+    the per x per complete bipartite edges between the clusters' entities,
+    shuffled, with a fixed-size test split (int32 ids)."""
+    ks, iis, jjs = (np.concatenate(x) for x in (ks, iis, jjs))
+    a = np.arange(per, dtype=np.int32)
+    shape = (len(ks), per, per)
+    h = np.broadcast_to((iis[:, None, None] * per
+                         + a[None, :, None]), shape).reshape(-1)
+    t = np.broadcast_to((jjs[:, None, None] * per
+                         + a[None, None, :]), shape).reshape(-1)
+    r = np.broadcast_to(ks[:, None, None], shape).reshape(-1)
+    idx = rng.permutation(len(h))
+    h, r, t = h[idx].copy(), r[idx].copy(), t[idx].copy()
+    n_test = min(n_test, len(h) // 10)
+    return KGDataset(name=name, n_entities=n_entities,
+                     n_relations=n_relations,
+                     train=(h[n_test:], r[n_test:], t[n_test:]),
+                     test=(h[:n_test], r[:n_test], t[:n_test]))
+
+
+def planted_ring_big(n_clusters: int, ring_len: int, per: int = 4,
+                     n_relations: int = 1, seed: int = 0,
+                     n_test: int = 2000) -> KGDataset:
+    """Vectorized cycle structure for the bilinear family (the JAX
+    package's planted_ring_big, the same triples): the clusters form
+    n_clusters / ring_len independent rings of ring_len, and r_k maps ring
+    position i to (i + k + 1) % ring_len."""
+    rng = np.random.RandomState(seed)
+    if n_clusters % ring_len != 0 or n_relations >= ring_len:
+        raise ValueError(f"planted_ring_big: ring_len {ring_len} must divide "
+                         f"n_clusters {n_clusters} and exceed n_relations "
+                         f"{n_relations}")
+    pos = np.arange(n_clusters, dtype=np.int32)
+    base = pos - pos % ring_len
+    ks, iis, jjs = [], [], []
+    for k in range(n_relations):
+        ks.append(np.full(n_clusters, k, np.int32))
+        iis.append(pos)
+        jjs.append(base + (pos % ring_len + k + 1) % ring_len)
+    return _planted_big("planted_ring_big", ks, iis, jjs, per,
+                        n_clusters * per, n_relations, rng, n_test)
+
+
+def planted_line_big(n_clusters: int, per: int = 4, n_relations: int = 1,
+                     seed: int = 0, n_test: int = 2000,
+                     line_len: Optional[int] = None) -> KGDataset:
+    """Vectorized Freebase-scale line structure (the JAX package's
+    planted_line_big, the same triples): r_k maps cluster i to i + k + 1
+    (no wraparound), each cluster pair complete bipartite, a fixed-size
+    test split, int32 ids; tens of millions of edges build in seconds.
+    ``line_len``: the clusters form n_clusters / line_len independent
+    lines instead of one (edges never cross a line)."""
+    rng = np.random.RandomState(seed)
+    ll = line_len or n_clusters
+    if n_relations >= ll:
+        raise ValueError(f"planted_line_big: line_len {ll} must exceed "
+                         f"n_relations {n_relations}")
+    pos = np.arange(n_clusters, dtype=np.int32) % ll
+    ks, iis, jjs = [], [], []
+    for k in range(n_relations):
+        c = np.nonzero(pos < ll - (k + 1))[0].astype(np.int32)
+        ks.append(np.full(len(c), k, np.int32))
+        iis.append(c)
+        jjs.append(c + k + 1)
+    return _planted_big("planted_line_big", ks, iis, jjs, per,
+                        n_clusters * per, n_relations, rng, n_test)
+
+
 def planted_dataset(structure: str, n_clusters: int = 10, per: int = 6,
                     n_relations: int = 3, seed: int = 0,
                     test_frac: float = 0.15,

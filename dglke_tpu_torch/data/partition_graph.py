@@ -10,8 +10,12 @@ byte:
 The default partitioner is LDG (Linear Deterministic Greedy) node
 streaming: each node goes to the partition holding most of its neighbors,
 discounted by partition fill, a one-pass approximation of min edge-cut.
-This is its numpy form; the JAX package may take a native C++ form that
-gives the same assignment.  ``random`` is the baseline.  Edges follow
+``partition_and_write`` takes the native C++ form (data/native.py, a copy
+of the JAX package's, whose default it is), so that both packages write
+the same partitions from the same graph and seed.  ``ldg_partition`` is
+the numpy form, kept as the plain version the tests read: its stream
+order is numpy's permutation, not the C++ shuffle, so it assigns
+differently.  ``random`` is the baseline.  Edges follow
 their head node; tail endpoints outside the partition become halo nodes
 (listed in local_to_global).
 """
@@ -22,6 +26,8 @@ import os
 from typing import Tuple
 
 import numpy as np
+
+from dglke_tpu_torch.data.native import ldg_partition_native
 
 
 def _build_csr(h: np.ndarray, t: np.ndarray, n_nodes: int):
@@ -37,8 +43,9 @@ def _build_csr(h: np.ndarray, t: np.ndarray, n_nodes: int):
 
 def ldg_partition(h: np.ndarray, t: np.ndarray, n_nodes: int, k: int,
                   seed: int = 0) -> np.ndarray:
-    """One-pass LDG: the partition id of every node.  A Python loop over
-    the nodes: hours at Freebase's 86 M nodes (ROADMAP: the native form)."""
+    """One-pass LDG, the numpy form: the partition id of every node.  A
+    Python loop over the nodes, hours at Freebase's 86 M nodes; the
+    partitioner takes data/native.py's form."""
     indptr, adj = _build_csr(h, t, n_nodes)
     order = np.random.RandomState(seed).permutation(n_nodes)
     assign = np.full(n_nodes, -1, np.int32)
@@ -67,10 +74,11 @@ def partition_and_write(triples: Tuple[np.ndarray, ...], n_entities: int,
                         method: str = "ldg", seed: int = 0) -> dict:
     """Partition the train graph and write the reference-format artifacts
     under ``{out_prefix}{p}/``.  Returns {"edge_cut": int, "assign":
-    np.ndarray}."""
+    np.ndarray}.  ``ldg`` raises if the native library cannot be built."""
     h, r, t = (np.asarray(triples[i], np.int64) for i in range(3))
     if method == "ldg":
-        assign = ldg_partition(h, t, n_entities, k, seed)
+        # no fallback to the numpy form: it would write other partitions
+        assign, _ = ldg_partition_native(h, t, n_entities, k, seed)
     elif method == "random":
         assign = random_node_partition(n_entities, k, seed)
     else:

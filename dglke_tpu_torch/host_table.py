@@ -46,6 +46,7 @@ from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex, TrainSampler
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.ops import rows
 from dglke_tpu_torch.ops.embedding import gather_rows, sparse_adagrad_update
+from dglke_tpu_torch.trainer import ProfileWindow, steps_per_group
 
 
 # Host eval query-chunking knobs (see evaluate_host_with_samplers): bound
@@ -194,12 +195,15 @@ def host_step(model: KEModel, state: HostState, batch: dict):
 
 def train_host(config: KGEConfig, dataset, model: Optional[KEModel] = None,
                state: Optional[HostState] = None, valid_samplers=None,
-               save_fn=None, log=print, device=None):
+               save_fn=None, log=print, device=None,
+               profile_dir: Optional[str] = None):
     """Host-table training loop (the reference's mix_cpu_gpu trainer,
     train_pytorch.py:268-403 with CPU-resident ExternalEmbedding): one
     TrainSampler batch a step through host_step.  Returns (model, state,
     stats) like trainer.train.  --async_update has no effect here, as in
-    the JAX package."""
+    the JAX package.  ``profile_dir`` (--profile, which the JAX package's
+    host mode drops): a trainer.ProfileWindow trace over steps [2s, 4s),
+    s the step group the device loop would take."""
     cfg = config
     if model is None:
         model = KEModel(cfg, dataset.n_entities, dataset.n_relations,
@@ -210,17 +214,21 @@ def train_host(config: KGEConfig, dataset, model: Optional[KEModel] = None,
                            seed=cfg.seed)
     it = iter(sampler)
 
+    window = ProfileWindow(profile_dir, steps_per_group(
+        cfg, dataset.n_train, False, log=lambda *a: None), model.device, log)
     logs = []
     valid_metrics = None
     start = tic = time.time()
     sample_time = update_time = 0.0
     for step in range(1, cfg.max_step + 1):
-        t0 = time.time()
-        batch = next(it)
-        sample_time += time.time() - t0
-        t0 = time.time()
-        logs.append(host_step(model, state, batch))
-        update_time += time.time() - t0
+        window.before(step - 1)
+        with window.span(step - 1):
+            t0 = time.time()
+            batch = next(it)
+            t1 = time.time()
+            logs.append(host_step(model, state, batch))
+        sample_time += t1 - t0
+        update_time += time.time() - t1
 
         if step % cfg.log_interval == 0:
             for k in logs[0]:
@@ -234,6 +242,7 @@ def train_host(config: KGEConfig, dataset, model: Optional[KEModel] = None,
                 f"{update_time:.3f}")
             tic = time.time()
             sample_time = update_time = 0.0
+        window.after(step)
         if (valid_samplers is not None and cfg.valid
                 and step % cfg.eval_interval == 0):
             valid_metrics = evaluate_host_with_samplers(
@@ -241,6 +250,7 @@ def train_host(config: KGEConfig, dataset, model: Optional[KEModel] = None,
         if save_fn is not None and cfg.save_interval > 0 \
                 and step % cfg.save_interval == 0:
             save_fn(state, step)
+    window.stop()
 
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)

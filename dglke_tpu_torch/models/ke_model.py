@@ -157,10 +157,11 @@ class KEModel:
 
     def _rescal_factored(self) -> bool:
         """RESCAL's factored route, the JAX package's fused one
-        (ke_model.py:253-260) without its environment switch: fp32 tables
-        and no neg_deg_sample."""
+        (ke_model.py:253-260) without its environment switch: fp32 tables,
+        fp32 compute and no neg_deg_sample."""
         cfg = self.config
         return (self.score_fn.name == "RESCAL" and not cfg.neg_deg_sample
+                and cfg.compute_dtype != "bfloat16"
                 and cfg.emb_dtype != "bfloat16")
 
     def loss_and_grads(self, state: TrainState, h, r, t, neg, impts, *,
@@ -216,20 +217,31 @@ class KEModel:
                              neg_sample_size: int, neg_head: bool):
         """Loss + gradients w.r.t. already-gathered fp32 rows.  Returns
         (loss, log, (ent_grads, rel_grads, proj_grads or None)); log values
-        are detached."""
+        are detached.
+
+        --compute_dtype bfloat16 (the JAX package's cast, ke_model.py:
+        289-325): the rows are cast to bf16 before scoring and the scores
+        come back as fp32; the loss, the regularization (on the fp32 rows),
+        the gradients w.r.t. the fp32 rows and the update stay fp32."""
         cfg = self.config
         leaves = [x.detach().requires_grad_() for x in
                   ([ent_rows, rel_rows] if proj_rows is None
                    else [ent_rows, rel_rows, proj_rows])]
         ent_rows, rel_rows = leaves[:2]
+        bf16 = cfg.compute_dtype == "bfloat16"
 
         def scores(ent_rows, rel_rows, *proj):
-            return self._pos_neg_scores(
+            if bf16:
+                ent_rows, rel_rows = (x.to(torch.bfloat16)
+                                      for x in (ent_rows, rel_rows))
+                proj = tuple(x.to(torch.bfloat16) for x in proj)
+            pos, negs, _ = self._pos_neg_scores(
                 (ent_rows[:b], ent_rows[b:2 * b]), rel_rows,
                 ent_rows[2 * b:], proj[0] if proj else None,
                 neg_head=neg_head, num_chunks=num_chunks,
                 chunk_size=chunk_size, neg_sample_size=neg_sample_size,
-                neg_deg_sample=cfg.neg_deg_sample)[:2]
+                neg_deg_sample=cfg.neg_deg_sample)
+            return pos.float(), negs.float()
 
         with torch.enable_grad():
             if self.score_fn.name == "RotatE":

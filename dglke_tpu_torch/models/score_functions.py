@@ -17,7 +17,12 @@ Each family has three forms:
 All eight families are ported: TransE (l1, l2), TransR, DistMult,
 ComplEx, RESCAL, RotatE and SimplE, with the JAX package's two deliberate
 deviations from dgl-ke (the TransR tail-corrupt sign and the RESCAL
-tail-negative transpose).  Scoring is full fp32: the caller keeps TF32 off.
+tail-negative transpose).  Scoring is full fp32 (the caller keeps TF32
+off), except in the training loss under --compute_dtype bfloat16: there
+the rows come in as bf16 and each form keeps the JAX package's mix of
+precisions, elementwise work and its reductions' results in bf16, every
+matrix product with fp32 out (``matmul32``, the JAX einsums'
+``preferred_element_type=float32``).
 """
 
 from __future__ import annotations
@@ -28,13 +33,72 @@ import math
 import torch
 
 
+class _MatmulF32(torch.autograd.Function):
+    """a @ b with at least one bf16 operand, batch dims equal: the exact
+    products accumulated and returned in fp32.  On the card two bf16
+    operands take a bf16 tensor-core product with fp32 accumulation and
+    output (``torch.bmm``'s ``out_dtype``); otherwise the operands are
+    upcast, which gives the same exact products (a bf16 product fits fp32)
+    accumulated in fp32.  The backward takes the fp32 cotangent against the
+    other operand in fp32 and rounds to the operand's dtype, as JAX's
+    transpose of such a product does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        if a.shape[:-2] != b.shape[:-2]:
+            raise ValueError(f"matmul32: batch dims differ, {tuple(a.shape)} "
+                             f"@ {tuple(b.shape)}")
+        ctx.save_for_backward(a, b)
+        if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+            out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                            b.reshape(-1, *b.shape[-2:]),
+                            out_dtype=torch.float32)
+            return out.reshape(*a.shape[:-1], b.shape[-1])
+        return torch.matmul(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
+def matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in fp32: torch.matmul for fp32 operands; with a bf16 operand
+    (--compute_dtype bfloat16), _MatmulF32."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    return _MatmulF32.apply(a, b)
+
+
+class _Abs(torch.autograd.Function):
+    """|x| with the JAX package's subgradient at 0, +1 (torch.abs takes
+    0 there).  An L1 component is exactly 0 far more often in bf16
+    (--compute_dtype bfloat16) than in fp32."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
 def batched_l2_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """||a_i - b_j||_2 for batched a:[...,M,D], b:[...,N,D] -> [...,M,N],
     through the matmul expansion; clamped at 1e-30 before the sqrt to avoid
-    NaN gradients at zero distance."""
+    NaN gradients at zero distance.  bf16 rows: the squared norms are summed
+    into bf16 and the cross term comes out fp32, as in the JAX package."""
     a_sq = torch.sum(a * a, dim=-1)
     b_sq = torch.sum(b * b, dim=-1)
-    ab = torch.matmul(a, b.transpose(-1, -2))
+    ab = matmul32(a, b.transpose(-1, -2))
     sq = a_sq[..., :, None] + b_sq[..., None, :] - 2.0 * ab
     return torch.sqrt(torch.clamp(sq, min=1e-30))
 
@@ -42,7 +106,7 @@ def batched_l2_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def batched_l1_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """||a_i - b_j||_1 for batched a:[...,M,D], b:[...,N,D] -> [...,M,N];
     materializes the [..., M, N, D] broadcast."""
-    return torch.sum(torch.abs(a[..., :, None, :] - b[..., None, :, :]),
+    return torch.sum(_Abs.apply(a[..., :, None, :] - b[..., None, :, :]),
                      dim=-1)
 
 
@@ -53,7 +117,7 @@ INFER_BUDGET = 1 << 26
 
 def _norm(x: torch.Tensor, ord: int, dim: int = -1) -> torch.Tensor:
     if ord == 1:
-        return torch.sum(torch.abs(x), dim=dim)
+        return torch.sum(_Abs.apply(x), dim=dim)
     # +1e-30 inside the sqrt: a zero distance keeps a finite gradient
     # (0 after the chain rule) instead of NaN-poisoning the tables.
     return torch.sqrt(torch.sum(x * x, dim=dim) + 1e-30)
@@ -109,7 +173,7 @@ def _chunk_dot(tmp, neg_emb, num_chunks, chunk_size, neg_sample_size):
     d = tmp.shape[-1]
     tmp = tmp.reshape(num_chunks, chunk_size, d)
     neg = neg_emb.reshape(num_chunks, neg_sample_size, d)
-    return torch.matmul(tmp, neg.transpose(1, 2))
+    return matmul32(tmp, neg.transpose(1, 2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,15 +189,25 @@ class TransRScore:
     name = "TransR"
 
     def project(self, ent, proj):
-        """ent: [B, De], proj: [B, De*Dr] -> [B, Dr]."""
+        """ent: [B, De], proj: [B, De*Dr] -> [B, Dr].  bf16 rows take a
+        product with fp32 out, as the JAX package's einsum does: the
+        broadcast form would round every product to bf16 before the sum."""
         p = proj.reshape(-1, self.entity_dim, self.relation_dim)
-        return torch.sum(ent[:, :, None] * p, dim=1)
+        if ent.dtype == p.dtype == torch.float32:
+            return torch.sum(ent[:, :, None] * p, dim=1)
+        return matmul32(ent[:, None, :], p)[:, 0, :]
 
     def neg_project(self, neg_ent, proj, num_chunks):
-        """neg_ent: [C*K, De], proj: [B, De*Dr] -> [C, Bc, K, Dr]."""
+        """neg_ent: [C*K, De], proj: [B, De*Dr] -> [C, Bc, K, Dr] (fp32 out
+        for bf16 rows: [K, De] @ [De, Bc*Dr] a chunk)."""
         p = proj.reshape(num_chunks, -1, self.entity_dim, self.relation_dim)
         n = neg_ent.reshape(num_chunks, -1, self.entity_dim)
-        return torch.einsum("ckd,cbdr->cbkr", n, p)
+        if n.dtype == p.dtype == torch.float32:
+            return torch.einsum("ckd,cbdr->cbkr", n, p)
+        c, bc = p.shape[:2]
+        flat = p.permute(0, 2, 1, 3).reshape(c, self.entity_dim, -1)
+        out = matmul32(n, flat).reshape(c, n.shape[1], bc, self.relation_dim)
+        return out.permute(0, 2, 1, 3)
 
     def pos_score(self, head, rel, tail):
         # head/tail already projected to [B, Dr]
@@ -150,7 +224,7 @@ class TransRScore:
             # h + r, as in the positive score (the JAX package's fix of
             # dgl-ke's |h - r - t'|)
             diff = (emb + rel)[:, :, None, :] - neg_emb
-        return self.gamma - torch.sum(torch.abs(diff), dim=-1)
+        return self.gamma - torch.sum(_Abs.apply(diff), dim=-1)
 
     def infer_score(self, head, rel, tail):
         raise NotImplementedError("TransR's all-pairs scores need the "
@@ -249,18 +323,18 @@ class RESCALScore:
                                              self.entity_dim))
 
     def pos_score(self, head, rel, tail):
-        rt = torch.matmul(self._mat(rel), tail[..., None])[..., 0]
+        rt = matmul32(self._mat(rel), tail[..., None])[..., 0]
         return torch.sum(head * rt, dim=-1)
 
     def neg_score(self, emb, rel, neg_emb, *, neg_head, num_chunks,
                   chunk_size, neg_sample_size):
         rmat = self._mat(rel)
         if neg_head:
-            tmp = torch.matmul(rmat, emb[:, :, None])[:, :, 0]     # R t
+            tmp = matmul32(rmat, emb[:, :, None])[:, :, 0]         # R t
         else:
             # h^T R, so that neg and pos scores agree (the JAX package's fix
             # of dgl-ke's (R h) . t')
-            tmp = torch.matmul(emb[:, None, :], rmat)[:, 0, :]
+            tmp = matmul32(emb[:, None, :], rmat)[:, 0, :]
         return _chunk_dot(tmp, neg_emb, num_chunks, chunk_size,
                           neg_sample_size)
 

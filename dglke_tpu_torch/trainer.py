@@ -21,11 +21,14 @@ rank ranks its stride of the split and the partial sums are combined.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
+import queue
+import threading
 import time
 from itertools import islice
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -137,30 +140,151 @@ class DevicePipeline:
                                      neg_head=neg_head)
 
 
+class Prefetcher:
+    """Background thread that pulls batches from ``it`` and prepares each
+    with ``stage`` ahead of the consumer, double-buffered (the JAX
+    package's Prefetcher), so host sampling overlaps device work.  A finite
+    stream ends the consumer's iteration; an error on the thread is raised
+    in the consumer."""
+
+    _END = object()
+
+    def __init__(self, it: Iterable, stage):
+        self._it = iter(it)
+        self._stage = stage
+        self._q: queue.Queue = queue.Queue(maxsize=2)   # double-buffered
+        self._stop = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        try:
+            for batch in self._it:
+                staged = self._stage(batch)
+                while not self._stop:
+                    try:
+                        self._q.put(staged, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop:
+                    return
+            self._q.put(self._END)
+        except Exception as e:  # surfaced to the consumer
+            self._q.put(e)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._END:
+            raise StopIteration
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def close(self):
+        self._stop = True
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2.0)
+
+
+def pack_batch(batch: dict, pin: bool) -> tuple:
+    """A TrainSampler batch's ids packed into one int32 buffer (pinned when
+    it goes to a card, so that its copy need not wait for the host):
+    (packed [h | r | t | neg], impts or None, neg_head, batch size)."""
+    ids = np.concatenate([batch["h"], batch["r"], batch["t"], batch["neg"]])
+    packed = torch.empty(len(ids), dtype=torch.int32, pin_memory=pin)
+    packed.numpy()[:] = ids
+    impts = batch["impts"]
+    if impts is not None:
+        impts = torch.from_numpy(impts)
+        impts = impts.pin_memory() if pin else impts
+    return packed, impts, batch["neg_head"], len(batch["h"])
+
+
 class HostFeed:
     """Host-fed training feed, the JAX package's route for datasets
     smaller than two batches: one TrainSampler batch a step (its numpy
     stream, a batch wrapping around a partition smaller than itself,
-    alternating sides), the ids moved to the device as int32 in one
-    transfer."""
+    alternating sides), sampled and packed ahead by a Prefetcher thread,
+    the ids moved to the device as int32 in one transfer."""
 
     def __init__(self, model: KEModel, dataset: KGDataset, batch_size: int,
                  neg_sample_size: int, seed: int = 0):
         self.device = model.device
-        self.sampler = TrainSampler(dataset, batch_size, neg_sample_size,
-                                    seed=seed)
+        pin = self.device.type == "cuda"
+        self.prefetch = Prefetcher(
+            TrainSampler(dataset, batch_size, neg_sample_size, seed=seed),
+            lambda batch: pack_batch(batch, pin))
 
     def next_batch(self):
         """(h, r, t, neg, impts or None, neg_head) for the next step."""
-        batch = next(self.sampler)
-        b = len(batch["h"])
-        packed = torch.from_numpy(np.concatenate(
-            [batch["h"], batch["r"], batch["t"], batch["neg"]]).astype(
-                np.int32)).to(self.device)
-        impts = (None if batch["impts"] is None
-                 else torch.from_numpy(batch["impts"]).to(self.device))
+        packed, impts, neg_head, b = next(self.prefetch)
+        packed = packed.to(self.device, non_blocking=True)
+        if impts is not None:
+            impts = impts.to(self.device, non_blocking=True)
         return (packed[:b], packed[b:2 * b], packed[2 * b:3 * b],
-                packed[3 * b:], impts, batch["neg_head"])
+                packed[3 * b:], impts, neg_head)
+
+    def close(self):
+        self.prefetch.close()
+
+
+class ProfileWindow:
+    """--profile: a torch.profiler trace (CPU and, on a card, CUDA
+    activities) over the JAX package's window: started at the first group
+    end at step >= 2s, stopped at the first at step >= 4s (or at the end of
+    training) once the card is synchronised, so that no kernel is cut off.
+    Written as a Chrome/Perfetto JSON trace, ``trace_rank{r}.json`` under
+    ``directory``; every rank of a --dist run writes its own, as every
+    process of the JAX package does."""
+
+    def __init__(self, directory: Optional[str], s: int, device, log,
+                 rank: int = 0):
+        self.directory, self.s, self.device, self.log = (directory, s,
+                                                         device, log)
+        self.path = (None if directory is None
+                     else os.path.join(directory, f"trace_rank{rank}.json"))
+        self.prof = None
+        self.done = False
+
+    def before(self, step: int) -> None:
+        if (self.path is not None and self.prof is None and not self.done
+                and step >= 2 * self.s):
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.start()
+
+    def span(self, step: int):
+        """A ``step N`` span around step N in the trace while it records."""
+        if self.prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"step {step}")
+
+    def after(self, step: int) -> None:
+        if self.prof is not None and step >= 4 * self.s:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        self.done = True
+        self.log("[proc 0]profiler trace written")
 
 
 def steps_per_group(cfg: KGEConfig, n_train: int, device_route: bool,
@@ -207,7 +331,8 @@ def train(config: KGEConfig, dataset: KGDataset,
           model: Optional[KEModel] = None,
           state: Optional[TrainState] = None,
           valid_samplers: Optional[list] = None,
-          save_fn=None, log=print, device=None, plan=None) -> tuple:
+          save_fn=None, log=print, device=None, plan=None,
+          profile_dir: Optional[str] = None) -> tuple:
     """Run the training loop for config.max_step steps; returns (model,
     state, stats).  Runs on the card unless ``device="cpu"`` (or a model
     on the CPU) is given.
@@ -223,7 +348,10 @@ def train(config: KGEConfig, dataset: KGDataset,
     plan when omitted) steps through it.  Every rank takes max_step steps
     of batch_size rows from its own device pipeline, seeded from (seed,
     rank); a partition under one batch is refused, and the host-fed route
-    does not run.  The step group is agreed on the smallest partition."""
+    does not run.  The step group is agreed on the smallest partition.
+
+    ``profile_dir`` (--profile): a ProfileWindow trace of steps [2s, 4s)
+    is written there."""
     cfg = config
     model = model or KEModel(cfg, dataset.n_entities, dataset.n_relations,
                              device=device, plan=plan)
@@ -241,7 +369,7 @@ def train(config: KGEConfig, dataset: KGDataset,
         from dglke_tpu_torch.host_table import train_host
         return train_host(cfg, dataset, model=model, state=state,
                           valid_samplers=valid_samplers, save_fn=save_fn,
-                          log=log)
+                          log=log, profile_dir=profile_dir)
     n_train = dataset.n_train
     rank = 0
     if plan is not None:
@@ -274,9 +402,11 @@ def train(config: KGEConfig, dataset: KGDataset,
         log(f"[proc 0]host-fed TrainSampler ({dataset.n_train} train edges "
             f"< 2 x batch_size {cfg.batch_size}): {s} steps a group")
     use_async = cfg.async_update and s > 1
+    window = ProfileWindow(profile_dir, s, model.device, log, rank)
     logs: list = []
     valid_metrics = None
     start = tic = time.time()
+    sample_time = update_time = 0.0   # the host-fed route's phase timers
 
     def flush_logs(step):
         nonlocal logs, tic
@@ -299,21 +429,33 @@ def train(config: KGEConfig, dataset: KGDataset,
 
     step = 0
     while step < cfg.max_step:
+        window.before(step)
         prev = step
         pending = None
-        for _ in range(s):
-            h, r, t, neg, impts, neg_head = feed.next_batch()
-            if use_async:
-                state, pending, log_dict = model.train_step_async(
-                    state, pending, h, r, t, neg, impts, neg_head=neg_head)
-            else:
-                state, log_dict = model.train_step(state, h, r, t, neg,
-                                                   impts, neg_head=neg_head)
+        for i in range(s):
+            with window.span(step + i):
+                t0 = time.time()
+                h, r, t, neg, impts, neg_head = feed.next_batch()
+                t1 = time.time()
+                if use_async:
+                    state, pending, log_dict = model.train_step_async(
+                        state, pending, h, r, t, neg, impts,
+                        neg_head=neg_head)
+                else:
+                    state, log_dict = model.train_step(
+                        state, h, r, t, neg, impts, neg_head=neg_head)
+            sample_time += t1 - t0
+            update_time += time.time() - t1
             logs.append(log_dict)
         model.flush_async(state, pending)
         step += s
         if crossed(step, prev, cfg.log_interval):
             flush_logs(step)
+            if not device_route:
+                log(f"[proc 0]sample: {sample_time:.3f}, "
+                    f"update: {update_time:.3f}")
+                sample_time = update_time = 0.0
+        window.after(step)
         if (cfg.valid and valid_samplers is not None
                 and crossed(step, prev, cfg.eval_interval)):
             valid_metrics = evaluate_with_samplers(
@@ -322,6 +464,9 @@ def train(config: KGEConfig, dataset: KGDataset,
         if (save_fn is not None and cfg.save_interval > 0
                 and crossed(step, prev, cfg.save_interval)):
             save_fn(state, step)
+    window.stop()
+    if not device_route:
+        feed.close()
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     total = time.time() - start

@@ -193,6 +193,12 @@ def load_model_state(config: KGEConfig, model: KEModel,
                                   if model.is_transr else None))
 
 
+def load_raw_emb(path: str, prefix: str, name: str) -> np.ndarray:
+    """One table of an npy checkpoint, ``{path}/{prefix}_{name}.npy``, as
+    saved (the JAX package's load_raw_emb)."""
+    return np.load(os.path.join(path, f"{prefix}_{name}.npy"))
+
+
 def load_config(path: str) -> KGEConfig:
     return KGEConfig.load(os.path.join(path, "config.json"))
 

@@ -1,12 +1,13 @@
 """Every flag of the JAX package's CLIs parses in dglke_tpu_torch's
 (train, eval, predict, emb_sim, convert), found by introspecting both
 parsers, and means the same value; the flags that select nothing on one
-device print the JAX package's NOTE lines, and the modes the port does not
-run are refused with their ROADMAP item.  The modes ported since they were
-first refused (--mix_cpu_gpu; --dist, --sharded_ckpt, --partition_path)
-are accepted, and --dist with --mix_cpu_gpu is refused before anything
-runs, as in the JAX package.  examples/freebase.sh's command lines
-(--table_sharding vocab) parse and pass the refusals.
+device print the JAX package's NOTE lines.  The modes ported since they
+were first refused (--mix_cpu_gpu; --dist, --sharded_ckpt,
+--partition_path; --compute_dtype bfloat16, --profile) are accepted and
+reach their config field or the trainer, and --dist with --mix_cpu_gpu is
+refused before anything runs, as in the JAX package.
+examples/freebase.sh's command lines (--table_sharding vocab) parse and
+pass the refusals.
 """
 
 import argparse
@@ -120,13 +121,16 @@ def test_inert_flags_print_one_note(flags):
 
 
 # Modes ported since they were first refused: accepted, with their NOTE
-# line (None: no line) and the config field they set, if any.
+# line (None: no line) and the (config field, value) they set, if any.
+# --profile is no config field: it reaches the trainer as profile_dir.
 PORTED = {"--mix_cpu_gpu": ("--mix_cpu_gpu keeps tables in host memory",
-                            "mix_cpu_gpu"),
+                            ("mix_cpu_gpu", True)),
           "--dist": (None, None),
           "--sharded_ckpt": (None, None),
           "--partition_path": ("--partition_path only takes effect with "
-                               "--dist", None)}
+                               "--dist", None),
+          "--profile": (None, None),
+          "--compute_dtype": (None, ("compute_dtype", "bfloat16"))}
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -134,48 +138,67 @@ PORTED = {"--mix_cpu_gpu": ("--mix_cpu_gpu keeps tables in host memory",
     (("--dist",), None),
     (("--sharded_ckpt",), None),
     (("--mix_cpu_gpu",), None),
-    (("--profile", "trace"), "A6b"),
-    (("--compute_dtype", "bfloat16"), "§C, deliberate"),
+    (("--profile", "trace"), None),
+    (("--compute_dtype", "bfloat16"), None),
 ], ids=lambda f: f[0] if isinstance(f, tuple) else None)
 def test_unported_train_flags_are_refused(flags, item):
-    if flags[0] in PORTED:
-        note, field = PORTED[flags[0]]
-        lines = []
-        pargs.refuse_unported(_train_args(*flags))
-        pargs.warn_inert_flags(_train_args(*flags), log=lines.append)
-        assert lines == [] if note is None else (
-            len(lines) == 1 and note in lines[0]), lines
-        if field is not None:
-            assert getattr(pargs.config_from_args(_train_args(*flags)),
-                           field)
-        return
-    with pytest.raises(SystemExit, match=f"ROADMAP item {item}"):
-        pargs.refuse_unported(_train_args(*flags))
-    pargs.refuse_unported(_train_args("--compute_dtype", "float32"))
+    """Every mode once refused is accepted now, with its NOTE line and its
+    config field."""
+    note, field = PORTED[flags[0]]
+    lines = []
+    pargs.refuse_unported(_train_args(*flags))
+    pargs.warn_inert_flags(_train_args(*flags), log=lines.append)
+    assert lines == [] if note is None else (
+        len(lines) == 1 and note in lines[0]), lines
+    if field is not None:
+        cfg = pargs.config_from_args(_train_args(*flags))
+        assert getattr(cfg, field[0]) == field[1]
+        assert getattr(pargs.config_from_args(_train_args()),
+                       field[0]) != field[1]
+
+
+def test_profile_reaches_the_trainer(monkeypatch, tmp_path):
+    """--profile DIR is passed to trainer.train as profile_dir (the JAX
+    package's cli/train.py:226-228)."""
+    seen = {}
+
+    def fake_train(*a, **k):
+        seen.update(k)
+        raise _Parsed
+
+    monkeypatch.setattr(ptrain, "train", fake_train)
+    monkeypatch.setattr(ptrain, "get_dataset", lambda *a, **k: _tiny_kg())
+    with pytest.raises(_Parsed):
+        ptrain.main(["--device", "cpu", "--profile", str(tmp_path / "tr"),
+                     "--save_path", str(tmp_path / "ck"),
+                     "--hidden_dim", "4"])
+    assert seen["profile_dir"] == str(tmp_path / "tr")
+
+
+def _tiny_kg():
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    return synthetic_dataset(n_entities=20, n_relations=2, n_train=40,
+                             n_valid=4, n_test=4)
 
 
 @pytest.mark.parametrize("flags,item", [
     (("--mix_cpu_gpu",), None), (("--dist",), None),
-    (("--compute_dtype", "bfloat16"), "§C, deliberate")],
+    (("--compute_dtype", "bfloat16"), None)],
     ids=lambda f: f[0] if isinstance(f, tuple) else None)
 def test_unported_eval_flags_are_refused(monkeypatch, tmp_path, flags, item):
-    if flags[0] in PORTED:
-        # accepted: the eval goes on to start its rank (--dist) or to read
-        # its dataset
-        def reached(*a, **k):
-            raise _Parsed
+    """Accepted: the eval goes on to start its rank (--dist) or to read its
+    dataset; --compute_dtype bfloat16 has no effect on eval, as in the JAX
+    package."""
+    def reached(*a, **k):
+        raise _Parsed
 
-        monkeypatch.setattr(peval, "get_dataset", reached)
-        monkeypatch.setattr(peval, "init_distributed", reached)
-        with pytest.raises(_Parsed):
-            peval.main(["--model_path", str(tmp_path), "--device", "cpu",
-                        *flags])
-        return
-    with pytest.raises(SystemExit, match=f"ROADMAP item {item}"):
+    monkeypatch.setattr(peval, "get_dataset", reached)
+    monkeypatch.setattr(peval, "init_distributed", reached)
+    with pytest.raises(_Parsed):
         peval.main(["--model_path", str(tmp_path), "--device", "cpu",
                     *flags])
     args = _eval_args(monkeypatch, "--no_mix_cpu_gpu", "--table_sharding",
-                      "vocab", "--gpu", "0", "1")
+                      "vocab", "--gpu", "0", "1", *flags)
     pargs.refuse_unported(args)
     assert args.gpu == [0, 1]
 

@@ -59,6 +59,29 @@ def test_no_jax_or_dglke_tpu_imports(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+def _native_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".cu", ".cuh", ".cpp")):
+                yield os.path.join(dirpath, f)
+
+
+@pytest.mark.parametrize("path", sorted(_native_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_native_sources_stand_alone(path):
+    """Every C++ / CUDA source of the port includes only system headers
+    and files beside it: nothing of the JAX package's native/."""
+    import re
+    here = os.path.dirname(path)
+    for line in open(path):
+        m = re.match(r'\s*#\s*include\s*"([^"]+)"', line)
+        if m:
+            assert os.path.exists(os.path.join(here, m.group(1))) and \
+                "/" not in m.group(1), (path, line)
+    from dglke_tpu_torch.data import native
+    assert str(native.SOURCE).startswith(PKG)
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

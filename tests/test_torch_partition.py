@@ -1,9 +1,10 @@
 """The port's edge partitioners and partition artifacts against the JAX
 package's: random_partition, balanced / soft relation partitioning and
 partition_for_host give the same parts; the numpy LDG gives the same
-assignment; partition_and_write writes byte-identical artifacts (random
-and LDG, the JAX side held to its numpy LDG), which load_partition reads
-back; an edgeless partition is refused as the JAX package refuses it; the
+assignment; partition_and_write writes byte-identical artifacts (random,
+and LDG with both sides held to their numpy LDG; the native default paths
+are compared in test_torch_native_partition.py), which load_partition
+reads back; an edgeless partition is refused as the JAX package refuses it; the
 partition CLI writes the same files as the JAX one."""
 
 import filecmp
@@ -101,11 +102,16 @@ def _tree_equal(a, b):
 @pytest.mark.parametrize("method", ["random", "ldg"])
 def test_partition_and_write_is_byte_identical(ds, tmp_path, monkeypatch,
                                                method):
-    # the JAX side takes its numpy LDG (it may take a native one)
+    # the numpy LDG on both sides: the JAX side falls back to it when its
+    # native call fails; the port's native call is replaced by it (the
+    # native default paths: test_torch_native_partition.py)
     from dglke_tpu.data import native
     monkeypatch.setattr(native, "ldg_partition_native",
                         lambda *a, **k: (_ for _ in ()).throw(
                             RuntimeError("numpy LDG")), raising=False)
+    monkeypatch.setattr(ppg, "ldg_partition_native",
+                        lambda h, t, n, k, seed: (
+                            ppg.ldg_partition(h, t, n, k, seed), None))
     pout = ppg.partition_and_write(ds.train, N_ENT, N_REL, 3,
                                    str(tmp_path / "p" / "partition_"),
                                    method=method)
