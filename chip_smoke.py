@@ -36,6 +36,21 @@ Phases (any failure exits non-zero and prints no result line):
      bit-identical, untouched rows unchanged; the whole K2 call timed in
      turns beside index_add_ and the plain version at four shapes, with its
      time split between the grouping and the update;
+  2b. the device pipeline's fused call (models/pipeline_step.py) as one
+     CUDA graph a group, against the group function called eagerly on the
+     same initial tables: every table, its Adagrad state and the logs bit
+     for bit, the launch counts equal, one graph (two at s = 1) and a
+     replay for every group after the first: the flagship in fp32, with
+     --compute_dtype bfloat16 and with --async_update, RESCAL with K3 in
+     the graph, TransR (hidden 200), 320 flagship steps on the phase-3
+     data's 300,000 edges whose groups straddle the epoch, and s = 1 on
+     2,500 edges whose batches straddle it.  Every single-device CLI run
+     below on the device pipeline (phases 3, 3b, 3c, 4, 5, 6) must take
+     this route: its graphs and replays are read from its log and held to
+     one graph (two at s = 1) and max_step / s - 1 replays, with its
+     launch counts held to EXPECTED_LAUNCHES through the replays; the step
+     profiles of the flagship (fp32, bf16), RESCAL and wikikg2 run on both
+     routes, with the graph launches a step and the peak allocation;
   3. the TransE_l2 main path: dglke_tpu_torch.cli.train.main on an
      FB15k-shaped synthetic dataset with the flagship flags and --test,
      with the launch counts read around that run only and held to
@@ -51,9 +66,10 @@ Phases (any failure exits non-zero and prints no result line):
      TransR (examples/fb15k.sh, hidden 200) in each direction against the
      CPU's on the same tables, at the CPU test's bf16 tolerances;
   3c. --profile: the flagship through dglke_tpu_torch-train --profile DIR,
-     200 steps: the Chrome trace parses, holds the steps [2s, 4s) and
-     lists K1, the grouping and K2 by their CUDA names as many times as
-     those steps x their launches a step; the tables bit-equal to the same
+     200 steps: the Chrome trace parses, its spans (one a replayed group)
+     cover the steps [2s, 4s), and it lists K1, the grouping and K2, run
+     inside the CUDA graph, by their CUDA names as many times as those
+     steps x their launches a step; the tables bit-equal to the same
      run's without --profile (a trace with no device event is taken once
      more);
   4. the same CLI run with --async_update (launch counts held), and a
@@ -1259,7 +1275,36 @@ def run_cli(label: str, argv: list, trained=None):
     want = EXPECTED_LAUNCHES[label]
     if any(counts[k] != v for k, v in want.items()):
         fail(f"{label}: launches {counts}, expected {want}")
+    graphs = graph_route(label, argv, text)
+    if graphs is not None:
+        print(f"{label}: {graphs[0]} steps a group, {graphs[1]} CUDA "
+              f"graph(s) captured, {graphs[2]} replays; launches held "
+              f"through the replays")
     return counts, text, trained["model"], trained["state"]
+
+
+def graph_route(label: str, argv: list, text: str):
+    """A single-device run on the device pipeline must take the CUDA graph
+    route: its log's route line says so, and its last lines give the
+    graphs captured and the replays, held to one graph (two at s = 1,
+    whose groups alternate sides) and max_step / s - 1 replays (the first
+    group runs eagerly).  Returns (s, graphs, replays), or None for a run
+    on another route (host-fed, host tables, --dist)."""
+    route = re.search(r"device-resident pipeline: (\d+) steps a group"
+                      r"(, one CUDA graph)?", text)
+    if route is None or "--dist" in argv:
+        return None
+    if route.group(2) is None:
+        fail(f"{label}: the single-device pipeline did not take the CUDA "
+             f"graph route")
+    s = int(route.group(1))
+    max_step = int(argv[argv.index("--max_step") + 1])
+    want = (2 if s == 1 else 1, max_step // s - 1)
+    got = re.search(r"CUDA graphs: (\d+) captured, (\d+) replays", text)
+    if got is None or (int(got.group(1)), int(got.group(2))) != want:
+        fail(f"{label}: CUDA graphs {got and got.groups()}, expected "
+             f"{want} (captured, replays)")
+    return (s,) + want
 
 
 def phase_main_path(recipe: dict, batch_size_eval: int,
@@ -1384,17 +1429,30 @@ def phase_step_parity(recipe: dict, n_ent: int = N_ENT, n_rel: int = N_REL):
     torch.cuda.empty_cache()
 
 
+GROUP_S = 10   # steps a group in the direct runs, as the CLI runs choose
+# What six fused calls may leave allocated on the card once they are gone.
+GRAPH_MEM_SLACK = 1 << 20
+
+
 def phase_step_profile(recipe: dict, steps: int, n_ent: int = N_ENT,
-                       n_rel: int = N_REL):
-    """Where a step's time goes: the host clock over `steps`
-    DevicePipeline steps, then torch.profiler over the same number for the
-    device's busy share and the kernels by device time.  Returns (host ms,
-    device busy ms, kernels) a step."""
+                       n_rel: int = N_REL, route: str = "eager"):
+    """Where a step's time goes, on one route: "eager" (DevicePipeline
+    steps one at a time, each op launched from Python) or "graph" (the
+    fused call, groups of GROUP_S steps, one CUDA graph replayed a group
+    after a first eager group and its capture).  The host clock over
+    `steps` steps, then torch.profiler over the same number for the
+    device's busy share, the kernels by device time and the graph
+    launches; the card's peak allocation over the timed steps, and its
+    peak reserved memory (a graph's private pool stays reserved between
+    replays, where nothing is allocated).  Returns (host ms, device busy
+    ms, kernels, graph launches) a step, the peak allocated MB and the
+    peak reserved MB."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.data.dataset import synthetic_dataset
     from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.models.pipeline_step import DevicePipelineStep
     from dglke_tpu_torch.trainer import DevicePipeline
     name = recipe["model_name"] + (
         " bf16" if recipe.get("compute_dtype") == "bfloat16" else "")
@@ -1405,34 +1463,171 @@ def phase_step_profile(recipe: dict, steps: int, n_ent: int = N_ENT,
     state = model.init_state()
     pipe = DevicePipeline(model, ds, batch,
                           cfg.num_chunks * cfg.neg_sample_size, seed=0)
+    fused = DevicePipelineStep(model, pipe, GROUP_S)
 
     def run(n):
         nonlocal state
-        for _ in range(n):
-            state, _ = pipe.run_step(state)
+        if route == "graph":
+            for _ in range(n // GROUP_S):
+                state, _ = fused(state)
+        else:
+            for _ in range(n):
+                state, _ = pipe.run_step(state)
         torch.cuda.synchronize()
 
     run(steps)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run(steps)
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    reserved_mb = torch.cuda.max_memory_reserved() / 2**20
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run(steps)
     kern = _kernel_events(prof)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
-    print(f"{name} step profile [{n_ent} x {n_rel}, batch {batch}]: "
-          f"{step_ms:.4f} ms per step on the host clock "
-          f"({batch * 1e3 / step_ms:.1f} triples/s); device busy "
+    n_kern = sum(e.count for e in kern) / steps
+    graph_launches = sum(e.count for e in prof.key_averages()
+                         if e.key == "cudaGraphLaunch") / steps
+    if route == "graph" and not (graph_launches and fused.replays):
+        fail(f"{name} graph-route profile: no CUDA graph was launched")
+    print(f"{name} step profile, {route} route [{n_ent} x {n_rel}, batch "
+          f"{batch}; {card_line()}]: {step_ms:.4f} ms per step on the host "
+          f"clock ({batch * 1e3 / step_ms:.1f} triples/s); device busy "
           f"{busy:.4f} ms per step ({100 * busy / step_ms:.1f}%, idle "
-          f"{100 - 100 * busy / step_ms:.1f}%); "
-          f"{sum(e.count for e in kern) / steps:.1f} kernels per step")
+          f"{100 - 100 * busy / step_ms:.1f}%); {n_kern:.1f} kernels and "
+          f"{graph_launches:.2f} graph launches per step; peak allocated "
+          f"{peak_mb:.1f} MB, reserved {reserved_mb:.1f} MB")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
               f"x{e.count / steps:.1f}  {e.key[:90]}")
-    del state, model
+    del state, model, fused, pipe
     torch.cuda.empty_cache()
-    return step_ms, busy, sum(e.count for e in kern) / steps
+    return step_ms, busy, n_kern, graph_launches, peak_mb, reserved_mb
+
+
+def print_route_profiles(profiles: dict) -> None:
+    """Each path's step on the graph route beside the eager route."""
+    for name in sorted({k[:-len(" graph")] for k in profiles
+                        if k.endswith(" graph")}):
+        (hg, dg, kg, lg, mg, rg), (he, de, ke, le, me, re_) = (
+            profiles[name + " graph"], profiles[name])
+        print(f"{name} step, CUDA graph against eager [{card_line()}]: host "
+              f"{hg:.4f} / {he:.4f} ms, device busy {dg:.4f} / {de:.4f} ms, "
+              f"busy share {100 * dg / hg:.1f}% / {100 * de / he:.1f}%, "
+              f"kernels {kg:.1f} / {ke:.1f} and graph launches {lg:.2f} / "
+              f"{le:.2f} a step, peak allocated {mg:.1f} / {me:.1f} MB, "
+              f"reserved {rg:.1f} / {re_:.1f} MB")
+
+
+def _same_tables(label: str, a, b) -> None:
+    for table in ("entity", "relation", "projection"):
+        x, y = getattr(a, table), getattr(b, table)
+        if x is None:
+            continue
+        for part in ("emb", "state_sum"):
+            u, v = getattr(x, part), getattr(y, part)
+            if not (u.dtype == v.dtype and (u == v).all()):
+                fail(f"{label}: the {table} {part} differs between the "
+                     f"CUDA graph and the eager group")
+
+
+def graph_parity(label: str, recipe: dict, s: int, groups: int,
+                 n_train: int = 100_000, n_valid: int = 0, n_test: int = 0,
+                 n_ent: int = N_ENT, n_rel: int = N_REL) -> None:
+    """``groups`` groups of ``s`` steps of the recipe at full width, from
+    the same initial tables, through the fused call (the first group eager
+    on its capture stream, then its CUDA graph(s) replayed) and through the
+    group function called eagerly on the default stream: every table, its
+    Adagrad state and the logs bit-equal, the launch counts equal, one
+    graph (two at s = 1) and groups - 1 replays."""
+    import torch
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.models.pipeline_step import DevicePipelineStep
+    from dglke_tpu_torch.ops import rows
+    from dglke_tpu_torch.trainer import DevicePipeline
+    cfg = KGEConfig(**recipe)
+    ds = synthetic_dataset(n_ent, n_rel, n_train=n_train, n_valid=n_valid,
+                           n_test=n_test, seed=0)
+    model = KEModel(cfg, n_ent, n_rel, device="cuda")
+    init = model.init_state()
+    neg_total = cfg.num_chunks * cfg.neg_sample_size
+    out = {}
+    t0 = time.time()
+    for route in ("graph", "eager"):
+        state = _clone(init)
+        pipe = DevicePipeline(model, ds, cfg.batch_size, neg_total,
+                              seed=cfg.seed)
+        fused = DevicePipelineStep(model, pipe, s)
+        rows.reset_launches()
+        logs = []
+        for _ in range(groups):
+            if route == "graph":
+                state, log = fused(state)
+                logs.append(torch.stack([log[k] for k in fused.keys]))
+            else:
+                pipe.begin_group(s)
+                logs.append(fused.group(state))
+                pipe.end_group(s)
+        torch.cuda.synchronize()
+        out[route] = (state, torch.cat(logs, 1), dict(rows.launches),
+                      len(fused.graphs), fused.replays, pipe.epoch)
+    (g, glog, gl, graphs, replays, epochs), (e, elog, el, _, _, _) = (
+        out["graph"], out["eager"])
+    _same_tables(label, g, e)
+    if not torch.equal(glog, elog):
+        fail(f"{label}: the logs differ between the CUDA graph and the "
+             f"eager group")
+    if gl != el or not any(gl.values()):
+        fail(f"{label}: launches {gl} on the graph route, {el} eager")
+    if (graphs, replays) != (2 if s == 1 else 1, groups - 1):
+        fail(f"{label}: {graphs} graphs, {replays} replays")
+    if g.step != e.step or g.step != init.step + s * groups:
+        fail(f"{label}: steps {g.step} / {e.step}")
+    print(f"{label}: {groups} groups of {s} steps through {graphs} CUDA "
+          f"graph(s) ({replays} replays) bit-equal to the eager group "
+          f"function (every table, its Adagrad state, {glog.shape[0]} logs "
+          f"a step), launches equal ({gl}); {epochs} epoch(s) of "
+          f"{n_train} edges passed; {time.time() - t0:.1f} s")
+    del init, out, g, e
+    torch.cuda.empty_cache()
+
+
+def phase_graph_parity() -> None:
+    """The CUDA graph route against the eager group function, bit for
+    bit: the flagship in fp32, with --compute_dtype bfloat16 and with
+    --async_update; RESCAL with K3 in the graph; TransR (hidden 200); a
+    few hundred flagship steps on the phase-3 data's 300,000 edges whose
+    groups straddle the epoch; and s = 1 on 2,500 edges, whose batches
+    straddle it (head-first and tail-first groups: two graphs).  The
+    card's allocation after the first case and after the last must agree
+    within GRAPH_MEM_SLACK: a fused call's graphs, pools and capture
+    stream hold nothing once it is gone (each capture stream of its own
+    kept a cuBLAS workspace, ~64 MB, for the rest of the process)."""
+    import torch
+    graph_parity("graph parity TransE_l2", TRANSE, GROUP_S, 4)
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    graph_parity("graph parity TransE_l2 bf16",
+                 dict(TRANSE, compute_dtype="bfloat16"), GROUP_S, 4)
+    graph_parity("graph parity TransE_l2 async",
+                 dict(TRANSE, async_update=True), GROUP_S, 4)
+    graph_parity("graph parity RESCAL", RESCAL, GROUP_S, 3)
+    graph_parity("graph parity TransR", TRANSR, GROUP_S, 3)
+    graph_parity("graph parity TransE_l2 epoch", TRANSE, 16, 20,
+                 n_train=300_000, n_valid=1000, n_test=2000)
+    graph_parity("graph parity TransE_l2 s = 1", TRANSE, 1, 8,
+                 n_train=2_500)
+    gc.collect()
+    grown = torch.cuda.memory_allocated() - base
+    print(f"graph parity: the card's allocation grew by {grown} bytes over "
+          f"six fused calls after the first")
+    if grown > GRAPH_MEM_SLACK:
+        fail(f"graph parity: {grown} bytes still allocated after six fused "
+             f"calls, above {GRAPH_MEM_SLACK}")
 
 
 # ---------------------------------------------------------------------------
@@ -3373,8 +3568,8 @@ def phase_bf16_main(fp32_metrics: dict):
 
 def print_bf16_profiles(profiles: dict) -> None:
     for name in ("TransE_l2", "RESCAL"):
-        (h32, d32, k32), (h16, d16, k16) = (profiles[name],
-                                            profiles[name + " bf16"])
+        (h32, d32, k32), (h16, d16, k16) = (profiles[name][:3],
+                                            profiles[name + " bf16"][:3])
         print(f"{name} step, bf16 compute against fp32 [{card_line()}]: "
               f"device busy {d16:.4f} / {d32:.4f} ms, host {h16:.4f} / "
               f"{h32:.4f} ms, busy share {100 * d16 / h16:.1f}% / "
@@ -3477,13 +3672,17 @@ def _profile_run(label: str, trace_dir=None):
 
 
 def _trace_kernels(path: str):
-    """(the step spans' numbers, device kernel events by name) of a
-    Chrome trace."""
+    """(the steps the step spans cover, device kernel events by name) of a
+    Chrome trace: a ``step N`` span covers step N, a replayed group's
+    ``steps N-M`` span the steps N to M."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    steps = sorted(int(m.group(1)) for e in events
-                   if e.get("cat") == "user_annotation"
-                   and (m := re.fullmatch(r"step (\d+)", str(e.get("name")))))
+    steps = []
+    for e in events:
+        m = re.fullmatch(r"steps? (\d+)(?:-(\d+))?", str(e.get("name")))
+        if e.get("cat") == "user_annotation" and m:
+            steps += range(int(m.group(1)), int(m.group(2) or m.group(1)) + 1)
+    steps.sort()
     kernels = {}
     for e in events:
         if e.get("cat") == "kernel":
@@ -3492,10 +3691,11 @@ def _trace_kernels(path: str):
 
 
 def phase_profile():
-    """The flagship through dglke_tpu_torch-train --profile DIR, 200 steps:
-    the trace parses, holds the window's steps [2s, 4s), and lists the
-    hand-written kernels by their CUDA names, each as many times as the
-    window's steps x its launches a step; the checkpoint is bit-equal to
+    """The flagship through dglke_tpu_torch-train --profile DIR, 200 steps
+    on the CUDA graph route: the trace parses, its spans (one a replayed
+    group) cover the window's steps [2s, 4s), and it lists the hand-written
+    kernels of the graph's replays by their CUDA names, each as many times
+    as the window's steps x its launches a step; the checkpoint is bit-equal to
     the same run's without --profile.  A trace with no device event is
     taken once more (said so), and fails if empty again.  Returns the
     launch counts by path."""
@@ -3762,14 +3962,20 @@ def main() -> int:
         kernels[0].update(k1_wide)
         kernels.append(k3)
         phase_outer_routes()
+        phase_graph_parity()
         main_metrics = {}
         paths = {"TransE_l2": phase_main_path(TRANSE, batch_size_eval=500,
                                               metrics=main_metrics)}
         phase_step_parity(TRANSE)
-        profiles = {"TransE_l2": phase_step_profile(TRANSE, steps=50)}
+        profiles = {"TransE_l2": phase_step_profile(TRANSE, steps=50),
+                    "TransE_l2 graph": phase_step_profile(TRANSE, steps=50,
+                                                          route="graph")}
         paths.update(phase_bf16_main(main_metrics))
-        profiles["TransE_l2 bf16"] = phase_step_profile(
-            dict(TRANSE, compute_dtype="bfloat16"), steps=50)
+        for route in ("eager", "graph"):
+            profiles["TransE_l2 bf16" + (" graph" if route == "graph"
+                                         else "")] = phase_step_profile(
+                dict(TRANSE, compute_dtype="bfloat16"), steps=50,
+                route=route)
         phase_bf16_step_parity(TRANSE)
         paths.update(phase_profile())
         paths["TransE_l2 async"] = phase_main_path(
@@ -3780,6 +3986,8 @@ def main() -> int:
                                           batch_size_eval=RESCAL_EVAL_BATCH)
         phase_step_parity(RESCAL)
         profiles["RESCAL"] = phase_step_profile(RESCAL, steps=20)
+        profiles["RESCAL graph"] = phase_step_profile(RESCAL, steps=20,
+                                                      route="graph")
         profiles["RESCAL bf16"] = phase_step_profile(
             dict(RESCAL, compute_dtype="bfloat16"), steps=20)
         phase_bf16_step_parity(RESCAL)
@@ -3795,7 +4003,11 @@ def main() -> int:
         phase_chunked_save(model, state)
         del ds, model, state
         phase_step_parity(WIKI, n_ent=WIKI_ENT, n_rel=WIKI_REL)
-        phase_step_profile(WIKI, steps=50, n_ent=WIKI_ENT, n_rel=WIKI_REL)
+        for route in ("eager", "graph"):
+            profiles["wikikg2" + (" graph" if route == "graph" else "")] = \
+                phase_step_profile(WIKI, steps=50, n_ent=WIKI_ENT,
+                                   n_rel=WIKI_REL, route=route)
+        print_route_profiles(profiles)
         gc.collect()
         torch.cuda.empty_cache()
         kernels += phase_host_kernels()

@@ -57,6 +57,22 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def take_launches(before: dict) -> dict:
+    """The launches counted since ``before`` (a copy of ``launches``), taken
+    back out of ``launches``, which returns to ``before``.  A CUDA graph's
+    capture runs the wrappers once and launches nothing: its counts are
+    taken out, and add_launches puts them back once for each replay."""
+    counted = {k: launches[k] - before[k] for k in launches}
+    launches.update(before)
+    return counted
+
+
+def add_launches(counts: dict) -> None:
+    """Count ``counts`` (launches by wrapper), as one replay launches."""
+    for k, n in counts.items():
+        launches[k] += n
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

@@ -3,7 +3,9 @@ single device).
 
 Training is fed by the device-resident pipeline, or for a dataset smaller
 than two batches by the host-fed TrainSampler, and runs in groups of
-steps; --async_update defers entity updates inside each group.
+steps; --async_update defers entity updates inside each group.  On one
+device each group of the pipeline is one fused call (on a card, one CUDA
+graph replayed).
 Evaluation ranks against every entity (filtered or raw), against sampled
 negatives (--neg_sample_size_eval), or against a candidate list
 (wikikg90M).  The log format follows the reference ("[proc 0][Train]
@@ -43,6 +45,7 @@ from dglke_tpu_torch.models.ke_model import (
     candidate_top,
     metrics_from_ranks,
 )
+from dglke_tpu_torch.models.pipeline_step import DevicePipelineStep
 
 # Domain tags of the two random streams: epoch permutations are seeded from
 # (seed, 'perm', epoch) and each step's negatives from (seed, 'negS', step),
@@ -66,12 +69,21 @@ class DevicePipeline:
     """Device-resident training feed: the triples and two epoch
     permutations live on the device, and each step samples its batch there.
 
-    Batches may straddle the epoch boundary: positions past the end of the
-    current permutation continue into the next epoch's, so no tail edge is
-    dropped (exact without-replacement epochs).  Negatives are uniform
-    ``randint`` draws on the device.  Corruption sides alternate per step,
-    head first.  Optional per-edge weights (``impts``) are gathered with the
-    batch."""
+    The permutations of the current and the next epoch sit in one static
+    ring [2, n_edges] (the JAX package's [cur | nxt]): slot epoch % 2 holds
+    epoch ``epoch``'s.  Batches may straddle the epoch boundary: positions
+    past the end of the current permutation continue into the next
+    epoch's, so no tail edge is dropped (exact without-replacement epochs).
+    When a step ends in the next epoch, the host regenerates the slot the
+    finished epoch freed with the permutation after next.  Negatives are
+    uniform ``randint`` draws on the device, each step's from a generator
+    seeded from (seed, 'negS', step).  Corruption sides alternate per step,
+    head first.  Optional per-edge weights (``impts``) are gathered with
+    the batch.
+
+    ``next_batch`` takes one step eagerly.  A group of steps
+    (models/pipeline_step.py, the fused call) runs begin_group, the batches
+    of group_batches, then end_group; its batches are next_batch's."""
 
     def __init__(self, model: KEModel, dataset: KGDataset, batch_size: int,
                  neg_total: int, seed: int = 0, rank: int = 0):
@@ -95,9 +107,14 @@ class DevicePipeline:
         # single-device streams
         self.rank_words = (rank,) if rank else ()
         self.neg_gen = torch.Generator(self.device)
+        self.gens: list = []    # a group's generators, one a step
+        self.ring = torch.empty((2, self.n_edges), dtype=torch.int64,
+                                device=self.device)
+        self.ring[0] = self._permutation(0)
+        self.ring[1] = self._permutation(1)
+        # the ring position of a group's first row, [epoch % 2, pos] flat
+        self.start = torch.zeros((), dtype=torch.int64, device=self.device)
         self.epoch = 0
-        self.cur = self._permutation(0)
-        self.nxt = self._permutation(1)
         self.pos = 0
         self.step_idx = 0
 
@@ -108,31 +125,69 @@ class DevicePipeline:
         return torch.randperm(self.n_edges, generator=gen,
                               device=self.device)
 
-    def next_batch(self):
-        """(h, r, t, neg, impts or None, neg_head) for the next step."""
-        end = self.pos + self.b
-        if end <= self.n_edges:
-            idx = self.cur[self.pos:end]
-        else:
-            idx = torch.cat([self.cur[self.pos:],
-                             self.nxt[:end - self.n_edges]])
-        self.pos = end
+    def _neg_seed(self, step: int) -> int:
+        return _stream_seed(self.seed, _NEG_TAG, step, *self.rank_words)
+
+    def _advance(self, steps: int) -> None:
+        """Past ``steps`` steps: into the next epoch if they reached it,
+        whose successor's permutation then fills the freed slot."""
+        self.pos += steps * self.b
+        self.step_idx += steps
         if self.pos >= self.n_edges:
             self.pos -= self.n_edges
             self.epoch += 1
-            self.cur = self.nxt
-            self.nxt = self._permutation(self.epoch + 1)
+            self.ring[(self.epoch + 1) % 2] = self._permutation(
+                self.epoch + 1)
+
+    def next_batch(self):
+        """(h, r, t, neg, impts or None, neg_head) for the next step."""
+        end = self.pos + self.b
+        cur = self.ring[self.epoch % 2]
+        if end <= self.n_edges:
+            idx = cur[self.pos:end]
+        else:
+            idx = torch.cat([cur[self.pos:],
+                             self.ring[(self.epoch + 1) % 2][
+                                 :end - self.n_edges]])
         h, r, t = self.triples[:, idx]
-        self.neg_gen.manual_seed(_stream_seed(self.seed, _NEG_TAG,
-                                              self.step_idx,
-                                              *self.rank_words))
+        impts = self.impts[idx] if self.impts is not None else None
+        self.neg_gen.manual_seed(self._neg_seed(self.step_idx))
         neg = torch.randint(0, self.model.n_entities, (self.neg_total,),
                             generator=self.neg_gen, device=self.device,
                             dtype=torch.int32)
-        impts = self.impts[idx] if self.impts is not None else None
         neg_head = self.step_idx % 2 == 0
-        self.step_idx += 1
+        self._advance(1)
         return h, r, t, neg, impts, neg_head
+
+    def begin_group(self, s: int) -> None:
+        """Host work before a group of ``s`` steps (at most an epoch): where
+        it starts in the ring, and the seeds of its steps' generators."""
+        self.start.fill_((self.epoch % 2) * self.n_edges + self.pos)
+        while len(self.gens) < s:
+            self.gens.append(torch.Generator(self.device))
+        for i in range(s):
+            self.gens[i].manual_seed(self._neg_seed(self.step_idx + i))
+
+    def group_batches(self, s: int) -> list:
+        """The batches of the group begin_group set up, each as next_batch
+        gives it, from device tensors only (what a CUDA graph of the group
+        records): the group's s x b ring positions run on from ``start``
+        and wrap at the ring's end."""
+        n, b = self.n_edges, self.b
+        flat = torch.remainder(
+            self.start + torch.arange(s * b, device=self.device), 2 * n)
+        idx = self.ring.view(-1)[flat].view(s, b)
+        h, r, t = self.triples[:, idx]
+        impts = self.impts[idx] if self.impts is not None else None
+        return [(h[i], r[i], t[i],
+                 torch.randint(0, self.model.n_entities, (self.neg_total,),
+                               generator=self.gens[i], device=self.device,
+                               dtype=torch.int32),
+                 None if impts is None else impts[i],
+                 (self.step_idx + i) % 2 == 0) for i in range(s)]
+
+    def end_group(self, s: int) -> None:
+        self._advance(s)
 
     def run_step(self, state: TrainState):
         h, r, t, neg, impts, neg_head = self.next_batch()
@@ -264,11 +319,14 @@ class ProfileWindow:
             self.prof = profile(activities=acts)
             self.prof.start()
 
-    def span(self, step: int):
-        """A ``step N`` span around step N in the trace while it records."""
+    def span(self, step: int, last: Optional[int] = None):
+        """A ``step N`` span around step N in the trace while it records,
+        or a ``steps N-M`` span around the steps N to M of a replayed
+        group."""
         if self.prof is None:
             return contextlib.nullcontext()
-        return torch.profiler.record_function(f"step {step}")
+        return torch.profiler.record_function(
+            f"step {step}" if last is None else f"steps {step}-{last}")
 
     def after(self, step: int) -> None:
         if self.prof is not None and step >= 4 * self.s:
@@ -341,7 +399,9 @@ def train(config: KGEConfig, dataset: KGDataset,
     pipeline, a smaller one by the host-fed TrainSampler, as in the JAX
     package.  Steps run in groups of ``steps_per_group``; with
     --async_update each step's entity update is applied after the next
-    step's gather, and the group's last one at its end.
+    step's gather, and the group's last one at its end.  On one device the
+    pipeline's groups are fused calls (models/pipeline_step.py): on a card
+    one CUDA graph replayed a group, on the CPU the same group eagerly.
 
     ``plan``: this rank's parallel.mesh.ShardingPlan (--dist); ``dataset``
     is then this rank's edge partition, and ``model`` (built with the
@@ -389,13 +449,18 @@ def train(config: KGEConfig, dataset: KGDataset,
                  else model.init_state())
     device_route = plan is not None or n_train >= 2 * cfg.batch_size
     s = steps_per_group(cfg, n_train, device_route, log=log)
+    fused = None   # the fused call of the single-device pipeline
     if device_route:
         feed = DevicePipeline(model, dataset, cfg.batch_size,
                               cfg.num_chunks * cfg.neg_sample_size,
                               seed=cfg.seed, rank=rank)
-        log(f"[proc 0]device-resident pipeline: {s} steps a group"
-            + (f", {plan.n} ranks x {cfg.batch_size} rows a step"
-               if plan is not None else ""))
+        if plan is None:
+            fused = DevicePipelineStep(model, feed, s)
+            how = (", one CUDA graph" if model.device.type == "cuda"
+                   else ", each group eagerly on the CPU")
+        else:
+            how = f", {plan.n} ranks x {cfg.batch_size} rows a step"
+        log(f"[proc 0]device-resident pipeline: {s} steps a group{how}")
     else:
         feed = HostFeed(model, dataset, cfg.batch_size, cfg.neg_sample_size,
                         seed=cfg.seed)
@@ -411,7 +476,8 @@ def train(config: KGEConfig, dataset: KGDataset,
     def flush_logs(step):
         nonlocal logs, tic
         keys = list(logs[0])
-        means = torch.stack([torch.stack([entry[k] for entry in logs]).mean()
+        means = torch.stack([torch.cat([entry[k].reshape(-1)
+                                        for entry in logs]).mean()
                              for k in keys])
         if plan is not None:
             # each rank logged its part of the global batch's values
@@ -431,23 +497,27 @@ def train(config: KGEConfig, dataset: KGDataset,
     while step < cfg.max_step:
         window.before(step)
         prev = step
-        pending = None
-        for i in range(s):
-            with window.span(step + i):
-                t0 = time.time()
-                h, r, t, neg, impts, neg_head = feed.next_batch()
-                t1 = time.time()
-                if use_async:
-                    state, pending, log_dict = model.train_step_async(
-                        state, pending, h, r, t, neg, impts,
-                        neg_head=neg_head)
-                else:
-                    state, log_dict = model.train_step(
-                        state, h, r, t, neg, impts, neg_head=neg_head)
-            sample_time += t1 - t0
-            update_time += time.time() - t1
+        if fused is not None:
+            state, log_dict = fused(state, window.span)
             logs.append(log_dict)
-        model.flush_async(state, pending)
+        else:
+            pending = None
+            for i in range(s):
+                with window.span(step + i):
+                    t0 = time.time()
+                    h, r, t, neg, impts, neg_head = feed.next_batch()
+                    t1 = time.time()
+                    if use_async:
+                        state, pending, log_dict = model.train_step_async(
+                            state, pending, h, r, t, neg, impts,
+                            neg_head=neg_head)
+                    else:
+                        state, log_dict = model.train_step(
+                            state, h, r, t, neg, impts, neg_head=neg_head)
+                sample_time += t1 - t0
+                update_time += time.time() - t1
+                logs.append(log_dict)
+            model.flush_async(state, pending)
         step += s
         if crossed(step, prev, cfg.log_interval):
             flush_logs(step)
@@ -470,6 +540,9 @@ def train(config: KGEConfig, dataset: KGDataset,
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     total = time.time() - start
+    if fused is not None and model.device.type == "cuda":
+        log(f"[proc 0]CUDA graphs: {len(fused.graphs)} captured, "
+            f"{fused.replays} replays")
     log(f"[proc 0]training takes {total} seconds")
     stats = {"train_time": total}
     if valid_metrics is not None:
