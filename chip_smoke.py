@@ -47,10 +47,34 @@ Phases (any failure exits non-zero and prints no result line):
      2,500 edges whose batches straddle it.  Every single-device CLI run
      below on the device pipeline (phases 3, 3b, 3c, 4, 5, 6) must take
      this route: its graphs and replays are read from its log and held to
-     one graph (two at s = 1) and max_step / s - 1 replays, with its
-     launch counts held to EXPECTED_LAUNCHES through the replays; the step
-     profiles of the flagship (fp32, bf16), RESCAL and wikikg2 run on both
-     routes, with the graph launches a step and the peak allocation;
+     one graph and max_step / s - 1 replays (s = 1 must not reach the
+     pipeline on one device), with its launch counts held to
+     EXPECTED_LAUNCHES through the replays; the step profiles of the
+     flagship (fp32, bf16), RESCAL and wikikg2 run on both routes, with the
+     graph launches a step and the peak allocation;
+  2c. the eval's fused calls (models/eval_step.py: a group of eval batches
+     a call, one CUDA graph a call shape, replayed), against the group
+     functions called eagerly, batched alike (each tail group padded to its
+     call shape), on the same fresh tables at full width: the
+     ranks (top-10 positions) bit for bit, the launches equal, a graph for
+     each call shape called twice or more and a replay for each later call
+     (phase_eval_graphs): the filtered full-entity flagship, RotatE raw (a
+     broadcast form, its block following the group's rows), TransR (hidden
+     200), RESCAL (hidden 500), sampled eval filtered by its keep masks and
+     with neg_deg_sample (a padded tail group of 29 batches), the candidate
+     protocol (1,001 candidates) in Valid and Test mode; each at
+     examples/fb15k.sh's --batch_size_eval 16 on the phase-3 data.  After
+     phase 3c (whose trace is counted before this phase's CUDA-only
+     profiler session), the eval at the recipe's size (phase_eval_recipe):
+     dglke_tpu_torch-eval over phase 3's checkpoint on FB15k's 59,071 test
+     triples at batch 16, filtered, with planted hubs in its train split
+     (filter widths 8 to 16,384, a bucket of two chunks), its launches and
+     eval graphs held; then the fused route again and the per-batch route
+     as the trainer ran it before its fused calls (per_batch_ranks) on
+     the same tables: seconds a split, device busy share, peak memory,
+     MRR, the ranks equal but at near ties (counted).  Every single-device
+     CLI run's eval graph line is held to EXPECTED_EVAL_GRAPHS
+     (eval_graphs);
   3. the TransE_l2 main path: dglke_tpu_torch.cli.train.main on an
      FB15k-shaped synthetic dataset with the flagship flags and --test,
      with the launch counts read around that run only and held to
@@ -71,11 +95,16 @@ Phases (any failure exits non-zero and prints no result line):
      inside the CUDA graph, by their CUDA names as many times as those
      steps x their launches a step; the tables bit-equal to the same
      run's without --profile (a trace with no device event is taken once
-     more);
+     more); then the same run with --valid every 50 steps at batch 16
+     (phase_valid_graphs): training graph and eval graphs in one run, the
+     eval graphs captured in the first Valid eval and replayed by the
+     later ones, the tables bit-equal to the run without eval;
   4. the same CLI run with --async_update (launch counts held), and a
      dataset smaller than two batches (1,500 train edges at batch 1,000)
      through the CLI, which must take the host-fed route, launch K1, the
-     grouping and K2 every step, and train;
+     grouping and K2 every step, and train; and an odd --max_step (step
+     group size 1) on the phase-3 data, which on one device must take the
+     host-fed route too (phase_step_one);
   5. the RESCAL main path, the same three parts as phase 3: the CLI with
      the flags of examples/fb15k.sh (hidden 500), --max_step 1000 and
      --test on the same data, its launch counts read around that run only
@@ -111,7 +140,12 @@ Phases (any failure exits non-zero and prints no result line):
      against the CPU's on the same rows, equal but at near ties (counted);
      the candidate protocol, 2,000 queries x 1,001 candidates (wikikg90M's
      count, rows listing a candidate twice), in Valid and Test mode, ranks
-     and top-10 positions against the CPU's, equal but at near ties; K1
+     and top-10 positions against the CPU's, equal but at near ties; the
+     sampled eval and the candidate protocol timed on the fused route and on
+     the per-batch route (phase_wiki_eval_routes, phase_candidates); the
+     sampled ranks of the two routes equal but at near ties (counted), the
+     candidate ranks and top-10 of the fused route equal on every row to
+     those of the card's own scores at its call shape; K1
      and the whole K2 call at the path's entity shape (1,536 ids over the
      5.0 GB table, cold in L2) in turns beside index_select / index_add_
      and the plain versions, with the bounds.  Then two full-width steps
@@ -191,6 +225,7 @@ import subprocess
 import sys
 import threading
 import time
+from itertools import islice
 from pathlib import Path
 
 import numpy as np
@@ -250,10 +285,13 @@ MAIN_STEPS = 1000
 # the ranks a little, not more than this.
 RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 # Launches in each main path's run alone (1,000 steps, then the test eval):
-# K1 twice per step (entity and relation rows) and 32 times in the eval; K2
-# once per step for each table it updates, and the id grouping once before
-# each K2 and each K3 call (never torch.sort).  RESCAL's relation update
-# goes through K3 on every step and never through K2.
+# K1 twice per step (entity and relation rows) and 8 times in the eval
+# (the 2,000 test triples at batch 500 are 4 batches a mode, all of filter
+# width 8: one group call a mode, trainer._mega_eval, each gathering the
+# rows of h, t and r and the 14,951 candidate rows); K2 once per step for
+# each table it updates, and the id grouping once before each K2 and each
+# K3 call (never torch.sort).  RESCAL's relation update goes through K3 on
+# every step and never through K2.
 #
 # TransE_l2 with --async_update launches the same: each step's entity
 # update is applied once, one step late inside each group of 10 steps (the
@@ -263,24 +301,41 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 #
 # wikikg2: two K1, two groupings and two K2 a step over 1,000 steps; the
 # sampled test eval of 20,000 triples in batches of 32 is 625 batches a
-# mode, ranked in groups of 32 batches (trainer.SAMPLED_GROUP): 20 calls a
-# mode, each two K1 (the entity rows [h | t | neg], the relation rows),
-# so 80 K1 in the eval.
+# mode, ranked in groups of 32 batches (trainer.EVAL_GROUP, the tail group
+# padded): 20 calls a mode, each two K1 (the entity rows [h | t | neg], the
+# relation rows), so 80 K1 in the eval.
 EXPECTED_LAUNCHES = {
-    "TransE_l2": {"gather_rows": 2032, "group_ids": 2000,
+    "TransE_l2": {"gather_rows": 2008, "group_ids": 2000,
                   "group_ids_sort": 0, "sparse_adagrad_rows": 2000,
                   "outer_adagrad_update": 0},
-    "TransE_l2 async": {"gather_rows": 2032, "group_ids": 2000,
+    "TransE_l2 async": {"gather_rows": 2008, "group_ids": 2000,
                         "group_ids_sort": 0, "sparse_adagrad_rows": 2000,
                         "outer_adagrad_update": 0},
     "TransE_l2 host-fed": {"gather_rows": 200, "group_ids": 200,
                            "group_ids_sort": 0, "sparse_adagrad_rows": 200,
                            "outer_adagrad_update": 0},
-    "RESCAL": {"gather_rows": 2032, "group_ids": 2000, "group_ids_sort": 0,
+    "RESCAL": {"gather_rows": 2008, "group_ids": 2000, "group_ids_sort": 0,
                "sparse_adagrad_rows": 1000, "outer_adagrad_update": 1000},
     "wikikg2": {"gather_rows": 2080, "group_ids": 2000, "group_ids_sort": 0,
                 "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0},
 }
+# The eval's CUDA graphs a run captures and replays (phase 2c), summed over
+# its evals: each static call shape's first call runs eagerly, its second
+# captures, and it and every later one replay.  The main paths' test evals
+# make one call a mode (nothing captured); wikikg2's sampled eval makes 20
+# calls a mode (one graph each, 19 replays).  EVAL_RECIPE_GRAPHS below adds
+# the recipe-size eval.
+EXPECTED_EVAL_GRAPHS = {"TransE_l2": (0, 0), "TransE_l2 async": (0, 0),
+                        "TransE_l2 bf16": (0, 0), "RESCAL": (0, 0),
+                        "wikikg2": (2, 38)}
+# Step group size 1 on one device (an odd --max_step): the host-fed
+# TrainSampler, as in the JAX package, a step launching K1, the grouping
+# and K2 twice each.  S1_STEPS steps on the phase-3 data, no eval.
+S1_STEPS = 301
+EXPECTED_LAUNCHES["TransE_l2 s = 1"] = {
+    "gather_rows": 2 * S1_STEPS, "group_ids": 2 * S1_STEPS,
+    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * S1_STEPS,
+    "outer_adagrad_update": 0}
 # Host-resident tables (--mix_cpu_gpu): each step gathers the entity and
 # the relation rows from the mapped host tables (K1 x 2) and writes both
 # back (a grouping and K2 each), 1,000 steps.  The flagship's filtered
@@ -288,7 +343,7 @@ EXPECTED_LAUNCHES = {
 # queries' [h | t] entity rows and their relation rows (K1 x 2); the table
 # streams through the card by plain copies, no kernel.  The capacity run's
 # sampled test eval (2,000 triples, batches of 1,000) is 2 batches a mode,
-# one grouped call a mode (trainer.SAMPLED_GROUP), two K1 each.
+# one grouped call a mode (host_table.py), two K1 each.
 for _label in ("TransE_l2 host", "Freebase host"):
     EXPECTED_LAUNCHES[_label] = {"gather_rows": 2004, "group_ids": 2000,
                                  "group_ids_sort": 0,
@@ -1280,16 +1335,21 @@ def run_cli(label: str, argv: list, trained=None):
         print(f"{label}: {graphs[0]} steps a group, {graphs[1]} CUDA "
               f"graph(s) captured, {graphs[2]} replays; launches held "
               f"through the replays")
+    evals = eval_graphs(label, text)
+    if evals is not None:
+        print(f"{label}: eval CUDA graphs {evals[0]} captured, {evals[1]} "
+              f"replays, as expected")
     return counts, text, trained["model"], trained["state"]
 
 
 def graph_route(label: str, argv: list, text: str):
     """A single-device run on the device pipeline must take the CUDA graph
     route: its log's route line says so, and its last lines give the
-    graphs captured and the replays, held to one graph (two at s = 1,
-    whose groups alternate sides) and max_step / s - 1 replays (the first
-    group runs eagerly).  Returns (s, graphs, replays), or None for a run
-    on another route (host-fed, host tables, --dist)."""
+    graphs captured and the replays, held to one graph and max_step / s - 1
+    replays (the first group runs eagerly).  Step group size 1 must not
+    reach the single-device pipeline (it takes the host-fed route, as the
+    JAX package does).  Returns (s, graphs, replays), or None for a run on
+    another route (host-fed, host tables, --dist)."""
     route = re.search(r"device-resident pipeline: (\d+) steps a group"
                       r"(, one CUDA graph)?", text)
     if route is None or "--dist" in argv:
@@ -1298,13 +1358,34 @@ def graph_route(label: str, argv: list, text: str):
         fail(f"{label}: the single-device pipeline did not take the CUDA "
              f"graph route")
     s = int(route.group(1))
+    if s == 1:
+        fail(f"{label}: step group size 1 took the device pipeline on one "
+             f"device, not the host-fed route")
     max_step = int(argv[argv.index("--max_step") + 1])
-    want = (2 if s == 1 else 1, max_step // s - 1)
-    got = re.search(r"CUDA graphs: (\d+) captured, (\d+) replays", text)
+    want = (1, max_step // s - 1)
+    got = re.search(r"\[proc 0\]CUDA graphs: (\d+) captured, (\d+) replays",
+                    text)
     if got is None or (int(got.group(1)), int(got.group(2))) != want:
         fail(f"{label}: CUDA graphs {got and got.groups()}, expected "
              f"{want} (captured, replays)")
     return (s,) + want
+
+
+def eval_graphs(label: str, text: str):
+    """The eval CUDA graph lines of a run's log ("[0]Test eval CUDA graphs:
+    N captured, M replays", one for each eval), summed and held to
+    EXPECTED_EVAL_GRAPHS[label]; a run not listed there (no eval, host
+    tables, --dist) must print none.  Returns (captured, replays) or
+    None."""
+    lines = re.findall(r"\w+ eval CUDA graphs: (\d+) captured, (\d+) "
+                       r"replays", text)
+    got = (tuple(sum(int(x[i]) for x in lines) for i in (0, 1)) if lines
+           else None)
+    want = EXPECTED_EVAL_GRAPHS.get(label)
+    if got != want:
+        fail(f"{label}: eval CUDA graphs (captured, replays) {got}, "
+             f"expected {want}")
+    return got
 
 
 def phase_main_path(recipe: dict, batch_size_eval: int,
@@ -1628,6 +1709,519 @@ def phase_graph_parity() -> None:
     if grown > GRAPH_MEM_SLACK:
         fail(f"graph parity: {grown} bytes still allocated after six fused "
              f"calls, above {GRAPH_MEM_SLACK}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c: the eval's fused calls
+
+# examples/fb15k.sh evaluates every FB15k recipe at --batch_size_eval 16.
+EVAL_BATCH = 16
+# RotatE as examples/fb15k.sh:41-43 trains it (hidden 200, -de): a
+# broadcast score form, whose eval block shrinks with the group's rows.
+ROTATE = dict(model_name="RotatE", hidden_dim=200, gamma=12.0, lr=0.009,
+              batch_size=2048, neg_sample_size=256,
+              neg_adversarial_sampling=True, regularization_coef=1e-7,
+              double_ent=True)
+# The recipe-size eval: FB15k's published test split, 59,071 triples,
+# filtered, at EVAL_BATCH, over phase 3's flagship checkpoint.  Its train
+# split (the filter's) is phase 3's 300,000 edges plus planted hubs, FB15k's
+# kind of (h, r) and (r, t) pairs with hundreds to thousands of answers:
+# (the corrupted side, the fixed entity, the relation, its answers, the
+# test triples drawn from them).  The 6,400 test triples of the widest
+# hub fill 400 batches of filter width 16,384, more than one chunk of
+# _MEGA_BUDGET holds (384 batches); the others add the widths 4,096, 1,024
+# and 256; the rest of the split is the generator's, of width 8.
+EVAL_TEST = 59_071
+# The per-batch route (~2 x 10^5 kernels a split) is profiled over its
+# first EVAL_PROFILE_CUT batches a mode only: a trace of the whole split
+# takes longer than the rest of the phase.
+EVAL_PROFILE_CUT = 1000
+EVAL_HUBS = (("tail", 7, 3, 9000, 6400), ("tail", 11, 5, 3000, 64),
+             ("head", 13, 9, 700, 64), ("tail", 17, 12, 200, 64))
+
+
+def per_batch_ranks(model, state, samplers):
+    """The eval as the trainer ran it before its fused calls, the
+    baseline of phase 2c: a full-entity batch a call and sampled batches
+    in unpadded groups of 32, each call's inputs uploaded from pageable
+    numpy, eagerly; the ranks read back once at the end.  Returns the rank
+    array."""
+    import torch
+    dev = model.device
+    out = []
+    for sampler in samplers:
+        it = iter(sampler)
+        while True:
+            group = list(islice(it, 32))
+            if not group:
+                break
+            if "neg" in group[0]:
+                def stack(k, group=group):
+                    return torch.as_tensor(np.stack([b[k] for b in group]),
+                                           device=dev)
+                n_valid = [b["n_valid"] for b in group]
+                ranks = model.eval_ranks_sampled(
+                    state, stack("h"), stack("r"), stack("t"), stack("neg"),
+                    stack("neg_keep") if "neg_keep" in group[0] else None,
+                    neg_head=group[0]["neg_head"],
+                    neg_deg_sample=group[0]["neg_deg_sample"],
+                    n_valid=torch.as_tensor(n_valid, device=dev))
+                out += [ranks[i, :n] for i, n in enumerate(n_valid)]
+                continue
+            for b in group:
+                h, r, t = (torch.as_tensor(b[k], device=dev)
+                           for k in ("h", "r", "t"))
+                if "filter_ids" in b:
+                    fid = torch.as_tensor(b["filter_ids"], device=dev)
+                    fm = torch.as_tensor(b["filter_mask"], device=dev)
+                else:
+                    fid = torch.zeros((len(b["h"]), 8), dtype=torch.int32,
+                                      device=dev)
+                    fm = torch.zeros((len(b["h"]), 8), dtype=torch.uint8,
+                                     device=dev)
+                out.append(model.eval_ranks(state, h, r, t, fid, fm,
+                                            neg_head=b["neg_head"])
+                           [:b["n_valid"]])
+    return torch.cat(out).cpu().numpy()
+
+
+def per_batch_candidates(model, state, sampler, top: bool) -> np.ndarray:
+    """The candidate protocol as the trainer ran it before its fused calls
+    (the baseline): a batch a call, uploaded from pageable numpy, eagerly;
+    the answers' ranks, or with ``top`` the top-10 positions."""
+    import torch
+    from dglke_tpu_torch.models.ke_model import candidate_ranks, candidate_top
+    dev = model.device
+    b = sampler.batch_size
+    out = []
+    for beg in range(0, len(sampler.hr), b):
+        hr = torch.as_tensor(sampler.hr[beg:beg + b], device=dev)
+        cand = torch.as_tensor(sampler.cand[beg:beg + b], device=dev)
+        scores = model.candidate_scores(state, hr[:, 0], hr[:, 1], cand)
+        if top:
+            out.append(candidate_top(scores))
+        else:
+            ans = torch.as_tensor(sampler.ans[beg:beg + b], device=dev)
+            out.append(candidate_ranks(scores, ans))
+    return torch.cat(out).cpu().numpy()
+
+
+def _eval_ranks_of(fn):
+    """The rank array an evaluate call hands combine_rank_metrics."""
+    with _RankLog() as log:
+        fn()
+    (ranks,) = log.ranks
+    return ranks
+
+
+def eval_graph_parity(label: str, recipe: dict, run) -> None:
+    """The recipe's eval at full width on fresh tables, through the eval's
+    fused calls twice: batched as for graphs, every call's group function
+    eagerly on the default stream (EagerCalls), then the graph route
+    (each call shape eager once on the capture stream, captured at its
+    second call, replayed from there).  ``run(cfg, model, state)`` returns
+    the outputs (rank arrays, top-10 positions).  They must be bit-equal,
+    the launch
+    counts equal, the memo keys the same, and the graphs and replays those
+    the keys' call counts give: a graph for each key called twice or more,
+    a replay for each call after a key's first."""
+    import torch
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.models.eval_step import EvalCalls
+    from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.ops import rows
+
+    class EagerCalls(EvalCalls):
+        """The baseline: each call's group function eagerly on the
+        current stream, its memo key counted."""
+
+        def _call(self, state, static, fn, args):
+            self.keys[self._key(state, static, args)] += 1
+            return fn(*args)
+
+    cfg = KGEConfig(**recipe)
+    model = KEModel(cfg, N_ENT, N_REL, device="cuda")
+    state = model.init_state()
+    out = {}
+    for route in ("eager", "graph"):
+        model.eval_calls = calls = (EvalCalls if route == "graph"
+                                    else EagerCalls)(model)
+        rows.reset_launches()
+        t0 = time.perf_counter()
+        res = run(cfg, model, state)
+        torch.cuda.synchronize()
+        out[route] = (res, dict(rows.launches), calls.captured,
+                      calls.replays, dict(calls.keys),
+                      time.perf_counter() - t0)
+    (g, gl, cap, rep, keys, gs), (e, el, ecap, erep, ekeys, es) = (
+        out["graph"], out["eager"])
+    if len(g) != len(e) or not all(a.shape == b.shape and np.array_equal(
+            a, b) for a, b in zip(g, e)):
+        fail(f"{label}: the outputs of the CUDA graphs differ from the "
+             f"eager group functions'")
+    if gl != el or not gl["gather_rows"]:
+        fail(f"{label}: launches {gl} on the graph route, {el} eager")
+    want = (sum(n >= 2 for n in keys.values()),
+            sum(n - 1 for n in keys.values()))
+    if keys != ekeys or (cap, rep) != want or not cap or (ecap, erep) != (
+            0, 0):
+        fail(f"{label}: {cap} graphs, {rep} replays (the keys' calls give "
+             f"{want}); eager {ecap}, {erep}")
+    print(f"{label}: {sum(keys.values())} calls of {len(keys)} call shapes; "
+          f"{cap} CUDA graph(s) captured, {rep} replays, outputs "
+          f"({', '.join(str(a.shape) for a in g)}) bit-equal to the eager "
+          f"group functions, launches equal ({gl}); {gs:.2f} s graph route "
+          f"(captures included), {es:.2f} s eager")
+    del model, state, out
+    torch.cuda.empty_cache()
+
+
+def phase_eval_graphs() -> None:
+    """Phase 2c's bit-equality cases, on the phase-3 data (2,000 test
+    triples) at EVAL_BATCH: the filtered full-entity flagship; RotatE raw
+    (a broadcast form: the block width follows the group's rows); TransR
+    (hidden 200); RESCAL (hidden 500); sampled eval (500 negatives,
+    filtered by the keep masks; and with neg_deg_sample), 125 batches a
+    mode in groups of 32 whose last group of 29 is padded; the candidate
+    protocol (2,000 queries x 1,001 candidates, batch 32) in Valid and Test
+    mode."""
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    from dglke_tpu_torch.data.sampler import FilterIndex
+    from dglke_tpu_torch.trainer import (
+        CandidateEvalSampler,
+        candidate_outputs,
+        evaluate,
+    )
+    quiet = lambda *a: None  # noqa: E731
+    ds = synthetic_dataset(n_entities=N_ENT, n_relations=N_REL,
+                           n_train=300_000, n_valid=1000, n_test=2000,
+                           seed=0)
+    fi = FilterIndex(ds)
+
+    def full(cfg, model, state):
+        return [_eval_ranks_of(lambda: evaluate(
+            cfg, ds, model, state, "test",
+            filter_index=fi if cfg.eval_filter else None, log=quiet))]
+
+    for label, recipe in (
+            ("TransE_l2 filtered", TRANSE),
+            ("RotatE raw", dict(ROTATE, no_eval_filter=True)),
+            ("TransR filtered", TRANSR), ("RESCAL filtered", RESCAL),
+            ("sampled filtered", dict(TRANSE,
+                                      neg_sample_size_eval=WIKI_EVAL_NEG)),
+            ("sampled neg_deg_sample", dict(
+                TRANSE, neg_sample_size_eval=WIKI_EVAL_NEG,
+                neg_deg_sample_eval=True, no_eval_filter=True))):
+        eval_graph_parity(f"eval graphs {label}",
+                          dict(recipe, batch_size_eval=EVAL_BATCH), full)
+
+    def candidates(cfg, model, state):
+        sampler = CandidateEvalSampler(_candidates(ds), cfg.batch_size_eval)
+        return [candidate_outputs(model.eval_calls, state, sampler, top=top,
+                                  phase=phase)
+                for top, phase in ((False, "Valid"), (True, "Test"))]
+
+    eval_graph_parity("eval graphs candidates Valid and Test",
+                      dict(TRANSE, batch_size_eval=WIKI_EVAL_BATCH),
+                      candidates)
+
+
+def _fb15k_recipe_eval(name: str) -> str:
+    """The recipe-size eval's dataset under WORK/name (EVAL_TEST test
+    triples, the planted EVAL_HUBS), written once; returns its
+    directory."""
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    path = os.path.join(WORK, name)
+    if os.path.isdir(path):
+        return path
+    n_hub = sum(hub[4] for hub in EVAL_HUBS)
+    ds = synthetic_dataset(n_entities=N_ENT, n_relations=N_REL,
+                           n_train=300_000, n_valid=1000,
+                           n_test=EVAL_TEST - n_hub, seed=0)
+    rng = np.random.RandomState(11)
+    train, test = [ds.train], [ds.test]
+    for side, e, r, n, n_test in EVAL_HUBS:
+        many = rng.choice(N_ENT, n, replace=False)
+        one, rel = np.full(n, e), np.full(n, r)
+        tri = (one, rel, many) if side == "tail" else (many, rel, one)
+        train.append(tri)
+        test.append(tuple(x[:n_test] for x in tri))
+    ds.train, ds.test = (tuple(np.concatenate([p[k] for p in parts])
+                               for k in range(3)) for parts in (train, test))
+    _write_udd(path, ds)
+    return path
+
+
+def _busy_s(fn, cpu: bool = True) -> float:
+    """Seconds of kernel time on the card while ``fn`` runs
+    (torch.profiler; ``cpu`` False traces the CUDA activity alone, for a
+    run of ~10^5 eager kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in _kernel_events(prof)) / 1e6
+
+
+def _full_near_ties(model, state, dataset, idx) -> np.ndarray:
+    """For full-entity rank rows ``idx`` (head-mode rows of the test split,
+    then tail-mode rows), whether another entity's score lies within
+    TIE_RTOL (|pos| + gamma) of the positive score (fp32, on the card)."""
+    import torch
+    n_test = len(dataset.test[0])
+    out = np.zeros(len(idx), bool)
+    sf, dev = model.score_fn, state.entity.emb.device
+    cand = state.entity.emb[:, :model.entity_dim].float()
+    for j, i in enumerate(idx):
+        neg_head = bool(i < n_test)
+        h, r, t = (torch.as_tensor(x[i % n_test:i % n_test + 1], device=dev)
+                   for x in dataset.test)
+        pos, side, rel, _ = model._eval_pos_side(state, h, r, t,
+                                                 neg_head=neg_head)
+        s = sf.neg_score(side, rel, cand, neg_head=neg_head, num_chunks=1,
+                         chunk_size=1, neg_sample_size=len(cand)).reshape(-1)
+        gap = (s - pos).abs()
+        gap[int((h if neg_head else t)[0])] = float("inf")   # itself
+        out[j] = bool((gap <= TIE_RTOL * (pos.abs() + model.config.gamma))
+                      .any())
+    return out
+
+
+EVAL_RECIPE = "TransE_l2 eval recipe"
+# Its calls (counted by the same batching on the CPU): tail mode, 3,282
+# batches of width 8 in 103 groups of 32, 401 of width 16,384 in two
+# chunks of 12 groups (the second padded), and a group each at 4,096 and
+# 256; head mode, 3,687 batches of width 8 in 116 groups and one group at
+# 1,024: 246 calls of 4 K1 each (h, t and r rows, the 14,951 candidate
+# rows), in 6 call shapes, three of them called more than once.
+EXPECTED_LAUNCHES[EVAL_RECIPE] = {"gather_rows": 984, "group_ids": 0,
+                                  "group_ids_sort": 0,
+                                  "sparse_adagrad_rows": 0,
+                                  "outer_adagrad_update": 0}
+EXPECTED_EVAL_GRAPHS[EVAL_RECIPE] = (3, 240)
+
+
+def phase_eval_recipe():
+    """The filtered full-entity eval at the FB15k recipe's size:
+    dglke_tpu_torch-eval over phase 3's flagship checkpoint on EVAL_TEST
+    test triples at --batch_size_eval EVAL_BATCH (the planted hubs give
+    five filter widths and a bucket of two chunks), its launches held to
+    EXPECTED_LAUNCHES and its eval graphs to EXPECTED_EVAL_GRAPHS; then on
+    the same tables the fused route again (every call replayed) and the
+    per-batch route (per_batch_ranks): seconds a split, peak
+    memory, device busy seconds (torch.profiler) and busy share, MRR; the
+    ranks equal to the per-batch route's but on rows with a near tie,
+    which are counted.  Returns the launch counts of the CLI run."""
+    import torch
+    from dglke_tpu_torch.cli import eval as eval_cli
+    from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex
+    from dglke_tpu_torch.models.ke_model import metrics_from_ranks
+    from dglke_tpu_torch.ops import rows
+    from dglke_tpu_torch.trainer import evaluate
+    data = _fb15k_recipe_eval("eval_recipe")
+    ckpt = os.path.join(WORK, "ckpts", "TransE_l2_fb15k_shaped_0")
+    argv = [*_udd_args(data), "--model_path", ckpt, "--batch_size_eval",
+            str(EVAL_BATCH)]
+    print(f"{EVAL_RECIPE}: dglke_tpu_torch-eval " + " ".join(argv))
+    got = {}
+    real = eval_cli.evaluate
+
+    def keep(cfg, dataset, model, state, *args, **kwargs):
+        got.update(cfg=cfg, dataset=dataset, model=model, state=state)
+        return real(cfg, dataset, model, state, *args, **kwargs)
+
+    out = io.StringIO()
+    eval_cli.evaluate = keep
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows.reset_launches()
+        with _RankLog() as ranks, contextlib.redirect_stdout(out):
+            rc = _cli(eval_cli.main, argv)
+        counts = dict(rows.launches)
+    finally:
+        eval_cli.evaluate = real
+    text = out.getvalue()
+    print(text.rstrip())
+    if rc != 0:
+        fail(f"{EVAL_RECIPE}: eval CLI returned {rc}")
+    want = EXPECTED_LAUNCHES[EVAL_RECIPE]
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"{EVAL_RECIPE}: launches {counts}, expected {want}")
+    captured, replays = eval_graphs(EVAL_RECIPE, text)
+    cli_s = _floats(r"\[0\]Test takes (\S+) seconds", text)[0]
+    cli_peak = (torch.cuda.max_memory_allocated() / 2**20,
+                torch.cuda.max_memory_reserved() / 2**20)
+    cfg, dataset, model, state = (got[k] for k in ("cfg", "dataset",
+                                                   "model", "state"))
+    fused = ranks.ranks[0]
+    fi = FilterIndex(dataset)
+
+    def samplers():
+        return [EvalSampler(dataset, "test", cfg.batch_size_eval, mode, fi)
+                for mode in ("head", "tail")]
+
+    n_calls = sum(model.eval_calls.keys.values())
+    n_shapes = len(model.eval_calls.keys)
+    t0 = time.perf_counter()
+    n_batches = sum(1 for s in samplers() for _ in s)
+    sampler_s = time.perf_counter() - t0
+    quiet = lambda *a: None  # noqa: E731
+
+    def fused_run():
+        return _eval_ranks_of(lambda: evaluate(
+            cfg, dataset, model, state, "test", filter_index=fi, log=quiet))
+
+    def cut_run():
+        return per_batch_ranks(model, state, [islice(s, EVAL_PROFILE_CUT)
+                                         for s in samplers()])
+
+    routes = {}
+    for route, run, profiled in (
+            ("fused", fused_run, fused_run),
+            ("per-batch", lambda: per_batch_ranks(model, state, samplers()),
+             cut_run)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() / 2**20,
+                torch.cuda.max_memory_reserved() / 2**20)
+        # the busy share over the profiled run's own unprofiled seconds
+        t0 = time.perf_counter()
+        if profiled is not run:
+            profiled()
+            torch.cuda.synchronize()
+        profiled_s = (time.perf_counter() - t0 if profiled is not run
+                      else secs)
+        routes[route] = (r, secs, peak, _busy_s(profiled,
+                                                cpu=route == "fused"),
+                         profiled_s)
+    if not np.array_equal(routes["fused"][0], fused):
+        fail(f"{EVAL_RECIPE}: the fused route's replayed ranks differ from "
+             f"its first run's")
+    base = routes["per-batch"][0]
+    idx = np.nonzero(fused != base)[0]
+    near = _full_near_ties(model, state, dataset, idx)
+    if not near.all():
+        fail(f"{EVAL_RECIPE}: {len(idx)} ranks differ from the per-batch "
+             f"route's, {int((~near).sum())} of them with no near tie "
+             f"(rows {idx[~near][:5].tolist()})")
+    print(f"{EVAL_RECIPE} [{card_line()}]: {len(fused)} ranks (2 x "
+          f"{EVAL_TEST} test triples, batch {EVAL_BATCH}, filtered); the "
+          f"CLI's fused route {cli_s:.3f} s a split (first calls and "
+          f"captures included), {captured} graphs captured, {replays} "
+          f"replays, {n_calls} calls in {n_shapes} call shapes, peak "
+          f"allocated "
+          f"{cli_peak[0]:.1f} MB, reserved {cli_peak[1]:.1f} MB; MRR "
+          f"{metrics_from_ranks(fused)['MRR']!r} fused, "
+          f"{metrics_from_ranks(base)['MRR']!r} per batch; ranks differing "
+          f"from the per-batch route's: {len(idx)}, all at near ties; "
+          f"the EvalSampler alone (both routes' host work before any call) "
+          f"{sampler_s:.4f} s for its {n_batches} batches")
+    for route, (_, secs, peak, busy, busy_of) in routes.items():
+        over = ("" if busy_of == secs else
+                f" over its first {EVAL_PROFILE_CUT} batches a mode "
+                f"({busy_of:.4f} s)")
+        share = (f"device busy{over} {busy:.4f} s ({100 * busy / busy_of:.1f}"
+                 f"%, idle {100 - 100 * busy / busy_of:.1f}%)" if busy
+                 else "device busy not measured (no kernel in the trace)")
+        print(f"{EVAL_RECIPE}, {route} route [{card_line()}]: {secs:.4f} s "
+              f"a split, {share}, peak allocated {peak[0]:.1f} MB, reserved "
+              f"{peak[1]:.1f} MB")
+    del got, model, state, routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_step_one():
+    """Step group size 1 on one device (an odd --max_step, S1_STEPS steps on
+    the phase-3 data) through the CLI: the host-fed TrainSampler, as the
+    JAX package takes it there, with its sample / update line, no CUDA
+    graph, and its launches held."""
+    argv = ["--dataset", "fb15k_shaped",
+            *_udd_args(_fb15k_shaped("data", n_train=300_000)),
+            *_recipe_flags(TRANSE), "--max_step", str(S1_STEPS),
+            "--log_interval", str(S1_STEPS), "--no_save_emb",
+            "--save_path", os.path.join(WORK, "ckpts")]
+    counts, text, _, state = run_cli("TransE_l2 s = 1", argv)
+    if ("host-fed TrainSampler (step group size 1): 1 steps a group"
+            not in text or not re.search(r"\[proc 0\]sample: \S+, update: ",
+                                         text)):
+        fail("s = 1 run: the trainer did not take the host-fed route")
+    if "CUDA graphs" in text or state.step != S1_STEPS:
+        fail(f"s = 1 run: {state.step} steps, or a CUDA graph")
+    print(f"s = 1 run: {S1_STEPS} steps through the host-fed TrainSampler "
+          f"on {300_000} train edges; launches {counts}")
+    return counts
+
+
+def phase_wiki_eval_routes(ds, model, state):
+    """wikikg2's sampled test eval (20,000 triples x 2 modes, 500
+    negatives, batch 32) on the trained state on both routes: the fused
+    route (its graphs captured in the CLI run, every call replayed) and
+    the per-batch route's (per_batch_ranks); seconds a split, the ranks
+    equal but on rows with a near tie (a score within TIE_RTOL (|pos| +
+    gamma) of the positive), counted."""
+    import torch
+    from dglke_tpu_torch.data.sampler import EvalSampler
+    from dglke_tpu_torch.ops import rows
+    from dglke_tpu_torch.trainer import evaluate
+    cfg = model.config
+    quiet = lambda *a: None  # noqa: E731
+
+    def samplers():
+        return [EvalSampler(ds, "test", cfg.batch_size_eval, mode, None,
+                            seed=cfg.seed,
+                            neg_sample_size=cfg.neg_sample_size_eval)
+                for mode in ("head", "tail")]
+
+    out = {}
+    for route in ("fused", "per-batch"):
+        t0 = time.perf_counter()
+        if route == "fused":
+            r = _eval_ranks_of(lambda: evaluate(cfg, ds, model, state,
+                                                "test", log=quiet))
+        else:
+            r = per_batch_ranks(model, state, samplers())
+        torch.cuda.synchronize()
+        out[route] = (r, time.perf_counter() - t0)
+    (fused, fs), (base, bs) = out["fused"], out["per-batch"]
+    differ = np.nonzero(fused != base)[0]
+    n_near = 0
+    if len(differ):
+        b = cfg.batch_size_eval
+        batches = [x for s in samplers() for x in s]
+        n_mode = len(batches) // 2
+        sf, dev = model.score_fn, state.entity.emb.device
+        for i in differ:
+            mode, row = divmod(int(i), len(ds.test[0]))
+            batch = batches[mode * n_mode + row // b]
+            j = row % b
+            ids = [torch.as_tensor(batch[k][j:j + 1], device=dev)
+                   for k in ("h", "r", "t")]
+            pos, side, rel, _ = model._eval_pos_side(
+                state, *ids, neg_head=batch["neg_head"])
+            neg = rows.gather_rows(state.entity.emb, torch.as_tensor(
+                batch["neg"], device=dev), model.entity_dim)
+            s = sf.neg_score(side, rel, neg, neg_head=batch["neg_head"],
+                             num_chunks=1, chunk_size=1,
+                             neg_sample_size=len(batch["neg"]))
+            n_near += bool(((s.reshape(-1) - pos).abs()
+                            <= TIE_RTOL * (pos.abs() + cfg.gamma)).any())
+        if n_near != len(differ):
+            fail(f"wikikg2 sampled eval: {len(differ)} ranks differ between "
+                 f"the routes, {len(differ) - n_near} with no near tie")
+    print(f"wikikg2 sampled eval, both routes [{card_line()}]: "
+          f"{len(fused)} ranks; fused {fs:.4f} s a split (graphs replayed), "
+          f"per-batch (eager, unpadded groups) {bs:.4f} s; "
+          f"{len(differ)} ranks differ, all at near ties")
 
 
 # ---------------------------------------------------------------------------
@@ -2109,7 +2703,14 @@ def phase_candidates(model, state, ds):
     Ranks and top-10 positions must equal the CPU's but on rows with a
     near tie on the CPU (another candidate, a copy included, within
     TIE_RTOL (|score| + gamma) of the score compared: the CPU's dot may
-    round a copy apart)."""
+    round a copy apart).  The fused route (evaluate_candidates: its first
+    run captures, a second replays) and the per-batch route
+    (per_batch_candidates) are timed.  The fused route's ranks and top-10
+    must equal, on every row, those of the card's own scores of the
+    batches at the fused route's call shape (the tail batch padded as
+    candidate_outputs pads it, with copies of the split's first query:
+    the split is one chunk), and the exact-tie checks hold on the fused
+    route's outputs."""
     import pickle
     import torch
     from dglke_tpu_torch.models.ke_model import (
@@ -2120,15 +2721,18 @@ def phase_candidates(model, state, ds):
     )
     from dglke_tpu_torch.trainer import (
         CandidateEvalSampler,
+        candidate_outputs,
         evaluate_candidates,
     )
     cfg = model.config
     sampler = CandidateEvalSampler(_candidates(ds), cfg.batch_size_eval)
     quiet = lambda *a: None  # noqa: E731
     t0 = time.perf_counter()
-    metrics = evaluate_candidates(model, state, sampler, mode="Valid",
-                                  log=quiet)
+    with _RankLog() as rank_log:
+        metrics = evaluate_candidates(model, state, sampler, mode="Valid",
+                                      log=quiet)
     valid_s = time.perf_counter() - t0
+    (fused_ranks,) = rank_log.ranks
     out_dir = os.path.join(WORK, "candidates")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
@@ -2139,6 +2743,18 @@ def phase_candidates(model, state, ds):
         top_card = pickle.load(f)["h,r->t"]["t_pred_top10"]
     if top_card.shape != (CAND_QUERIES, 10) or top_card.dtype != np.int32:
         fail(f"candidate Test pkl: {top_card.shape} {top_card.dtype}")
+    routes = {}
+    for top in (False, True):
+        for route in ("fused", "per-batch"):
+            t0 = time.perf_counter()
+            if route == "fused":
+                candidate_outputs(model.eval_calls, state, sampler, top=top,
+                                  phase="Test" if top else "Valid")
+            else:
+                per_batch_candidates(model, state, sampler, top)
+            torch.cuda.synchronize()
+            routes[("Test" if top else "Valid", route)] = (
+                time.perf_counter() - t0)
 
     cpu = KEModel(cfg, ds.n_entities, ds.n_relations, device="cpu")
     cpu_state = _cpu_copy(state)
@@ -2147,11 +2763,16 @@ def phase_candidates(model, state, ds):
     ans = torch.from_numpy(sampler.ans).long()
     s_card, s_cpu = [], []
     b = cfg.batch_size_eval
+    # the fused route's batches: the tail padded to a whole batch with
+    # copies of the split's first query
+    at = torch.cat([torch.arange(CAND_QUERIES),
+                    torch.zeros(-CAND_QUERIES % b, dtype=torch.long)])
     for beg in range(0, CAND_QUERIES, b):
         sl = slice(beg, beg + b)
+        rows = at[beg:beg + b]
         s_card.append(model.candidate_scores(
-            state, hr[sl, 0].cuda(), hr[sl, 1].cuda(),
-            cand[sl].cuda()).cpu())
+            state, hr[rows, 0].cuda(), hr[rows, 1].cuda(),
+            cand[rows].cuda()).cpu()[:len(hr[sl])])
         s_cpu.append(cpu.candidate_scores(cpu_state, hr[sl, 0], hr[sl, 1],
                                           cand[sl]))
     del cpu_state
@@ -2159,8 +2780,13 @@ def phase_candidates(model, state, ds):
     card_ranks = candidate_ranks(s_card, ans)
     if metrics_from_ranks(card_ranks.numpy()) != metrics:
         fail("candidate Valid metrics differ from the card's own ranks")
-    if not np.array_equal(candidate_top(s_card).numpy(), top_card):
-        fail("candidate Test pkl differs from the card's own top-10")
+    for what, bad in (
+            ("ranks", fused_ranks != card_ranks.numpy()),
+            ("top-10", (top_card != candidate_top(s_card).numpy()).any(1))):
+        if bad.any():
+            fail(f"candidate {what}: the fused route differs from the "
+                 f"card's own scores at its call shape on {int(bad.sum())} "
+                 f"rows (rows {np.nonzero(bad)[0][:5].tolist()})")
 
     # exact ties on the card
     rows_a = torch.arange(0, CAND_QUERIES, 4)       # the answer twice
@@ -2173,7 +2799,7 @@ def phase_candidates(model, state, ds):
     if copies["card"] != n_dup:
         fail(f"candidate scores: the card scores {copies['card']} of {n_dup} "
              f"candidates listed twice the same")
-    if not bool((card_ranks[rows_a] >= 3).all()):
+    if not (fused_ranks[rows_a.numpy()] >= 3).all():
         fail("candidate ranks: an answer listed twice ranked above 3")
     for i in rows_b.tolist():
         tied = [int(p) for p in top_card[i] if p in (3, last)]
@@ -2181,14 +2807,7 @@ def phase_candidates(model, state, ds):
             fail(f"candidate top-10 row {i}: tied copies out of order {tied}")
 
     # the card against the CPU
-    tol = TIE_RTOL * (s_cpu.abs() + cfg.gamma)
-    pos = torch.gather(s_cpu, 1, ans[:, None])
-    gap = (s_cpu - pos).abs()
-    gap[torch.arange(CAND_QUERIES), ans] = float("inf")
-    near_rank = (gap <= torch.gather(tol, 1, ans[:, None])).any(1)
-    srt = torch.sort(s_cpu, dim=1, descending=True).values[:, :11]
-    near_top = ((srt[:, :-1] - srt[:, 1:])
-                <= TIE_RTOL * (srt[:, 1:].abs() + cfg.gamma)).any(1)
+    near_rank, near_top = _candidate_near_ties(s_cpu, ans, cfg.gamma)
     bad_rank = card_ranks != candidate_ranks(s_cpu, ans)
     bad_top = torch.from_numpy((top_card != candidate_top(s_cpu).numpy())
                                .any(1))
@@ -2212,6 +2831,28 @@ def phase_candidates(model, state, ds):
           f"({int(near_rank.sum())} rows with one); top-10 "
           f"{int((~bad_top).sum())} equal, {int(bad_top.sum())} differing, "
           f"all at near ties ({int(near_top.sum())} rows with one)")
+    print(f"candidate protocol, both routes [{card_line()}]: "
+          + "; ".join(f"{mode} fused {routes[(mode, 'fused')]:.4f} s "
+                      f"(graphs replayed), per-batch "
+                      f"{routes[(mode, 'per-batch')]:.4f} s"
+                      for mode in ("Valid", "Test")))
+
+
+def _candidate_near_ties(s, ans, gamma: float):
+    """Rows of candidate scores ``s`` [N, K] with a near tie (within
+    TIE_RTOL (|score| + gamma)): at the answer's score (another candidate,
+    a copy included), and among the top 11 scores."""
+    import torch
+    n = s.shape[0]
+    tol = TIE_RTOL * (s.abs() + gamma)
+    pos = torch.gather(s, 1, ans[:, None])
+    gap = (s - pos).abs()
+    gap[torch.arange(n), ans] = float("inf")
+    near_rank = (gap <= torch.gather(tol, 1, ans[:, None])).any(1)
+    srt = torch.sort(s, dim=1, descending=True).values[:, :11]
+    near_top = ((srt[:, :-1] - srt[:, 1:])
+                <= TIE_RTOL * (srt[:, 1:].abs() + gamma)).any(1)
+    return near_rank, near_top
 
 
 def phase_wiki_kernels(state):
@@ -3009,15 +3650,17 @@ DIST_RTOL, DIST_ATOL = 1e-4, 1e-5
 # entity update on the owner's shard, or over the all-gathered list of
 # 2 x 3,000 ids on every replica; the relation update over 2 x 1,000), and
 # on RESCAL K3 (with its grouping) in place of the relation K2.  The
-# flagship's filtered test eval of 2,000 triples at batch 500: over the
-# vocab-sharded table every rank ranks all 8 batches, 2 K1 each (the
-# routed [h | t] rows; the relation rows), scoring its own rows in slices;
-# over replicas each rank ranks its stride, 4 batches of 4 K1 (h, t, the
-# relation rows and the 14,951 candidate rows).  wikikg2's sampled test
-# eval of 20,000 triples: every rank ranks all 40 groups of batches, 2 K1
-# each.  An owner that receives no id launches nothing (none does here).
-for _label, _k1, _steps in (("TransE_l2 dist vocab", 16, DIST_STEPS),
-                            ("TransE_l2 dist replicated", 16, DIST_STEPS),
+# flagship's filtered test eval of 2,000 triples at batch 500, a group
+# call a mode (trainer._mega_eval, eagerly under a plan): over the
+# vocab-sharded table every rank ranks all 4 batches of a mode in one
+# call, 2 K1 each (the routed [h | t] rows; the relation rows), scoring its
+# own rows in slices; over replicas each rank ranks its stride, 2 batches
+# a mode in one call of 4 K1 (h, t, the relation rows and the 14,951
+# candidate rows).  wikikg2's sampled test eval of 20,000 triples: every
+# rank ranks all 40 groups of batches, 2 K1 each.  An owner that receives
+# no id launches nothing (none does here).
+for _label, _k1, _steps in (("TransE_l2 dist vocab", 4, DIST_STEPS),
+                            ("TransE_l2 dist replicated", 8, DIST_STEPS),
                             ("wikikg2 dist save", 0, DIST_WIKI_STEPS),
                             ("wikikg2 dist resume", 80, DIST_WIKI_RESUME),
                             ("TransE_l2 nccl", 0, NCCL_STEPS),
@@ -3653,6 +4296,17 @@ for _label in ("TransE_l2 profile", "TransE_l2 profile baseline"):
                                  "group_ids_sort": 0,
                                  "sparse_adagrad_rows": 2 * PROFILE_STEPS,
                                  "outer_adagrad_update": 0}
+# The same 200 steps with --valid every VALID_EVERY steps at
+# --batch_size_eval 16: each of the 4 filtered Valid evals (1,000 triples,
+# 63 batches a mode, all of filter width 8) makes 2 group calls a mode of
+# 4 K1 each; the first eval captures one graph a mode at its second call,
+# the later evals replay.
+VALID_EVERY = 50
+EXPECTED_LAUNCHES["TransE_l2 valid"] = {
+    "gather_rows": 2 * PROFILE_STEPS + 64, "group_ids": 2 * PROFILE_STEPS,
+    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * PROFILE_STEPS,
+    "outer_adagrad_update": 0}
+EXPECTED_EVAL_GRAPHS["TransE_l2 valid"] = (2, 14)
 # The hand-written kernels a flagship step launches, by the name the trace
 # gives them, and how many times a step (entity and relation rows).
 PROFILE_KERNELS = {"gather_rows_vec4": 2, "group_ids": 2,
@@ -3719,13 +4373,17 @@ def phase_profile():
     s = len(steps) // 2
     if not steps or steps != list(range(2 * s, 4 * s)):
         fail(f"profile run: the trace's steps are {steps}, not [2s, 4s)")
-    found = {}
-    for want, per_step in PROFILE_KERNELS.items():
-        n = sum(c for k, c in kernels.items() if want in k)
-        found[want] = n
-        if n != per_step * len(steps):
-            fail(f"profile run: {want} {n} times in the trace, expected "
-                 f"{per_step} x {len(steps)} steps")
+    found = {want: sum(c for k, c in kernels.items() if want in k)
+             for want in PROFILE_KERNELS}
+    short = {k: n for k, n in found.items()
+             if n != PROFILE_KERNELS[k] * len(steps)}
+    if short:
+        keep = os.path.join(ROOT, "build", "profile_trace.json")
+        shutil.copy(path, keep)
+        fail(f"profile run: {found} times in the trace, expected "
+             f"{len(steps)} steps x {PROFILE_KERNELS}; "
+             f"{sum(kernels.values())} device kernels in all; the trace is "
+             f"kept as {keep}")
     print(f"profile run: {os.path.getsize(path)} bytes of Chrome trace, "
           f"steps {steps[0]}-{steps[-1]} (s = {s}); hand-written kernels "
           f"by name: {found} ({len(steps)} steps x {PROFILE_KERNELS}); "
@@ -3739,7 +4397,38 @@ def phase_profile():
             fail(f"profile run: {f} differs from the run without --profile")
     print("profile run: every saved table bit-equal to the run without "
           "--profile")
+    paths["TransE_l2 valid"] = phase_valid_graphs(plain)
     return paths
+
+
+def phase_valid_graphs(plain: str):
+    """Training graphs and eval graphs in one run: the flagship's 200 steps
+    on the CUDA graph route with --valid every VALID_EVERY steps (the eval
+    graphs captured in the first Valid eval and replayed by the later
+    ones, EXPECTED_EVAL_GRAPHS), launches held, and every saved table
+    bit-equal to the run without eval (``plain``, its checkpoint).
+    Returns the launch counts."""
+    save = os.path.join(WORK, "TransE_l2_valid")
+    argv = ["--dataset", "fb15k_shaped",
+            *_udd_args(_fb15k_shaped("data", n_train=300_000)),
+            *_recipe_flags(TRANSE), "--max_step", str(PROFILE_STEPS),
+            "--log_interval", str(PROFILE_STEPS // 4), "--valid",
+            "--eval_interval", str(VALID_EVERY), "--batch_size_eval",
+            str(EVAL_BATCH), "--save_path", save]
+    counts, text, _, _ = run_cli("TransE_l2 valid", argv)
+    evals = len(re.findall(r"\[0\]Valid takes", text))
+    if evals != PROFILE_STEPS // VALID_EVERY:
+        fail(f"valid run: {evals} Valid evals")
+    ckpt = os.path.join(save, "TransE_l2_fb15k_shaped_0")
+    for table in ("entity", "entity_state", "relation", "relation_state"):
+        f = f"fb15k_shaped_TransE_l2_{table}.npy"
+        if not np.array_equal(np.load(os.path.join(ckpt, f)),
+                              np.load(os.path.join(plain, f))):
+            fail(f"valid run: {f} differs from the run without eval")
+    print(f"valid run: {PROFILE_STEPS} steps through the training graph with "
+          f"{evals} Valid evals through the eval graphs between its "
+          f"replays; every saved table bit-equal to the run without eval")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3952,8 +4641,15 @@ def main() -> int:
         return 1
     from dglke_tpu_torch.ops import rows  # noqa: F401  (fails outside the repo)
     shutil.rmtree(WORK, ignore_errors=True)
+    start = time.time()
+
+    def lap(name: str) -> None:
+        print(f"[{time.time() - start:.1f} s of the script] {name} "
+              f"done", flush=True)
+
     try:
         phase_build()
+        lap("build")
         kernels = phase_kernels()
         kernels.append(phase_group())
         kernels.append(phase_k2())
@@ -3962,10 +4658,15 @@ def main() -> int:
         kernels[0].update(k1_wide)
         kernels.append(k3)
         phase_outer_routes()
+        lap("phase 2")
         phase_graph_parity()
+        lap("phase 2b")
+        phase_eval_graphs()
+        lap("phase 2c")
         main_metrics = {}
         paths = {"TransE_l2": phase_main_path(TRANSE, batch_size_eval=500,
                                               metrics=main_metrics)}
+        lap("phase 3's main path")
         phase_step_parity(TRANSE)
         profiles = {"TransE_l2": phase_step_profile(TRANSE, steps=50),
                     "TransE_l2 graph": phase_step_profile(TRANSE, steps=50,
@@ -3977,11 +4678,19 @@ def main() -> int:
                 dict(TRANSE, compute_dtype="bfloat16"), steps=50,
                 route=route)
         phase_bf16_step_parity(TRANSE)
+        lap("phase 3, 3b")
         paths.update(phase_profile())
+        lap("phase 3c")
+        # after phase 3c: its trace's kernel count is read before the
+        # per-batch route's CUDA-only profiler session here
+        paths[EVAL_RECIPE] = phase_eval_recipe()
+        lap("phase 2c at the recipe's size")
         paths["TransE_l2 async"] = phase_main_path(
             TRANSE, batch_size_eval=500, extra=("--async_update",),
             label="TransE_l2 async")
         paths["TransE_l2 host-fed"] = phase_host_fed()
+        paths["TransE_l2 s = 1"] = phase_step_one()
+        lap("phase 4")
         paths["RESCAL"] = phase_main_path(RESCAL,
                                           batch_size_eval=RESCAL_EVAL_BATCH)
         phase_step_parity(RESCAL)
@@ -3993,14 +4702,18 @@ def main() -> int:
         phase_bf16_step_parity(RESCAL)
         phase_bf16_step_parity(TRANSR)
         print_bf16_profiles(profiles)
+        lap("phase 5")
         paths.update(phase_serving())
+        lap("phase 5b")
         paths["wikikg2"], ds, model, state = phase_wikikg2()
         phase_sampled_ranks(ds, model, state)
+        phase_wiki_eval_routes(ds, model, state)
         phase_candidates(model, state, ds)
         k1_wiki, k2_wiki = phase_wiki_kernels(state)
         kernels[0].update(k1_wiki)
         kernels[2].update(k2_wiki)
         phase_chunked_save(model, state)
+        lap("phase 6")
         del ds, model, state
         phase_step_parity(WIKI, n_ent=WIKI_ENT, n_rel=WIKI_REL)
         for route in ("eager", "graph"):
@@ -4008,17 +4721,20 @@ def main() -> int:
                 phase_step_profile(WIKI, steps=50, n_ent=WIKI_ENT,
                                    n_rel=WIKI_REL, route=route)
         print_route_profiles(profiles)
+        lap("phase 6 profiles")
         gc.collect()
         torch.cuda.empty_cache()
         kernels += phase_host_kernels()
         paths["TransE_l2 host"] = phase_host_main()
         phase_host_step_parity(TRANSE)
         phase_host_flagship_profile()
+        lap("phase 6b")
         # the native LDG runs on the host beside the planted gates, and is
         # done before the capacity run needs the host's memory
         ldg = start_ldg()
         phase_planted()
         phase_ldg(ldg)
+        lap("phases 7 and 7d")
         # the ranks' processes take the card next: free what this one holds
         gc.collect()
         torch.cuda.empty_cache()
@@ -4027,10 +4743,12 @@ def main() -> int:
         paths.update(phase_dist_wikikg2())
         paths.update(phase_dist_nccl())
         paths.update(phase_dist_partition())
+        lap("phase 7c")
         gc.collect()
         # pinned staging buffers cached by torch go back to the host first
         getattr(torch._C, "_host_emptyCache", lambda: None)()
         paths["Freebase host"] = phase_capacity()
+        lap("phase 7b")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # launches: the sum over the main-path runs, each read around its own

@@ -1,0 +1,195 @@
+"""The eval's fused calls: one call a group of eval batches (counterpart of
+the JAX package's make_eval_megastep, make_sampled_eval_superstep and
+make_candidate_megastep with their jit memo, dglke_tpu/models/ke_model.py:
+1085-1259).
+
+Three group functions, each a KEModel method run eagerly:
+  - full:       a [g, B] group of full-entity batches with [g, B, F] filter
+                lists, ranked as one flattened [g*B] batch
+                (KEModel.eval_group_ranks);
+  - sampled:    a [G, B] group against [G, K] sampled negatives, with a
+                [G, B, K] keep mask and each batch's real rows [G]
+                (KEModel.eval_ranks_sampled);
+  - candidates: one [B] batch of queries against [B, K] candidate lists,
+                the answers' ranks or the top-10 positions
+                (KEModel.candidate_eval).
+The trainer's eval loops (trainer._mega_eval, _sampled_eval,
+candidate_outputs) batch a split as the JAX package's do and hand each
+call its inputs as device tensors; nothing in a group function reads a
+device value on the host.
+
+On the CPU, under a ShardingPlan (--dist: the vocab route's gather reads
+its split counts on the host, and gloo collectives cannot be captured) and
+on host-resident tables (--mix_cpu_gpu), every call runs its group
+function.  On a card the calls are memoized on the model, one entry per
+static call shape: (the kind, the eval phase, the static flags, every
+input's shape and dtype, the tables' data pointers, shapes and dtypes), as
+the JAX package's jit memo keys its compiles, so that the periodic --valid
+evals of a training run reuse their graphs; there the trainer pads each
+tail group or chunk to its bucket's call shape, as the JAX package does for
+its compiles, and nowhere else.  The first call of a key runs the group
+function on the capture stream shared with the training graphs
+(pipeline_step._capture_stream: one cuBLAS workspace a card), which also
+does once what capture must not meet
+(a kernel library's build and load, cuBLAS's workspace for that stream);
+its second call captures a CUDA graph of the group function, reading from
+static input tensors of the entry; that call and every later one copies
+its inputs into them and replays the graph.  All eval graphs of a model
+share one memory pool (a private pool for each would hold a [g*B, block]
+score tile for every key): they replay one after another on one stream,
+their static inputs lie outside the pool, and each replay's output, which
+the next replay of any of them may overwrite, is copied out by the caller
+at once.  A failed capture or replay raises: there is no eager fallback.
+
+The kernel wrappers count their launches in Python, which a replay does
+not run: the counts of a capture are taken out again (rows.take_launches)
+and each replay adds its graph's counts (rows.add_launches).
+"""
+
+from __future__ import annotations
+
+import weakref
+from collections import Counter
+from dataclasses import dataclass
+from functools import partial
+from typing import Optional
+
+import torch
+
+from dglke_tpu_torch.models.pipeline_step import _capture_stream
+from dglke_tpu_torch.ops import rows
+
+
+@dataclass
+class _Entry:
+    inputs: list                       # static inputs (None where no input)
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    out: Optional[torch.Tensor] = None  # rewritten by each replay
+    launches: Optional[dict] = None     # launches by wrapper, one replay
+
+
+class EvalCalls:
+    """The eval's fused calls of one KEModel (its ``eval_calls``).
+
+    ``captured`` and ``replays`` count over the model's life; ``keys``
+    counts the calls of each memo key, graphs or not.
+
+    The model is held weakly: a cycle through it would leave the graphs to
+    the cyclic garbage collector, which may run, and destroy them, while
+    another graph is being captured, and that invalidates the capture."""
+
+    def __init__(self, model):
+        self._model = weakref.ref(model)
+        self.entries: dict = {}     # memo key -> _Entry
+        self.keys: Counter = Counter()
+        self.pool = None            # the memory pool the eval graphs share
+        self.stream = None          # the capture stream, once used
+        self.captured = 0
+        self.replays = 0
+
+    @property
+    def model(self):
+        return self._model()
+
+    def on_graphs(self, state) -> bool:
+        """Whether this model's eval calls on ``state`` run as CUDA graphs:
+        on a card, without a plan, on tables on the card (host-resident
+        tables, host_table.HostState, stay eager)."""
+        model = self.model
+        return (model.device.type == "cuda" and model.plan is None
+                and not getattr(state, "is_host", False))
+
+    # -- the calls -----------------------------------------------------------
+
+    def full(self, state, h, r, t, filter_ids, filter_mask, *,
+             neg_head: bool, phase: str) -> torch.Tensor:
+        """Ranks [g, B] of a full-entity group."""
+        fn = partial(self.model.eval_group_ranks, state, neg_head=neg_head)
+        return self._call(state, ("full", phase, neg_head), fn,
+                          (h, r, t, filter_ids, filter_mask))
+
+    def sampled(self, state, h, r, t, neg, neg_keep, n_valid, *,
+                neg_head: bool, neg_deg_sample: bool,
+                phase: str) -> torch.Tensor:
+        """Ranks [G, B] of a sampled-negative group."""
+        fn = partial(self._sampled, state, neg_head=neg_head,
+                     neg_deg_sample=neg_deg_sample)
+        return self._call(state, ("sampled", phase, neg_head,
+                                  neg_deg_sample), fn,
+                          (h, r, t, neg, neg_keep, n_valid))
+
+    def candidates(self, state, query, cand_ids, ans, *,
+                   top: bool, phase: str) -> torch.Tensor:
+        """One candidate batch: the ranks [B], or with ``top`` the top-10
+        positions [B, min(10, K)]."""
+        fn = partial(self.model.candidate_eval, state, top=top)
+        return self._call(state, ("candidates", phase, top), fn,
+                          (query, cand_ids, ans))
+
+    def _sampled(self, state, h, r, t, neg, neg_keep, n_valid, *,
+                 neg_head, neg_deg_sample):
+        return self.model.eval_ranks_sampled(
+            state, h, r, t, neg, neg_keep, neg_head=neg_head,
+            neg_deg_sample=neg_deg_sample, n_valid=n_valid)
+
+    # -- the memo ------------------------------------------------------------
+
+    def _key(self, state, static: tuple, args: tuple) -> tuple:
+        tables = [x for x in (state.entity, state.relation,
+                              state.projection) if x is not None]
+        return static + (
+            tuple(None if a is None else (tuple(a.shape), a.dtype)
+                  for a in args),
+            tuple((x.emb.data_ptr(), tuple(x.emb.shape), x.emb.dtype)
+                  for x in tables))
+
+    def _call(self, state, static: tuple, fn, args: tuple) -> torch.Tensor:
+        key = self._key(state, static, args)
+        self.keys[key] += 1
+        if not self.on_graphs(state):
+            return fn(*args)
+        entry = self.entries.get(key)
+        if entry is None:
+            out = self._warm_up(fn, args)
+            self.entries[key] = _Entry([None if a is None
+                                        else torch.empty_like(a)
+                                        for a in args])
+            return out
+        for static_in, a in zip(entry.inputs, args):
+            if static_in is not None:
+                static_in.copy_(a)
+        if entry.graph is None:
+            self._capture(entry, fn)
+        entry.graph.replay()
+        rows.add_launches(entry.launches)
+        self.replays += 1
+        return entry.out
+
+    def _warm_up(self, fn, args) -> torch.Tensor:
+        """A key's first call, eagerly on the capture stream."""
+        dev = self.model.device
+        main = torch.cuda.current_stream(dev)
+        stream = _capture_stream(dev)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            out = fn(*args)
+        main.wait_stream(stream)
+        out.record_stream(main)
+        self.stream = stream
+        return out
+
+    def _capture(self, entry: _Entry, fn) -> None:
+        """Capture the group function on the entry's static inputs into a
+        CUDA graph in the eval graphs' shared pool; nothing runs.  Only
+        this thread is held to capture's rules (a host-fed run's Prefetcher
+        thread may pin memory meanwhile)."""
+        graph = torch.cuda.CUDAGraph()
+        before = dict(rows.launches)
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            out = fn(*entry.inputs)
+        entry.graph, entry.out = graph, out
+        entry.launches = rows.take_launches(before)
+        if self.pool is None:
+            self.pool = graph.pool()
+        self.captured += 1

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.device import resolve_device
+from dglke_tpu_torch.models.eval_step import EvalCalls
 from dglke_tpu_torch.models.loss import LossGenerator, regularization
 from dglke_tpu_torch.models.score_functions import (
     TransRScore,
@@ -86,6 +87,8 @@ class KEModel:
             pairwise=config.pairwise,
             margin=config.margin,
         )
+        # the eval's fused calls, memoized per call shape and tables
+        self.eval_calls = EvalCalls(self)
 
     @property
     def table_dtype(self) -> torch.dtype:
@@ -452,6 +455,22 @@ class KEModel:
         return torch.clamp(counts, min=0) + 1
 
     @torch.no_grad()
+    def eval_group_ranks(self, state: TrainState, h, r, t, filter_ids,
+                         filter_mask, *, neg_head: bool) -> torch.Tensor:
+        """Ranks [g, B] of a group of g batches (h, r, t [g, B]; filter
+        lists [g, B, F]) as ONE flattened [g*B] batch of eval_ranks (the
+        JAX package's _eval_group_ranks): every candidate block streams
+        past the whole group once, and its block width is
+        _eval_block_size(g*B).  Ranking is per row, so the flattening is
+        exact."""
+        g, b = h.shape
+        f = filter_ids.shape[-1]
+        return self.eval_ranks(
+            state, h.reshape(g * b), r.reshape(g * b), t.reshape(g * b),
+            filter_ids.reshape(g * b, f), filter_mask.reshape(g * b, f),
+            neg_head=neg_head).reshape(g, b)
+
+    @torch.no_grad()
     def eval_ranks_sharded(self, state: TrainState, h, r, t, filter_ids,
                            filter_mask, *, neg_head: bool,
                            block: Optional[int] = None) -> torch.Tensor:
@@ -667,6 +686,19 @@ class KEModel:
         s = sf.neg_score(h_rows, rel_rows, cand, neg_head=neg_head,
                          num_chunks=b, chunk_size=1, neg_sample_size=k)
         return s.reshape(b, k)
+
+    @torch.no_grad()
+    def candidate_eval(self, state: TrainState, query, cand_ids, ans, *,
+                       top: bool) -> torch.Tensor:
+        """One batch of the candidate protocol (the body of the JAX
+        package's make_candidate_megastep): query [B, 2] (h, r), cand_ids
+        [B, K], ans [B].  Valid mode (top False): each answer's rank
+        [B] (candidate_ranks); Test mode: the top-10 positions [B,
+        min(10, K)] (candidate_top); ``ans`` is not read there."""
+        scores = self.candidate_scores(state, query[:, 0], query[:, 1],
+                                       cand_ids)
+        return candidate_top(scores) if top else candidate_ranks(scores,
+                                                                 ans)
 
 
 def candidate_ranks(scores: torch.Tensor, ans: torch.Tensor) -> torch.Tensor:

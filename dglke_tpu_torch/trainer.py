@@ -2,15 +2,17 @@
 single device).
 
 Training is fed by the device-resident pipeline, or for a dataset smaller
-than two batches by the host-fed TrainSampler, and runs in groups of
-steps; --async_update defers entity updates inside each group.  On one
-device each group of the pipeline is one fused call (on a card, one CUDA
-graph replayed).
+than two batches (and on one device at step group size 1) by the host-fed
+TrainSampler, and runs in groups of steps; --async_update defers entity
+updates inside each group.  On one device each group of the pipeline is
+one fused call (on a card, one CUDA graph replayed).
 Evaluation ranks against every entity (filtered or raw), against sampled
 negatives (--neg_sample_size_eval), or against a candidate list
-(wikikg90M).  The log format follows the reference ("[proc 0][Train]
-(step/max) average loss: ..." every log_interval; "[0]Test average MRR:
-...") so existing tooling can parse it.  With --mix_cpu_gpu both loops go
+(wikikg90M), a group of batches a call as the JAX package batches them (on
+a card one CUDA graph replayed a call, models/eval_step.py).  The log
+format follows the reference ("[proc 0][Train](step/max) average loss:
+..." every log_interval; "[0]Test average MRR: ...") so existing tooling
+can parse it.  With --mix_cpu_gpu both loops go
 to host_table.py, whose tables stay in host memory.
 
 Under a parallel.mesh.ShardingPlan (--dist) every rank runs its own
@@ -29,7 +31,7 @@ import pickle
 import queue
 import threading
 import time
-from itertools import islice
+from itertools import chain
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -41,8 +43,6 @@ from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex, TrainSampler
 from dglke_tpu_torch.models.ke_model import (
     KEModel,
     TrainState,
-    candidate_ranks,
-    candidate_top,
     metrics_from_ranks,
 )
 from dglke_tpu_torch.models.pipeline_step import DevicePipelineStep
@@ -265,10 +265,11 @@ def pack_batch(batch: dict, pin: bool) -> tuple:
 
 class HostFeed:
     """Host-fed training feed, the JAX package's route for datasets
-    smaller than two batches: one TrainSampler batch a step (its numpy
-    stream, a batch wrapping around a partition smaller than itself,
-    alternating sides), sampled and packed ahead by a Prefetcher thread,
-    the ids moved to the device as int32 in one transfer."""
+    smaller than two batches and, on one device, for step group size 1:
+    one TrainSampler batch a step (its numpy stream, a batch wrapping
+    around a partition smaller than itself, alternating sides), sampled
+    and packed ahead by a Prefetcher thread, the ids moved to the device
+    as int32 in one transfer."""
 
     def __init__(self, model: KEModel, dataset: KGDataset, batch_size: int,
                  neg_sample_size: int, seed: int = 0):
@@ -396,10 +397,11 @@ def train(config: KGEConfig, dataset: KGDataset,
     on the CPU) is given.
 
     A dataset of at least two batches is fed by the device-resident
-    pipeline, a smaller one by the host-fed TrainSampler, as in the JAX
-    package.  Steps run in groups of ``steps_per_group``; with
-    --async_update each step's entity update is applied after the next
-    step's gather, and the group's last one at its end.  On one device the
+    pipeline, a smaller one, or on one device a run of step group size 1,
+    by the host-fed TrainSampler, as in the JAX package.  Steps run in
+    groups of ``steps_per_group``; with --async_update each step's entity
+    update is applied after the next step's gather, and the group's last
+    one at its end.  On one device the
     pipeline's groups are fused calls (models/pipeline_step.py): on a card
     one CUDA graph replayed a group, on the CPU the same group eagerly.
 
@@ -447,8 +449,12 @@ def train(config: KGEConfig, dataset: KGDataset,
     if state is None:
         state = (plan.init_state(model) if plan is not None
                  else model.init_state())
-    device_route = plan is not None or n_train >= 2 * cfg.batch_size
-    s = steps_per_group(cfg, n_train, device_route, log=log)
+    pipe_ok = plan is not None or n_train >= 2 * cfg.batch_size
+    s = steps_per_group(cfg, n_train, pipe_ok, log=log)
+    # on one device the JAX package leaves its pipeline at s = 1 for the
+    # host-fed TrainSampler (dglke_tpu/trainer.py:223-248); under a plan
+    # the pipeline runs at every s
+    device_route = pipe_ok and (s > 1 or plan is not None)
     fused = None   # the fused call of the single-device pipeline
     if device_route:
         feed = DevicePipeline(model, dataset, cfg.batch_size,
@@ -464,8 +470,9 @@ def train(config: KGEConfig, dataset: KGDataset,
     else:
         feed = HostFeed(model, dataset, cfg.batch_size, cfg.neg_sample_size,
                         seed=cfg.seed)
-        log(f"[proc 0]host-fed TrainSampler ({dataset.n_train} train edges "
-            f"< 2 x batch_size {cfg.batch_size}): {s} steps a group")
+        why = (f"{dataset.n_train} train edges < 2 x batch_size "
+               f"{cfg.batch_size}" if not pipe_ok else "step group size 1")
+        log(f"[proc 0]host-fed TrainSampler ({why}): {s} steps a group")
     use_async = cfg.async_update and s > 1
     window = ProfileWindow(profile_dir, s, model.device, log, rank)
     logs: list = []
@@ -617,38 +624,50 @@ def combine_rank_metrics(ranks: np.ndarray, empty_msg: str,
     return metrics_from_ranks(r)
 
 
-# Sampled-eval batches ranked in one call: the JAX package's group (it
-# vmaps groups of 32 batches); each row's rank is the same either way.
-SAMPLED_GROUP = 32
+# The JAX package's eval batching (dglke_tpu/trainer.py:761, 836): batches
+# a group call, and the filter-list bytes of one full-entity chunk (a split
+# is read in slabs of twice that).
+EVAL_GROUP = 32
+_MEGA_BUDGET = 512 << 20
 
 
 def evaluate_with_samplers(model: KEModel, state: TrainState, samplers,
                            phase: str = "Test", log=print,
                            plan=None) -> Dict[str, float]:
-    """Rank every batch of every sampler: against all entities, against
-    its sampled negatives (groups of SAMPLED_GROUP batches a call), or, for
-    one CandidateEvalSampler, among its candidates (Valid-mode metrics).
-    Under a plan the metrics are global and logged by every rank, each
-    with its own index ("[1]Test average MRR: ..." on rank 1)."""
+    """Rank every batch of every sampler, a group of batches a call
+    (models/eval_step.py): against all entities (_mega_eval), against its
+    sampled negatives (_sampled_eval), or, for one CandidateEvalSampler,
+    among its candidates (Valid-mode metrics).  Under a plan the metrics
+    are global and logged by every rank, each with its own index ("[1]Test
+    average MRR: ..." on rank 1).  On a card the log also gives the eval's
+    CUDA graphs captured and replayed."""
     if any(isinstance(s, CandidateEvalSampler) for s in samplers):
         (sampler,) = samplers
         return evaluate_candidates(model, state, sampler, mode="Valid",
                                    log=log, plan=plan)
+    calls = model.eval_calls
+    graphs = (calls.captured, calls.replays)
     start = time.time()
     ranks = []
     for sampler in samplers:
         it = iter(sampler)
-        while True:
-            group = list(islice(it, SAMPLED_GROUP))
-            if not group:
-                break
-            if "neg" in group[0]:
-                ranks += _sampled_ranks(model, state, group)
-                continue
-            for batch in group:
-                ranks.append(_full_ranks(model, state, batch))
-    ranks = (torch.cat(ranks).cpu().numpy() if ranks
-             else np.zeros((0,), np.int64))
+        first = next(it, None)
+        if first is None:
+            continue
+        if "neg" in first:
+            ranks += _sampled_eval(calls, state, chain([first], it), phase)
+            continue
+        # bounded slabs of ~2 x _MEGA_BUDGET filter bytes, so that a large
+        # split never holds all its batches at once
+        slab, slab_bytes = [first], _batch_bytes(first)
+        for batch in it:
+            if slab_bytes >= 2 * _MEGA_BUDGET:
+                ranks += _mega_eval(calls, state, slab, phase)
+                slab, slab_bytes = [], 0
+            slab.append(batch)
+            slab_bytes += _batch_bytes(batch)
+        ranks += _mega_eval(calls, state, slab, phase)
+    ranks = (np.concatenate(ranks) if ranks else np.zeros((0,), np.int64))
     metrics = combine_rank_metrics(
         ranks, "evaluation saw zero edges (empty eval split, or "
         "eval_percent too small)", plan)
@@ -656,42 +675,154 @@ def evaluate_with_samplers(model: KEModel, state: TrainState, samplers,
     for k, v in metrics.items():
         log(f"[{proc}]{phase} average {k}: {v}")
     log(f"[{proc}]{phase} takes {time.time() - start:.3f} seconds")
+    _log_graphs(calls, state, graphs, f"[{proc}]{phase}", log)
     return metrics
 
 
-def _full_ranks(model: KEModel, state: TrainState, batch) -> torch.Tensor:
-    """One batch ranked against all entities, trimmed to its real rows."""
-    dev = model.device
-    h, r, t = (torch.as_tensor(batch[k], device=dev) for k in ("h", "r", "t"))
+def _log_graphs(calls, state, before: tuple, prefix: str, log) -> None:
+    """The eval graph line of a card: graphs captured, replays since
+    ``before``."""
+    if calls.on_graphs(state):
+        log(f"{prefix} eval CUDA graphs: {calls.captured - before[0]} "
+            f"captured, {calls.replays - before[1]} replays")
+
+
+def _batch_bytes(batch: dict) -> int:
     if "filter_ids" in batch:
-        fid = torch.as_tensor(batch["filter_ids"], device=dev)
-        fm = torch.as_tensor(batch["filter_mask"], device=dev)
-    else:
-        fid = torch.zeros((len(batch["h"]), 8), dtype=torch.int32,
-                          device=dev)
-        fm = torch.zeros((len(batch["h"]), 8), dtype=torch.uint8,
-                         device=dev)
-    out = model.eval_ranks(state, h, r, t, fid, fm,
-                           neg_head=batch["neg_head"])
-    return out[:batch["n_valid"]]
+        return batch["filter_ids"].nbytes + batch["filter_mask"].nbytes
+    return 3 * batch["h"].nbytes
 
 
-def _sampled_ranks(model: KEModel, state: TrainState, group) -> list:
-    """A group of sampled-eval batches ranked in one call; each batch's
-    ranks trimmed to its real rows."""
-    dev = model.device
+def _upload(arrays, device, dtype=np.int32):
+    """numpy arrays packed as ``dtype`` into one host buffer (pinned for a
+    card) and moved to ``device`` without blocking.  Returns (the host
+    buffer, which must live until the work that reads its copy is read
+    back; the device tensors, shaped as the arrays)."""
+    arrays = [np.asarray(a, dtype) for a in arrays]
+    buf = torch.empty(sum(a.size for a in arrays),
+                      dtype=torch.from_numpy(arrays[0]).dtype,
+                      pin_memory=device.type == "cuda")
+    np.concatenate([a.reshape(-1) for a in arrays], out=buf.numpy())
+    dev = buf.to(device, non_blocking=True)
+    out, at = [], 0
+    for a in arrays:
+        out.append(dev[at:at + a.size].view(a.shape))
+        at += a.size
+    return buf, out
 
-    def stack(k):
-        return torch.as_tensor(np.stack([b[k] for b in group]), device=dev)
 
-    n_valid = [b["n_valid"] for b in group]
-    out = model.eval_ranks_sampled(
-        state, stack("h"), stack("r"), stack("t"), stack("neg"),
-        stack("neg_keep") if "neg_keep" in group[0] else None,
-        neg_head=group[0]["neg_head"],
-        neg_deg_sample=group[0]["neg_deg_sample"],
-        n_valid=torch.as_tensor(n_valid, device=dev))
-    return [out[i, :n] for i, n in enumerate(n_valid)]
+def _mega_eval(calls, state: TrainState, batches: list, phase: str) -> list:
+    """Rank the full-entity ``batches`` (EvalSampler dicts) a group call at
+    a time, batched as the JAX package's _mega_eval (dglke_tpu/trainer.py:
+    764-823): bucketed by their pow2 filter width F, each bucket cut into
+    chunks of ~_MEGA_BUDGET filter bytes; a bucket of several chunks runs
+    every chunk as M groups of EVAL_GROUP batches, one of one chunk takes
+    the group width of a pow2 ladder (< 2x padding).  The tail chunk of a
+    bucket of several is padded to M groups where the calls run as CUDA
+    graphs (one call shape a bucket); elsewhere it takes the ladder, as a
+    bucket of one chunk does.  Each chunk is uploaded once, its M group
+    calls made, and its ranks read back once.  Unfiltered eval passes zero
+    filter lists made on the device.  Returns each batch's ranks trimmed
+    to n_valid, in the batches' order (ranking is per row, so regrouping
+    is exact)."""
+    G = EVAL_GROUP
+    B = len(batches[0]["h"])
+    neg_head = batches[0]["neg_head"]
+    filtered = "filter_ids" in batches[0]
+    widths = np.array([b["filter_ids"].shape[1] if filtered else 8
+                       for b in batches])
+    dev = calls.model.device
+    fixed = calls.on_graphs(state)
+    out = [None] * len(batches)
+    for f in np.unique(widths):
+        f = int(f)
+        idxs = np.nonzero(widths == f)[0]
+        cap = max(G, _MEGA_BUDGET // (B * f * 5) // G * G)
+        for c0 in range(0, len(idxs), cap):
+            chunk = idxs[c0:c0 + cap]
+            if len(idxs) > cap and fixed:
+                g, m = G, cap // G
+            else:
+                g = min(G, 1 << max(0, len(chunk) - 1).bit_length())
+                m = -(-len(chunk) // g)
+            sel = np.concatenate(
+                [chunk, np.repeat(chunk[:1], m * g - len(chunk))])
+            host, (h, r, t) = _upload(
+                [np.stack([batches[i][k] for i in sel]).reshape(m, g, B)
+                 for k in ("h", "r", "t")], dev)
+            hosts = [host]
+            if filtered:
+                lists = []
+                for k, dtype in (("filter_ids", np.int32),
+                                 ("filter_mask", np.uint8)):
+                    host, (x,) = _upload([np.stack(
+                        [batches[i][k] for i in sel]).reshape(m, g, B, f)],
+                        dev, dtype)
+                    hosts.append(host)
+                    lists.append(x)
+            else:
+                lists = [[torch.zeros((g, B, 8), dtype=dtype, device=dev)] * m
+                         for dtype in (torch.int32, torch.uint8)]
+            ranks = torch.empty((m, g, B), dtype=torch.int64, device=dev)
+            for i in range(m):
+                ranks[i] = calls.full(state, h[i], r[i], t[i], lists[0][i],
+                                      lists[1][i], neg_head=neg_head,
+                                      phase=phase)
+            ranks = ranks.reshape(m * g, B).cpu().numpy()
+            del hosts   # read back: the uploads are done
+            for j, i in enumerate(chunk):
+                out[i] = ranks[j][:batches[i]["n_valid"]]
+    return out
+
+
+def _sampled_eval(calls, state: TrainState, batches, phase: str) -> list:
+    """Rank sampled-negative batches a group of EVAL_GROUP a call, as the
+    JAX package's flush_sampled (dglke_tpu/trainer.py:873-900): where the
+    calls run as CUDA graphs the tail group is padded with copies of its
+    first batch, so that one call shape serves every group (elsewhere it
+    is ranked as it is), and a split without keep masks passes one
+    all-ones mask made on the device.  The ranks are read back once, at
+    the end.  Returns each batch's ranks trimmed to n_valid."""
+    G = EVAL_GROUP
+    dev = calls.model.device
+    fixed = calls.on_graphs(state)
+    ones = None
+    hosts, groups, dev_ranks = [], [], []
+
+    def flush(group):
+        nonlocal ones
+        pad = group + [group[0]] * ((G if fixed else len(group))
+                                    - len(group))
+        host, (h, r, t, neg, n_valid) = _upload(
+            [np.stack([b[k] for b in pad]) for k in ("h", "r", "t", "neg")]
+            + [[b["n_valid"] for b in pad]], dev)
+        hosts.append(host)
+        if "neg_keep" in pad[0]:
+            host, (keep,) = _upload([np.stack([b["neg_keep"] for b in pad])],
+                                    dev, np.uint8)
+            hosts.append(host)
+        else:
+            if ones is None:   # a sampler's batches share one shape
+                ones = torch.ones((G, h.shape[1], neg.shape[1]),
+                                  dtype=torch.uint8, device=dev)
+            keep = ones[:len(pad)]
+        dev_ranks.append(calls.sampled(
+            state, h, r, t, neg, keep, n_valid, neg_head=pad[0]["neg_head"],
+            neg_deg_sample=pad[0]["neg_deg_sample"],
+            phase=phase)[:len(group)].clone())
+        groups.append(group)
+
+    group = []
+    for batch in batches:
+        if len(group) == G:
+            flush(group)
+            group = []
+        group.append(batch)
+    flush(group)
+    host_ranks = torch.cat(dev_ranks).cpu().numpy()
+    del hosts   # read back: the uploads are done
+    return [ranks[:b["n_valid"]]
+            for ranks, b in zip(host_ranks, chain.from_iterable(groups))]
 
 
 class CandidateEvalSampler:
@@ -721,7 +852,10 @@ def evaluate_candidates(model: KEModel, state: TrainState,
     so the best rank is 2).  Test mode: each query's top-10 candidate
     positions (candidate_top) into save_path/test_{rank}.pkl, the
     reference's layout {"h,r->t": {"t_pred_top10": [N, min(10, K)] int32,
-    and "t_correct_index" [N] where the split has answers}}.
+    and "t_correct_index" [N] where the split has answers}}.  Both are
+    computed on the device a batch a call (models/eval_step.py), over
+    chunks as the JAX package's make_candidate_megastep calls cut them
+    (candidate_outputs).
 
     Under a plan: over replicated tables the sampler holds this rank's
     stride, the Valid metrics add the ranks' partial sums, and each rank
@@ -733,29 +867,18 @@ def evaluate_candidates(model: KEModel, state: TrainState,
             "Valid-mode candidate eval needs answer indices "
             "(t_correct_index missing from the candidate split)")
     rank = 0 if plan is None else plan.rank
-    dev = model.device
-    b = sampler.batch_size
-    n_cand = sampler.cand.shape[1]
-    out = []
-    for beg in range(0, len(sampler.hr), b):
-        hr = torch.as_tensor(sampler.hr[beg:beg + b], device=dev)
-        cand = torch.as_tensor(sampler.cand[beg:beg + b], device=dev)
-        scores = model.candidate_scores(state, hr[:, 0], hr[:, 1], cand)
-        if mode == "Valid":
-            ans = torch.as_tensor(sampler.ans[beg:beg + b], device=dev)
-            out.append(candidate_ranks(scores, ans))
-        else:
-            out.append(candidate_top(scores))
+    calls = model.eval_calls
+    graphs = (calls.captured, calls.replays)
+    out = candidate_outputs(calls, state, sampler, top=mode != "Valid",
+                            phase=mode)
+    _log_graphs(calls, state, graphs, f"[{rank}]{mode}", log)
     if mode == "Valid":
-        ranks = (torch.cat(out).cpu().numpy() if out
-                 else np.zeros((0,), np.int64))
         metrics = combine_rank_metrics(
-            ranks, "candidate evaluation saw zero queries", plan)
+            out, "candidate evaluation saw zero queries", plan)
         for k, v in metrics.items():
             log(f"[{rank}]{mode} average {k}: {v}")
         return metrics
-    top10 = (torch.cat(out).cpu().numpy().astype(np.int32) if out
-             else np.zeros((0, min(10, n_cand)), np.int32))
+    top10 = out.astype(np.int32)
     sl = (slice(rank, None, plan.n) if plan is not None and plan.vocab
           else slice(None))
     result = {"h,r->t": {"t_pred_top10": top10[sl]}}
@@ -765,3 +888,49 @@ def evaluate_candidates(model: KEModel, state: TrainState,
         with open(os.path.join(save_path, f"test_{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
     return None
+
+
+def candidate_outputs(calls, state: TrainState,
+                      sampler: CandidateEvalSampler, *, top: bool,
+                      phase: str) -> np.ndarray:
+    """Each query's answer rank [N] (or with ``top`` its top-10 positions
+    [N, min(10, K)]), chunked as the JAX package's evaluate_candidates
+    (dglke_tpu/trainer.py:705-737): chunks of rows_cap queries, whose
+    candidate lists take ~_MEGA_BUDGET bytes, the tail padded to a whole
+    batch or, when the split spans several chunks and the calls run as CUDA
+    graphs, to rows_cap, so that every call has one shape.  Each chunk is
+    uploaded once, its batches ranked a call each, and its outputs read
+    back once."""
+    b = sampler.batch_size
+    n = len(sampler.hr)
+    n_cand = sampler.cand.shape[1]
+    dev = calls.model.device
+    rows_cap = max(b, _MEGA_BUDGET // (n_cand * 4) // b * b)
+    fixed = calls.on_graphs(state)
+    out = []
+    for beg in range(0, n, rows_cap):
+        hr = sampler.hr[beg:beg + rows_cap]
+        cand = sampler.cand[beg:beg + rows_cap]
+        ans = (sampler.ans[beg:beg + rows_cap] if sampler.ans is not None
+               else np.zeros(len(hr), np.int32))
+        nn = len(hr)
+        pad = (rows_cap - nn) if n > rows_cap and fixed else (-nn % b)
+        if pad:
+            hr = np.concatenate([hr, np.repeat(hr[:1], pad, axis=0)])
+            cand = np.concatenate([cand, np.repeat(cand[:1], pad, axis=0)])
+            ans = np.concatenate([ans, np.repeat(ans[:1], pad)])
+        m = len(hr) // b
+        host, (query, cands, answers) = _upload(
+            [hr.reshape(m, b, 2), cand.reshape(m, b, n_cand),
+             ans.reshape(m, b)], dev)
+        res = torch.empty((m, b, min(10, n_cand)) if top else (m, b),
+                          dtype=torch.int64, device=dev)
+        for i in range(m):
+            res[i] = calls.candidates(state, query[i], cands[i], answers[i],
+                                      top=top, phase=phase)
+        out.append(res.reshape(m * b, -1).cpu().numpy()[:nn])
+        del host   # read back: the upload is done
+    if not out:
+        return np.zeros((0, min(10, n_cand)) if top else (0,), np.int64)
+    out = np.concatenate(out)
+    return out if top else out.reshape(-1)

@@ -30,7 +30,7 @@ from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import synthetic_dataset
 from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex
 from dglke_tpu_torch.models.ke_model import KEModel
-from dglke_tpu_torch.trainer import SAMPLED_GROUP, evaluate
+from dglke_tpu_torch.trainer import EVAL_GROUP, evaluate
 from dglke_tpu_torch.utils.convert import state_from_numpy
 
 torch.set_num_threads(2)
@@ -271,10 +271,10 @@ def test_evaluate_groups_span_several_calls(monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(pm, "eval_ranks_sampled", counted)
-    monkeypatch.setattr(pt_trainer, "SAMPLED_GROUP", 2)
+    monkeypatch.setattr(pt_trainer, "EVAL_GROUP", 2)
     assert evaluate(pcfg, PDS, pm, pstate, "test", log=QUIET) == whole
     assert [c[0] for c in calls] == [2, 2] * 2
-    assert SAMPLED_GROUP == 32
+    assert EVAL_GROUP == 32
 
 
 def test_eval_cli_sampled_matches_jax(tmp_path, capsys):
