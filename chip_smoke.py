@@ -44,11 +44,18 @@ Phases (any failure exits non-zero and prints no result line):
      --compute_dtype bfloat16 and with --async_update, RESCAL with K3 in
      the graph, TransR (hidden 200), 320 flagship steps on the phase-3
      data's 300,000 edges whose groups straddle the epoch, and s = 1 on
-     2,500 edges whose batches straddle it.  Every single-device CLI run
-     below on the device pipeline (phases 3, 3b, 3c, 4, 5, 6) must take
-     this route: its graphs and replays are read from its log and held to
-     one graph and max_step / s - 1 replays (s = 1 must not reach the
-     pipeline on one device), with its launch counts held to
+     2,500 edges whose batches straddle it.  The fed call
+     (models/fed_step.py) against the eager steps on the same batches, bit
+     for bit: host tables on mapped memory (host_graph_parity, against
+     host_step: the flagship, with edge weights, TransR's projection,
+     RESCAL's row route, RotatE), and the host-fed route on 1,500 edges
+     (fed_graph_parity: --async_update at s = 10, and s = 1).  Every
+     single-device CLI run below must take the graph route of its feed:
+     its graphs and replays are read from its log (graph_route) and held
+     to one graph and max_step / s - 1 replays on the device pipeline (s =
+     1 must not reach it on one device), two graphs and max_step - 1
+     replays on host tables, one graph (two at s = 1) and max_step / s - 1
+     replays on the host-fed route, with its launch counts held to
      EXPECTED_LAUNCHES through the replays; the step profiles of the
      flagship (fp32, bf16), RESCAL and wikikg2 run on both routes, with the
      graph launches a step and the peak allocation;
@@ -104,7 +111,9 @@ Phases (any failure exits non-zero and prints no result line):
      through the CLI, which must take the host-fed route, launch K1, the
      grouping and K2 every step, and train; and an odd --max_step (step
      group size 1) on the phase-3 data, which on one device must take the
-     host-fed route too (phase_step_one);
+     host-fed route too (phase_step_one); both host-fed runs replay the fed
+     call's CUDA graphs (graph_route); then the host-fed step profile at the
+     flagship, s = 1, on both routes (phase_fed_profile);
   5. the RESCAL main path, the same three parts as phase 3: the CLI with
      the flags of examples/fb15k.sh (hidden 500), --max_step 1000 and
      --test on the same data, its launch counts read around that run only
@@ -165,8 +174,10 @@ Phases (any failure exits non-zero and prints no result line):
      --mix_cpu_gpu (1,000 steps, filtered test eval; launch counts held),
      its checkpoint through dglke_tpu_torch-eval in host mode (adopted
      from config.json) and with --no_mix_cpu_gpu on the card: the filtered
-     ranks of all three identical.  Two host steps on the card against the
-     CPU; the host step profile;
+     ranks of all three identical; the training run replays one CUDA graph
+     a step (two graphs).  Two host steps on the card against the CPU; the
+     host step profile on both routes (the fed call's graph and
+     host_step);
   7. the planted quality gate of every family on the card (MRR >= 0.85,
      HITS@10 >= 0.99, the JAX package's calibrated configs), in fp32 and
      with --compute_dtype bfloat16, side by side;
@@ -199,8 +210,9 @@ Phases (any failure exits non-zero and prints no result line):
   7b. the capacity run: the Freebase TransE_l2 recipe
      (examples/freebase.sh:8-11) with --mix_cpu_gpu through the CLI at
      FB_ENT entities, an entity table larger than the card (cuts listed at
-     FB_ENT), launch counts held; the host-table init and mapping seconds,
-     the sampled test eval, a 50-step profile after 50, a filtered
+     FB_ENT), launch counts held through the graph replays; the host-table
+     init and mapping seconds, the sampled test eval, a 50-step profile
+     after 50 on both routes, a filtered
      full-entity host eval of 1,000 test triples streaming the table
      through the card once, and the card's peak allocation held under
      HOST_PEAK_CEILING;
@@ -297,7 +309,8 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 # update is applied once, one step late inside each group of 10 steps (the
 # last at the group's end), and an empty pending update launches nothing.
 # The host-fed run (1,500 train edges, under two batches, 100 steps, no
-# eval) launches two K1, two groupings and two K2 a step.
+# eval) launches two K1, two groupings and two K2 a step (in 9 replays of
+# its group of 10 after the first).
 #
 # wikikg2: two K1, two groupings and two K2 a step over 1,000 steps; the
 # sampled test eval of 20,000 triples in batches of 32 is 625 batches a
@@ -338,8 +351,10 @@ EXPECTED_LAUNCHES["TransE_l2 s = 1"] = {
     "outer_adagrad_update": 0}
 # Host-resident tables (--mix_cpu_gpu): each step gathers the entity and
 # the relation rows from the mapped host tables (K1 x 2) and writes both
-# back (a grouping and K2 each), 1,000 steps.  The flagship's filtered
-# full-entity test eval gathers, for each of its two directions, the
+# back (a grouping and K2 each), 1,000 steps: the first eagerly, the rest
+# in CUDA graph replays, which add their capture's counts.  The
+# flagship's filtered full-entity test eval gathers, for each of its two
+# directions, the
 # queries' [h | t] entity rows and their relation rows (K1 x 2); the table
 # streams through the card by plain copies, no kernel.  The capacity run's
 # sampled test eval (2,000 triples, batches of 1,000) is 2 batches a mode,
@@ -1343,26 +1358,40 @@ def run_cli(label: str, argv: list, trained=None):
 
 
 def graph_route(label: str, argv: list, text: str):
-    """A single-device run on the device pipeline must take the CUDA graph
-    route: its log's route line says so, and its last lines give the
-    graphs captured and the replays, held to one graph and max_step / s - 1
-    replays (the first group runs eagerly).  Step group size 1 must not
-    reach the single-device pipeline (it takes the host-fed route, as the
-    JAX package does).  Returns (s, graphs, replays), or None for a run on
-    another route (host-fed, host tables, --dist)."""
+    """A single-device run must take the CUDA graph route of its feed: its
+    log's route line says so, and its last lines give the graphs captured
+    and the replays.  The device pipeline: one graph and max_step / s - 1
+    replays (the first group runs eagerly); step group size 1 must not
+    reach it on one device (it takes the host-fed route, as the JAX package
+    does).  Host tables: two graphs (head-first and tail-first steps) and
+    max_step - 1 replays.  The host-fed route: one graph (two at s = 1) and
+    max_step / s - 1 replays.  Returns (s, graphs, replays), or None for a
+    --dist run."""
+    if "--dist" in argv:
+        return None
+    max_step = int(argv[argv.index("--max_step") + 1])
     route = re.search(r"device-resident pipeline: (\d+) steps a group"
                       r"(, one CUDA graph)?", text)
-    if route is None or "--dist" in argv:
-        return None
-    if route.group(2) is None:
-        fail(f"{label}: the single-device pipeline did not take the CUDA "
-             f"graph route")
-    s = int(route.group(1))
-    if s == 1:
-        fail(f"{label}: step group size 1 took the device pipeline on one "
-             f"device, not the host-fed route")
-    max_step = int(argv[argv.index("--max_step") + 1])
-    want = (1, max_step // s - 1)
+    fed = re.search(r"host-fed TrainSampler \([^)]*\): (\d+) steps a group",
+                    text)
+    if "--mix_cpu_gpu" in argv:
+        if "[proc 0]host tables: one CUDA graph a step" not in text:
+            fail(f"{label}: host tables did not take the CUDA graph route")
+        s, graphs = 1, 2
+    elif route is not None:
+        if route.group(2) is None:
+            fail(f"{label}: the single-device pipeline did not take the "
+                 f"CUDA graph route")
+        s, graphs = int(route.group(1)), 1
+        if s == 1:
+            fail(f"{label}: step group size 1 took the device pipeline on "
+                 f"one device, not the host-fed route")
+    elif fed is not None:
+        s = int(fed.group(1))
+        graphs = 2 if s == 1 else 1
+    else:
+        fail(f"{label}: no training route line")
+    want = (graphs, max_step // s - 1)
     got = re.search(r"\[proc 0\]CUDA graphs: (\d+) captured, (\d+) replays",
                     text)
     if got is None or (int(got.group(1)), int(got.group(2))) != want:
@@ -1511,8 +1540,10 @@ def phase_step_parity(recipe: dict, n_ent: int = N_ENT, n_rel: int = N_REL):
 
 
 GROUP_S = 10   # steps a group in the direct runs, as the CLI runs choose
-# What six fused calls may leave allocated on the card once they are gone.
+# What the fused calls of phase 2b after its first (GRAPH_CASES) may leave
+# allocated on the card once they are gone.
 GRAPH_MEM_SLACK = 1 << 20
+GRAPH_CASES = 13
 
 
 def phase_step_profile(recipe: dict, steps: int, n_ent: int = N_ENT,
@@ -1677,13 +1708,152 @@ def graph_parity(label: str, recipe: dict, s: int, groups: int,
     torch.cuda.empty_cache()
 
 
+def _weighted(ds):
+    """``ds`` with per-edge weights (edge importance) on its train split."""
+    n = ds.n_train
+    ds.train = ds.train[:3] + (np.linspace(0.5, 2.0, n).astype(np.float32),)
+    return ds
+
+
+def _same_logs(label: str, a: list, b: list) -> None:
+    import torch
+    for k in a[0]:
+        if not torch.equal(torch.cat([x[k].reshape(-1) for x in a]),
+                           torch.cat([x[k].reshape(-1) for x in b])):
+            fail(f"{label}: the {k} logs differ between the CUDA graph and "
+                 f"the eager steps")
+
+
+def host_graph_parity(label: str, recipe: dict, steps: int,
+                      weights: bool = False) -> None:
+    """``steps`` host-table steps of the recipe at full width (N_ENT x
+    N_REL) on mapped host tables, from the same initial tables and the
+    same TrainSampler batches, through the host-table fed call
+    (host_table.host_fed_step: the first step eager on its capture stream,
+    then two CUDA graphs, head-first and tail-first, replayed) and through
+    host_table.host_step, the eager step: every table, its Adagrad state
+    and the logs bit-equal, the launches equal, 2 graphs and steps - 1
+    replays."""
+    import torch
+    from dglke_tpu_torch import host_table
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    from dglke_tpu_torch.data.sampler import TrainSampler
+    from dglke_tpu_torch.models.fed_step import pack_batch
+    from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.ops import rows
+    cfg = KGEConfig(**recipe, mix_cpu_gpu=True)
+    ds = synthetic_dataset(N_ENT, N_REL, n_train=100_000, seed=0)
+    if weights:
+        ds = _weighted(ds)
+    model = KEModel(cfg, N_ENT, N_REL, device="cuda")
+    init = host_table.init_host_state(KEModel(cfg, N_ENT, N_REL,
+                                              device="cpu"), seed=1)
+    batches = list(islice(TrainSampler(ds, cfg.batch_size,
+                                       cfg.neg_sample_size, seed=1), steps))
+    t0 = time.time()
+    out = {}
+    for route in ("graph", "eager"):
+        state = _host_copy(model, init, "cuda")
+        fused = host_table.host_fed_step(model)
+        rows.reset_launches()
+        logs = []
+        for i, batch in enumerate(batches):
+            if route == "graph":
+                logs.append(fused(state, [pack_batch(batch, True)], i)[1])
+            else:
+                logs.append(host_table.host_step(model, state, batch))
+        torch.cuda.synchronize()
+        out[route] = (state, logs, dict(rows.launches), len(fused.graphs),
+                      fused.replays)
+    (g, glogs, gl, graphs, replays), (e, elogs, el, _, _) = (out["graph"],
+                                                             out["eager"])
+    _same_tables(label, g, e)
+    _same_logs(label, glogs, elogs)
+    if gl != el or not any(gl.values()):
+        fail(f"{label}: launches {gl} on the graph route, {el} eager")
+    if (graphs, replays) != (2, steps - 1) or not g.step == e.step == steps:
+        fail(f"{label}: {graphs} graphs, {replays} replays, steps "
+             f"{g.step} / {e.step}")
+    print(f"{label}: {steps} host-table steps on mapped tables through "
+          f"{graphs} CUDA graphs ({replays} replays) bit-equal to "
+          f"host_step (every table, its Adagrad state, the logs), launches "
+          f"equal ({gl}); {time.time() - t0:.1f} s")
+    del init, out, g, e
+    gc.collect()
+
+
+def fed_graph_parity(label: str, recipe: dict, s: int, groups: int,
+                     n_train: int) -> None:
+    """``groups`` host-fed groups of ``s`` TrainSampler batches of the
+    recipe at full width, from the same initial tables, through the fed
+    call (models/fed_step.py: the first group eager on its capture stream,
+    then its CUDA graph(s) replayed) and through its group function called
+    eagerly on the default stream: every table, its Adagrad state and the
+    logs bit-equal, the launches equal, one graph (two at s = 1) and
+    groups - 1 replays."""
+    import torch
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    from dglke_tpu_torch.data.sampler import TrainSampler
+    from dglke_tpu_torch.models.fed_step import FedStep, pack_batch
+    from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.ops import rows
+    cfg = KGEConfig(**recipe)
+    ds = synthetic_dataset(N_ENT, N_REL, n_train=n_train, seed=0)
+    model = KEModel(cfg, N_ENT, N_REL, device="cuda")
+    init = model.init_state()
+    sampler = TrainSampler(ds, cfg.batch_size, cfg.neg_sample_size, seed=1)
+    batches = [[next(sampler) for _ in range(s)] for _ in range(groups)]
+    t0 = time.time()
+    out = {}
+    for route in ("graph", "eager"):
+        state = _clone(init)
+        fused = FedStep(model, s)
+        rows.reset_launches()
+        logs = []
+        for i, group in enumerate(batches):
+            packed = [pack_batch(x, True) for x in group]
+            if route == "graph":
+                logs.append(fused(state, packed, i * s)[1])
+            else:
+                fused._stage(packed)
+                group_logs = fused.group(state)
+                logs.append(dict(zip(fused.keys, group_logs)))
+        torch.cuda.synchronize()
+        out[route] = (state, logs, dict(rows.launches), len(fused.graphs),
+                      fused.replays)
+    (g, glogs, gl, graphs, replays), (e, elogs, el, _, _) = (out["graph"],
+                                                             out["eager"])
+    _same_tables(label, g, e)
+    _same_logs(label, glogs, elogs)
+    if gl != el or not any(gl.values()):
+        fail(f"{label}: launches {gl} on the graph route, {el} eager")
+    if ((graphs, replays) != (2 if s == 1 else 1, groups - 1)
+            or not g.step == e.step == s * groups):
+        fail(f"{label}: {graphs} graphs, {replays} replays, steps "
+             f"{g.step} / {e.step}")
+    print(f"{label}: {groups} host-fed groups of {s} steps on {n_train} "
+          f"train edges through {graphs} CUDA graph(s) ({replays} replays) "
+          f"bit-equal to the eager group function (every table, its "
+          f"Adagrad state, the logs), launches equal ({gl}); "
+          f"{time.time() - t0:.1f} s")
+    del init, out, g, e
+    torch.cuda.empty_cache()
+
+
 def phase_graph_parity() -> None:
     """The CUDA graph route against the eager group function, bit for
     bit: the flagship in fp32, with --compute_dtype bfloat16 and with
     --async_update; RESCAL with K3 in the graph; TransR (hidden 200); a
     few hundred flagship steps on the phase-3 data's 300,000 edges whose
     groups straddle the epoch; and s = 1 on 2,500 edges, whose batches
-    straddle it (head-first and tail-first groups: two graphs).  The
+    straddle it (head-first and tail-first groups: two graphs).  Then the
+    fed call (models/fed_step.py) against the eager steps: host tables
+    (host_graph_parity: the flagship on mapped tables, with edge weights,
+    TransR's projection, RESCAL's row route, RotatE's checkpointed scores)
+    and the host-fed route on 1,500 edges, under two batches
+    (fed_graph_parity: --async_update at s = 10, and s = 1).  The
     card's allocation after the first case and after the last must agree
     within GRAPH_MEM_SLACK: a fused call's graphs, pools and capture
     stream hold nothing once it is gone (each capture stream of its own
@@ -1702,13 +1872,24 @@ def phase_graph_parity() -> None:
                  n_train=300_000, n_valid=1000, n_test=2000)
     graph_parity("graph parity TransE_l2 s = 1", TRANSE, 1, 8,
                  n_train=2_500)
+    host_graph_parity("host graph parity TransE_l2", TRANSE, 8)
+    host_graph_parity("host graph parity TransE_l2 impts", TRANSE, 4,
+                      weights=True)
+    host_graph_parity("host graph parity TransR", TRANSR, 4)
+    host_graph_parity("host graph parity RESCAL", RESCAL, 4)
+    host_graph_parity("host graph parity RotatE", ROTATE, 4)
+    fed_graph_parity("host-fed graph parity TransE_l2 async",
+                     dict(TRANSE, async_update=True), GROUP_S, 4,
+                     n_train=1500)
+    fed_graph_parity("host-fed graph parity TransE_l2 s = 1", TRANSE, 1, 8,
+                     n_train=1500)
     gc.collect()
     grown = torch.cuda.memory_allocated() - base
     print(f"graph parity: the card's allocation grew by {grown} bytes over "
-          f"six fused calls after the first")
+          f"{GRAPH_CASES} fused calls after the first")
     if grown > GRAPH_MEM_SLACK:
-        fail(f"graph parity: {grown} bytes still allocated after six fused "
-             f"calls, above {GRAPH_MEM_SLACK}")
+        fail(f"graph parity: {grown} bytes still allocated after "
+             f"{GRAPH_CASES} fused calls, above {GRAPH_MEM_SLACK}")
 
 
 # ---------------------------------------------------------------------------
@@ -2143,8 +2324,9 @@ def phase_eval_recipe():
 def phase_step_one():
     """Step group size 1 on one device (an odd --max_step, S1_STEPS steps on
     the phase-3 data) through the CLI: the host-fed TrainSampler, as the
-    JAX package takes it there, with its sample / update line, no CUDA
-    graph, and its launches held."""
+    JAX package takes it there, with its sample / update line, two CUDA
+    graphs (head-first and tail-first steps, graph_route) and its launches
+    held through the replays."""
     argv = ["--dataset", "fb15k_shaped",
             *_udd_args(_fb15k_shaped("data", n_train=300_000)),
             *_recipe_flags(TRANSE), "--max_step", str(S1_STEPS),
@@ -2155,10 +2337,11 @@ def phase_step_one():
             not in text or not re.search(r"\[proc 0\]sample: \S+, update: ",
                                          text)):
         fail("s = 1 run: the trainer did not take the host-fed route")
-    if "CUDA graphs" in text or state.step != S1_STEPS:
-        fail(f"s = 1 run: {state.step} steps, or a CUDA graph")
+    if state.step != S1_STEPS:
+        fail(f"s = 1 run: {state.step} steps")
     print(f"s = 1 run: {S1_STEPS} steps through the host-fed TrainSampler "
-          f"on {300_000} train edges; launches {counts}")
+          f"on {300_000} train edges, one fed call a step; launches "
+          f"{counts}")
     return counts
 
 
@@ -3310,45 +3493,94 @@ def phase_host_step_parity(recipe: dict):
 
 
 def phase_host_profile(label: str, model, state, ds, steps: int = 50):
-    """Where a host step's time goes: the host clock over ``steps`` host
-    steps after as many to warm up, then torch.profiler over ``steps``
-    more for the device's busy share and the kernels by device time.
-    Returns (host ms per step, busy share)."""
+    """Where a host-fed step's time goes (one TrainSampler batch a step: on
+    host tables when ``state`` is a HostState, else the host-fed route on
+    tables on the card), on both routes in turn: the fed call ("graph": one
+    CUDA graph replayed a step, fed by a trainer.HostFeed as the trainers
+    feed it) and the eager step ("eager": the batch sampled inline, then
+    host_step, or on the host-fed route the fed call's group function
+    called eagerly).  For each, the host clock over ``steps`` steps after
+    as many to warm up, then torch.profiler over ``steps`` more for the
+    device's busy share and the kernels by device time; then the two side
+    by side.  Returns {route: (host ms per step, busy share)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from dglke_tpu_torch import host_table
     from dglke_tpu_torch.data.sampler import TrainSampler
+    from dglke_tpu_torch.models.fed_step import FedStep, pack_batch
+    from dglke_tpu_torch.trainer import HostFeed
     cfg = model.config
-    sampler = TrainSampler(ds, cfg.batch_size, cfg.neg_sample_size, seed=2)
+    host = getattr(state, "is_host", False)
+    out = {}
+    for route in ("graph", "eager"):
+        calls = [0]
+        if route == "graph":
+            feed = HostFeed(model, ds, cfg.batch_size, cfg.neg_sample_size,
+                            seed=2)
+            fused = (host_table.host_fed_step(model) if host
+                     else FedStep(model, 1))
 
-    def run(n):
-        for _ in range(n):
-            host_table.host_step(model, state, next(sampler))
-        torch.cuda.synchronize()
+            def one():
+                fused(state, feed.take(1), state.step)
+        else:
+            sampler = TrainSampler(ds, cfg.batch_size, cfg.neg_sample_size,
+                                   seed=2)
+            eager = FedStep(model, 1)
 
-    run(steps)
-    t0 = time.perf_counter()
-    run(steps)
-    step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(steps)
-        kern = _kernel_events(prof)
-        if kern:
-            break
-        print("  (torch.profiler returned no device event; tracing again)")
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
-    print(f"{label} host step profile [batch {cfg.batch_size}]: "
-          f"{step_ms:.4f} ms per step on the host clock "
-          f"({cfg.batch_size * 1e3 / step_ms:.1f} triples/s); device busy "
-          f"{busy:.4f} ms per step ({100 * busy / step_ms:.1f}%, idle "
-          f"{100 - 100 * busy / step_ms:.1f}%); "
-          f"{sum(e.count for e in kern) / steps:.1f} kernels per step")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
-              f"x{e.count / steps:.1f}  {e.key[:90]}")
-    return step_ms, busy / step_ms
+            def one():
+                if host:
+                    host_table.host_step(model, state, next(sampler))
+                else:
+                    eager._stage([pack_batch(next(sampler), True)])
+                    eager.group(state)
+
+        def run(n):
+            for _ in range(n):
+                one()
+            calls[0] += n
+            torch.cuda.synchronize()
+
+        run(steps)
+        t0 = time.perf_counter()
+        run(steps)
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(steps)
+            kern = _kernel_events(prof)
+            if kern:
+                break
+            print("  (torch.profiler returned no device event; tracing "
+                  "again)")
+        busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+        n_kern = sum(e.count for e in kern) / steps
+        if route == "graph":
+            feed.close()
+            launched = sum(e.count for e in prof.key_averages()
+                           if e.key == "cudaGraphLaunch") / steps
+            if (len(fused.graphs), fused.replays) != (2, calls[0] - 1) \
+                    or launched != 1:
+                fail(f"{label} profile: {len(fused.graphs)} graphs, "
+                     f"{fused.replays} replays, {launched} graph launches "
+                     f"a step")
+        print(f"{label} step profile, {route} route [batch "
+              f"{cfg.batch_size}; {card_line()}]: {step_ms:.4f} ms per step "
+              f"on the host clock ({cfg.batch_size * 1e3 / step_ms:.1f} "
+              f"triples/s); device busy {busy:.4f} ms per step "
+              f"({100 * busy / step_ms:.1f}%, idle "
+              f"{100 - 100 * busy / step_ms:.1f}%); {n_kern:.1f} kernels per "
+              f"step")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
+                  f"x{e.count / steps:.1f}  {e.key[:90]}")
+        out[route] = (step_ms, busy, n_kern)
+    (hg, dg, kg), (he, de, ke) = out["graph"], out["eager"]
+    print(f"{label} step, CUDA graph against eager [{card_line()}]: "
+          f"host {hg:.4f} / {he:.4f} ms, device busy {dg:.4f} / {de:.4f} "
+          f"ms, busy share {100 * dg / hg:.1f}% / {100 * de / he:.1f}%, "
+          f"kernels {kg:.1f} / {ke:.1f} a step")
+    return {k: (v[0], v[1] / v[0]) for k, v in out.items()}
 
 
 def phase_host_flagship_profile():
@@ -3362,9 +3594,24 @@ def phase_host_flagship_profile():
                     device="cuda")
     state = host_table.init_host_state(model, seed=0)
     ds = synthetic_dataset(N_ENT, N_REL, n_train=100_000, seed=0)
-    phase_host_profile("TransE_l2", model, state, ds)
+    phase_host_profile("TransE_l2 host", model, state, ds)
     del state
     gc.collect()
+
+
+def phase_fed_profile():
+    """The host-fed step profile at the flagship shape, s = 1 (the route of
+    phase 4's s = 1 run, C6): tables on the card, 100,000 train edges."""
+    import torch
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    from dglke_tpu_torch.models.ke_model import KEModel
+    model = KEModel(KGEConfig(**TRANSE), N_ENT, N_REL, device="cuda")
+    state = model.init_state()
+    ds = synthetic_dataset(N_ENT, N_REL, n_train=100_000, seed=0)
+    phase_host_profile("TransE_l2 host-fed s = 1", model, state, ds)
+    del state, model
+    torch.cuda.empty_cache()
 
 
 def _write_freebase(path: str) -> None:
@@ -3412,6 +3659,7 @@ def phase_capacity_parity(model, state, ds):
     import torch
     from dglke_tpu_torch import host_table
     from dglke_tpu_torch.data.sampler import TrainSampler
+    from dglke_tpu_torch.models.fed_step import pack_batch, unpack_batch
     from dglke_tpu_torch.ops import rows
     from dglke_tpu_torch.ops.embedding import gather_rows
     rng = np.random.default_rng(5)
@@ -3440,7 +3688,10 @@ def phase_capacity_parity(model, state, ds):
     cfg = model.config
     batch = next(iter(TrainSampler(ds, cfg.batch_size, cfg.neg_sample_size,
                                    seed=3)))
-    _, updates = host_table.host_grads(model, state, batch)
+    packed, _, neg_head, b = pack_batch(batch, pin=False)
+    _, updates = host_table.host_grads(
+        model, state, *unpack_batch(packed.cuda(), b), None,
+        neg_head=neg_head)
     torch.cuda.synchronize()
     held = []
     for table, ids, grads in updates:
@@ -3538,7 +3789,7 @@ def phase_capacity():
           f"{eval_s[0]:.3f} s, MRR {mrr[0]!r}; launches {counts}")
     ds = trained["dataset"]
     phase_capacity_parity(model, state, ds)
-    step_ms, busy = phase_host_profile("Freebase", model, state, ds)
+    phase_host_profile("Freebase host", model, state, ds)
     cfg = dataclasses.replace(trained["config"], neg_sample_size_eval=-1,
                               eval_percent=FB_FULL_EVAL / FB_TEST)
     lines = []
@@ -4690,6 +4941,7 @@ def main() -> int:
             label="TransE_l2 async")
         paths["TransE_l2 host-fed"] = phase_host_fed()
         paths["TransE_l2 s = 1"] = phase_step_one()
+        phase_fed_profile()
         lap("phase 4")
         paths["RESCAL"] = phase_main_path(RESCAL,
                                           batch_size_eval=RESCAL_EVAL_BATCH)

@@ -27,6 +27,13 @@ touched row and its state once.  Only the touched rows cross the link, and
 the host does no table work.  On the CPU (device="cpu") the same code takes
 the kernels' plain versions.
 
+Each training step is one fed call (models/fed_step.py, host_fed_step):
+a trainer.HostFeed samples and packs the batches ahead, the call copies a
+batch's ids into its static inputs on the model's device, and on a card
+replays a CUDA graph of the step (host_rows_step), whose K1 and K2 reach
+the mapped tables; on the CPU it runs the step eagerly.  host_step is the
+same step eagerly, with its batch uploaded.
+
 K2 writes the mapped tables asynchronously on the current stream: every
 host-side read of a host table first waits for the card
 (ops/rows.py:sync_mapped), as utils/io.py:save_model does.
@@ -36,17 +43,19 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from dglke_tpu_torch.config import KGEConfig
-from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex, TrainSampler
+from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex
+from dglke_tpu_torch.models.fed_step import FedStep, pack_batch, unpack_batch
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.ops import rows
 from dglke_tpu_torch.ops.embedding import gather_rows, sparse_adagrad_update
-from dglke_tpu_torch.trainer import ProfileWindow, steps_per_group
+from dglke_tpu_torch.trainer import HostFeed, ProfileWindow, steps_per_group
 
 
 # Host eval query-chunking knobs (see evaluate_host_with_samplers): bound
@@ -147,50 +156,71 @@ def load_host_state(config: KGEConfig, model: KEModel,
                      saved_step(config, path))
 
 
-def host_grads(model: KEModel, state: HostState, batch: dict):
-    """The first half of a host step: the batch's ids to the model's device
-    in one transfer, K1 gathers of the [h | t | neg] entity rows, the
-    relation rows (and TransR's projection rows), and the loss and row
-    gradients of every family by the plain row route
-    (KEModel._rows_loss_and_grads, RESCAL included).  Returns the step's
-    log dict (detached tensors) and, per table, (table, ids, row
-    gradients) for its write-back."""
+def host_grads(model: KEModel, state: HostState, h, r, t, neg, impts, *,
+               neg_head: bool):
+    """The first half of a host step on a batch already on the model's
+    device (int32 ids, edge weights or None): K1 gathers of the [h | t |
+    neg] entity rows, the relation rows (and TransR's projection rows), and
+    the loss and row gradients of every family by the plain row route
+    (KEModel._rows_loss_and_grads, RESCAL included).  Nothing moves between
+    the host and the card here: ids elsewhere raise.  Returns the step's
+    log dict (detached tensors) and, per table, (table, ids, row gradients)
+    for its write-back."""
     cfg = model.config
-    dev = model.device
-    h, r, t, neg = batch["h"], batch["r"], batch["t"], batch["neg"]
+    for x in (h, r, t, neg, impts):
+        if x is not None and x.device.type != model.device.type:
+            raise ValueError(f"host_grads: a batch on {x.device} for a model "
+                             f"on {model.device} (the step moves nothing; "
+                             f"host_step uploads a batch)")
     b = len(h)
-    packed = torch.from_numpy(
-        np.concatenate([h, t, neg, r]).astype(np.int32)).to(dev)
-    ent_ids, rel_ids = packed[:-b], packed[-b:]
-    impts = (None if batch["impts"] is None
-             else torch.from_numpy(batch["impts"]).to(dev))
+    ent_ids = torch.cat([h, t, neg])
     ent_rows = gather_rows(state.entity, ent_ids, model.entity_dim)
-    rel_rows = gather_rows(state.relation, rel_ids, model.relation_dim)
-    proj_rows = (gather_rows(state.projection, rel_ids, model.proj_dim)
+    rel_rows = gather_rows(state.relation, r, model.relation_dim)
+    proj_rows = (gather_rows(state.projection, r, model.proj_dim)
                  if model.is_transr else None)
     num_chunks = max(1, len(neg) // cfg.neg_sample_size)
     _, log, (g_ent, g_rel, g_proj) = model._rows_loss_and_grads(
         ent_rows, rel_rows, proj_rows, impts, b=b, num_chunks=num_chunks,
         chunk_size=b // num_chunks, neg_sample_size=len(neg) // num_chunks,
-        neg_head=batch["neg_head"])
-    updates = [(state.entity, ent_ids, g_ent),
-               (state.relation, rel_ids, g_rel)]
+        neg_head=neg_head)
+    updates = [(state.entity, ent_ids, g_ent), (state.relation, r, g_rel)]
     if model.is_transr:
-        updates.append((state.projection, rel_ids, g_proj))
+        updates.append((state.projection, r, g_proj))
     return log, updates
 
 
-def host_step(model: KEModel, state: HostState, batch: dict):
-    """One training step on host tables, in place: host_grads, then each
-    table written back by row-sparse Adagrad with the JAX ordering (the
-    JAX package's host_adagrad_update): on the card K2
-    (sparse_adagrad_rows) on the mapped table and state_sum, on the CPU its
-    plain version.  Returns the step's log dict."""
-    log, updates = host_grads(model, state, batch)
+def host_rows_step(model: KEModel, state: HostState, h, r, t, neg, impts, *,
+                   neg_head: bool):
+    """One training step on host tables, in place, on a batch on the
+    model's device (the group function's step, models/fed_step.py):
+    host_grads, then each table written back by row-sparse Adagrad with
+    the JAX ordering (the JAX package's host_adagrad_update): on the card
+    K2 (sparse_adagrad_rows) on the mapped table and state_sum, on the CPU
+    its plain version.  Returns the step's log dict."""
+    log, updates = host_grads(model, state, h, r, t, neg, impts,
+                              neg_head=neg_head)
     for table, ids, grads in updates:
         sparse_adagrad_update(table, ids, grads, model.config.lr)
     state.step += 1
     return log
+
+
+def host_step(model: KEModel, state: HostState, batch: dict):
+    """One eager training step on host tables of a TrainSampler batch: its
+    ids packed (pack_batch) and moved to the model's device in one
+    transfer, its edge weights in another, then host_rows_step.  Returns
+    the step's log dict."""
+    packed, impts, neg_head, b = pack_batch(batch, pin=False)
+    dev = model.device
+    return host_rows_step(
+        model, state, *unpack_batch(packed.to(dev), b),
+        None if impts is None else impts.to(dev), neg_head=neg_head)
+
+
+def host_fed_step(model: KEModel) -> FedStep:
+    """The host-table step as a fed call, one step a call: on a card one
+    CUDA graph a memo key, replayed (models/fed_step.py)."""
+    return FedStep(model, 1, step=partial(host_rows_step, model))
 
 
 def train_host(config: KGEConfig, dataset, model: Optional[KEModel] = None,
@@ -199,20 +229,24 @@ def train_host(config: KGEConfig, dataset, model: Optional[KEModel] = None,
                profile_dir: Optional[str] = None):
     """Host-table training loop (the reference's mix_cpu_gpu trainer,
     train_pytorch.py:268-403 with CPU-resident ExternalEmbedding): one
-    TrainSampler batch a step through host_step.  Returns (model, state,
-    stats) like trainer.train.  --async_update has no effect here, as in
-    the JAX package.  ``profile_dir`` (--profile, which the JAX package's
-    host mode drops): a trainer.ProfileWindow trace over steps [2s, 4s),
-    s the step group the device loop would take."""
+    TrainSampler batch a step, from a trainer.HostFeed, through the fed
+    step (host_fed_step), as the JAX package calls its jitted row step
+    once a step.  Returns (model, state, stats) like trainer.train.
+    --async_update has no effect here, as in the JAX package.
+    ``profile_dir`` (--profile, which the JAX package's host mode drops): a
+    trainer.ProfileWindow trace over steps [2s, 4s), s the step group the
+    device loop would take; each replayed step is one span."""
     cfg = config
     if model is None:
         model = KEModel(cfg, dataset.n_entities, dataset.n_relations,
                         device=device)
     if state is None:
         state = init_host_state(model, cfg.seed, log=log)
-    sampler = TrainSampler(dataset, cfg.batch_size, cfg.neg_sample_size,
-                           seed=cfg.seed)
-    it = iter(sampler)
+    fused = host_fed_step(model)
+    log("[proc 0]host tables: " + ("one CUDA graph a step" if fused.on_graphs
+                                   else "each step eagerly on the CPU"))
+    feed = HostFeed(model, dataset, cfg.batch_size, cfg.neg_sample_size,
+                    seed=cfg.seed)
 
     window = ProfileWindow(profile_dir, steps_per_group(
         cfg, dataset.n_train, False, log=lambda *a: None), model.device, log)
@@ -220,41 +254,47 @@ def train_host(config: KGEConfig, dataset, model: Optional[KEModel] = None,
     valid_metrics = None
     start = tic = time.time()
     sample_time = update_time = 0.0
-    for step in range(1, cfg.max_step + 1):
-        window.before(step - 1)
-        with window.span(step - 1):
+    try:
+        for step in range(1, cfg.max_step + 1):
+            window.before(step - 1)
             t0 = time.time()
-            batch = next(it)
+            batches = feed.take(1)
             t1 = time.time()
-            logs.append(host_step(model, state, batch))
-        sample_time += t1 - t0
-        update_time += time.time() - t1
+            _, log_dict = fused(state, batches, step - 1, window.span)
+            logs.append(log_dict)
+            sample_time += t1 - t0
+            update_time += time.time() - t1
 
-        if step % cfg.log_interval == 0:
-            for k in logs[0]:
-                v = torch.stack([la[k] for la in logs]).mean().item()
-                log(f"[proc 0][Train]({step}/{cfg.max_step}) "
-                    f"average {k}: {v}")
-            logs = []
-            log(f"[proc 0][Train] {cfg.log_interval} steps take "
-                f"{time.time() - tic:.3f} seconds")
-            log(f"[proc 0]sample: {sample_time:.3f}, update: "
-                f"{update_time:.3f}")
-            tic = time.time()
-            sample_time = update_time = 0.0
-        window.after(step)
-        if (valid_samplers is not None and cfg.valid
-                and step % cfg.eval_interval == 0):
-            valid_metrics = evaluate_host_with_samplers(
-                model, state, valid_samplers, phase="Valid", log=log)
-        if save_fn is not None and cfg.save_interval > 0 \
-                and step % cfg.save_interval == 0:
-            save_fn(state, step)
-    window.stop()
+            if step % cfg.log_interval == 0:
+                for k in logs[0]:
+                    v = torch.cat([la[k] for la in logs]).mean().item()
+                    log(f"[proc 0][Train]({step}/{cfg.max_step}) "
+                        f"average {k}: {v}")
+                logs = []
+                log(f"[proc 0][Train] {cfg.log_interval} steps take "
+                    f"{time.time() - tic:.3f} seconds")
+                log(f"[proc 0]sample: {sample_time:.3f}, update: "
+                    f"{update_time:.3f}")
+                tic = time.time()
+                sample_time = update_time = 0.0
+            window.after(step)
+            if (valid_samplers is not None and cfg.valid
+                    and step % cfg.eval_interval == 0):
+                valid_metrics = evaluate_host_with_samplers(
+                    model, state, valid_samplers, phase="Valid", log=log)
+            if save_fn is not None and cfg.save_interval > 0 \
+                    and step % cfg.save_interval == 0:
+                save_fn(state, step)
+        window.stop()
+    finally:
+        feed.close()
 
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     total = time.time() - start
+    if fused.on_graphs:
+        log(f"[proc 0]CUDA graphs: {len(fused.graphs)} captured, "
+            f"{fused.replays} replays")
     log(f"[proc 0]training takes {total} seconds")
     stats = {"train_time": total}
     if valid_metrics is not None:

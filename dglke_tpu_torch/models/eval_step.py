@@ -29,7 +29,7 @@ evals of a training run reuse their graphs; there the trainer pads each
 tail group or chunk to its bucket's call shape, as the JAX package does for
 its compiles, and nowhere else.  The first call of a key runs the group
 function on the capture stream shared with the training graphs
-(pipeline_step._capture_stream: one cuBLAS workspace a card), which also
+(models/cuda_graphs.py: one cuBLAS workspace a card), which also
 does once what capture must not meet
 (a kernel library's build and load, cuBLAS's workspace for that stream);
 its second call captures a CUDA graph of the group function, reading from
@@ -56,7 +56,7 @@ from typing import Optional
 
 import torch
 
-from dglke_tpu_torch.models.pipeline_step import _capture_stream
+from dglke_tpu_torch.models.cuda_graphs import capture, run_on_capture_stream
 from dglke_tpu_torch.ops import rows
 
 
@@ -150,7 +150,8 @@ class EvalCalls:
             return fn(*args)
         entry = self.entries.get(key)
         if entry is None:
-            out = self._warm_up(fn, args)
+            self.stream, out = run_on_capture_stream(self.model.device,
+                                                     lambda: fn(*args))
             self.entries[key] = _Entry([None if a is None
                                         else torch.empty_like(a)
                                         for a in args])
@@ -165,31 +166,11 @@ class EvalCalls:
         self.replays += 1
         return entry.out
 
-    def _warm_up(self, fn, args) -> torch.Tensor:
-        """A key's first call, eagerly on the capture stream."""
-        dev = self.model.device
-        main = torch.cuda.current_stream(dev)
-        stream = _capture_stream(dev)
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream):
-            out = fn(*args)
-        main.wait_stream(stream)
-        out.record_stream(main)
-        self.stream = stream
-        return out
-
     def _capture(self, entry: _Entry, fn) -> None:
         """Capture the group function on the entry's static inputs into a
-        CUDA graph in the eval graphs' shared pool; nothing runs.  Only
-        this thread is held to capture's rules (a host-fed run's Prefetcher
-        thread may pin memory meanwhile)."""
-        graph = torch.cuda.CUDAGraph()
-        before = dict(rows.launches)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            out = fn(*entry.inputs)
-        entry.graph, entry.out = graph, out
-        entry.launches = rows.take_launches(before)
+        CUDA graph in the eval graphs' shared pool; nothing runs."""
+        entry.graph, entry.out, entry.launches = capture(
+            lambda: fn(*entry.inputs), self.stream, pool=self.pool)
         if self.pool is None:
-            self.pool = graph.pool()
+            self.pool = entry.graph.pool()
         self.captured += 1

@@ -4,8 +4,9 @@ single device).
 Training is fed by the device-resident pipeline, or for a dataset smaller
 than two batches (and on one device at step group size 1) by the host-fed
 TrainSampler, and runs in groups of steps; --async_update defers entity
-updates inside each group.  On one device each group of the pipeline is
-one fused call (on a card, one CUDA graph replayed).
+updates inside each group.  On one device each group is one fused call
+(models/pipeline_step.py on the pipeline, models/fed_step.py on the
+host-fed route; on a card, one CUDA graph replayed).
 Evaluation ranks against every entity (filtered or raw), against sampled
 negatives (--neg_sample_size_eval), or against a candidate list
 (wikikg90M), a group of batches a call as the JAX package batches them (on
@@ -45,6 +46,7 @@ from dglke_tpu_torch.models.ke_model import (
     TrainState,
     metrics_from_ranks,
 )
+from dglke_tpu_torch.models.fed_step import FedStep, pack_batch
 from dglke_tpu_torch.models.pipeline_step import DevicePipelineStep
 
 # Domain tags of the two random streams: epoch permutations are seeded from
@@ -249,44 +251,25 @@ class Prefetcher:
         self._thread.join(timeout=2.0)
 
 
-def pack_batch(batch: dict, pin: bool) -> tuple:
-    """A TrainSampler batch's ids packed into one int32 buffer (pinned when
-    it goes to a card, so that its copy need not wait for the host):
-    (packed [h | r | t | neg], impts or None, neg_head, batch size)."""
-    ids = np.concatenate([batch["h"], batch["r"], batch["t"], batch["neg"]])
-    packed = torch.empty(len(ids), dtype=torch.int32, pin_memory=pin)
-    packed.numpy()[:] = ids
-    impts = batch["impts"]
-    if impts is not None:
-        impts = torch.from_numpy(impts)
-        impts = impts.pin_memory() if pin else impts
-    return packed, impts, batch["neg_head"], len(batch["h"])
-
-
 class HostFeed:
     """Host-fed training feed, the JAX package's route for datasets
-    smaller than two batches and, on one device, for step group size 1:
-    one TrainSampler batch a step (its numpy stream, a batch wrapping
-    around a partition smaller than itself, alternating sides), sampled
-    and packed ahead by a Prefetcher thread, the ids moved to the device
-    as int32 in one transfer."""
+    smaller than two batches and, on one device, for step group size 1
+    (and the feed of host-table mode): one TrainSampler batch a step (its
+    numpy stream, a batch wrapping around a partition smaller than itself,
+    alternating sides), sampled and packed ahead by a Prefetcher thread
+    (pack_batch: pinned for a card), for a FedStep to copy to the
+    device."""
 
     def __init__(self, model: KEModel, dataset: KGDataset, batch_size: int,
                  neg_sample_size: int, seed: int = 0):
-        self.device = model.device
-        pin = self.device.type == "cuda"
+        pin = model.device.type == "cuda"
         self.prefetch = Prefetcher(
             TrainSampler(dataset, batch_size, neg_sample_size, seed=seed),
             lambda batch: pack_batch(batch, pin))
 
-    def next_batch(self):
-        """(h, r, t, neg, impts or None, neg_head) for the next step."""
-        packed, impts, neg_head, b = next(self.prefetch)
-        packed = packed.to(self.device, non_blocking=True)
-        if impts is not None:
-            impts = impts.to(self.device, non_blocking=True)
-        return (packed[:b], packed[b:2 * b], packed[2 * b:3 * b],
-                packed[3 * b:], impts, neg_head)
+    def take(self, s: int) -> list:
+        """The next ``s`` batches, as pack_batch packs them."""
+        return [next(self.prefetch) for _ in range(s)]
 
     def close(self):
         self.prefetch.close()
@@ -402,8 +385,9 @@ def train(config: KGEConfig, dataset: KGDataset,
     groups of ``steps_per_group``; with --async_update each step's entity
     update is applied after the next step's gather, and the group's last
     one at its end.  On one device the
-    pipeline's groups are fused calls (models/pipeline_step.py): on a card
-    one CUDA graph replayed a group, on the CPU the same group eagerly.
+    groups are fused calls (models/pipeline_step.py on the pipeline,
+    models/fed_step.py on the host-fed route): on a card one CUDA graph
+    replayed a group, on the CPU the same group eagerly.
 
     ``plan``: this rank's parallel.mesh.ShardingPlan (--dist); ``dataset``
     is then this rank's edge partition, and ``model`` (built with the
@@ -455,7 +439,7 @@ def train(config: KGEConfig, dataset: KGDataset,
     # host-fed TrainSampler (dglke_tpu/trainer.py:223-248); under a plan
     # the pipeline runs at every s
     device_route = pipe_ok and (s > 1 or plan is not None)
-    fused = None   # the fused call of the single-device pipeline
+    fused = None   # the fused call: single-device pipeline or host-fed
     if device_route:
         feed = DevicePipeline(model, dataset, cfg.batch_size,
                               cfg.num_chunks * cfg.neg_sample_size,
@@ -470,10 +454,11 @@ def train(config: KGEConfig, dataset: KGDataset,
     else:
         feed = HostFeed(model, dataset, cfg.batch_size, cfg.neg_sample_size,
                         seed=cfg.seed)
+        fused = FedStep(model, s)
         why = (f"{dataset.n_train} train edges < 2 x batch_size "
                f"{cfg.batch_size}" if not pipe_ok else "step group size 1")
         log(f"[proc 0]host-fed TrainSampler ({why}): {s} steps a group")
-    use_async = cfg.async_update and s > 1
+    use_async = cfg.async_update and s > 1   # --dist's per-step loop
     window = ProfileWindow(profile_dir, s, model.device, log, rank)
     logs: list = []
     valid_metrics = None
@@ -504,16 +489,22 @@ def train(config: KGEConfig, dataset: KGDataset,
     while step < cfg.max_step:
         window.before(step)
         prev = step
-        if fused is not None:
+        if not device_route:
+            t0 = time.time()
+            batches = feed.take(s)
+            t1 = time.time()
+            state, log_dict = fused(state, batches, step, window.span)
+            sample_time += t1 - t0
+            update_time += time.time() - t1
+            logs.append(log_dict)
+        elif fused is not None:
             state, log_dict = fused(state, window.span)
             logs.append(log_dict)
         else:
             pending = None
             for i in range(s):
                 with window.span(step + i):
-                    t0 = time.time()
                     h, r, t, neg, impts, neg_head = feed.next_batch()
-                    t1 = time.time()
                     if use_async:
                         state, pending, log_dict = model.train_step_async(
                             state, pending, h, r, t, neg, impts,
@@ -521,8 +512,6 @@ def train(config: KGEConfig, dataset: KGDataset,
                     else:
                         state, log_dict = model.train_step(
                             state, h, r, t, neg, impts, neg_head=neg_head)
-                sample_time += t1 - t0
-                update_time += time.time() - t1
                 logs.append(log_dict)
             model.flush_async(state, pending)
         step += s
@@ -547,7 +536,7 @@ def train(config: KGEConfig, dataset: KGDataset,
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     total = time.time() - start
-    if fused is not None and model.device.type == "cuda":
+    if fused is not None and fused.on_graphs:
         log(f"[proc 0]CUDA graphs: {len(fused.graphs)} captured, "
             f"{fused.replays} replays")
     log(f"[proc 0]training takes {total} seconds")

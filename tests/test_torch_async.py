@@ -29,6 +29,7 @@ from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import synthetic_dataset
 from dglke_tpu_torch.data.sampler import TrainSampler
 from dglke_tpu_torch.models.ke_model import KEModel
+from dglke_tpu_torch.models.fed_step import unpack_batch
 from dglke_tpu_torch.trainer import HostFeed, steps_per_group, train
 from dglke_tpu_torch.utils.convert import state_from_numpy
 
@@ -226,7 +227,8 @@ def test_train_sampler_batches_identical(seed, n_train):
         assert pb["neg_head"] == jb["neg_head"] == (i % 2 == 0)
         for k in ("h", "r", "t", "neg"):
             np.testing.assert_array_equal(pb[k], jb[k])
-        h, r, t, neg, impts, neg_head = feed.next_batch()
+        packed, impts, neg_head, b = feed.take(1)[0]
+        h, r, t, neg = unpack_batch(packed, b)
         assert neg_head == pb["neg_head"] and impts is None
         for x, k in ((h, "h"), (r, "r"), (t, "t"), (neg, "neg")):
             assert x.dtype == torch.int32

@@ -169,7 +169,8 @@ def test_init_from_resumes_host_tables(fake_data, host_ckpt, tmp_path,
         "50")) == 0
     out = capsys.readouterr().out
     assert f"Resumed from {ckpt} at step 200" in out
-    assert "host tables: " not in out      # no fresh init
+    assert "bytes drawn" not in out      # no fresh init
+    assert "host tables: each step eagerly on the CPU" in out
     step = np.load(os.path.join(save_root, "TransE_l2_fakekg_0",
                                 "fakekg_TransE_l2_step.npy"))
     assert int(step) == 250

@@ -35,6 +35,7 @@ from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data import dataset as pds
 from dglke_tpu_torch.data.dataset import synthetic_dataset
 from dglke_tpu_torch.data.sampler import TrainSampler
+from dglke_tpu_torch.models.fed_step import unpack_batch
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.trainer import HostFeed, Prefetcher, train
 from dglke_tpu_torch.utils.io import load_raw_emb
@@ -201,12 +202,12 @@ def test_host_feed_hands_over_the_samplers_batches_in_order(n_train):
     inline = TrainSampler(ds, 16, 4, seed=9)
     for _ in range(12):
         want = next(inline)
-        got = feed.next_batch()
-        for x, k in zip(got[:4], ("h", "r", "t", "neg")):
+        packed, impts, neg_head, b = feed.take(1)[0]
+        for x, k in zip(unpack_batch(packed, b), ("h", "r", "t", "neg")):
             assert x.dtype == torch.int32
             np.testing.assert_array_equal(x.numpy(), want[k])
-        np.testing.assert_array_equal(got[4].numpy(), want["impts"])
-        assert got[5] == want["neg_head"]
+        np.testing.assert_array_equal(impts.numpy(), want["impts"])
+        assert neg_head == want["neg_head"]
     feed.close()
 
 
