@@ -81,7 +81,16 @@ Phases (any failure exits non-zero and prints no result line):
      the same tables: seconds a split, device busy share, peak memory,
      MRR, the ranks equal but at near ties (counted).  Every single-device
      CLI run's eval graph line is held to EXPECTED_EVAL_GRAPHS
-     (eval_graphs);
+     (eval_graphs), host-table runs' included.  Host mode's eval calls
+     (phase_host_eval_graphs: host_table.py's pos/side and block calls
+     and the sampled group call, K1 reading the mapped tables inside the
+     graphs) on mapped host tables, two evals on each route, against the
+     same calls run eagerly: the ranks bit for bit and equal to the card
+     tables' evaluate, the launches equal, a graph a memo key: TransE_l2
+     filtered over 50,000 entities (four blocks, the tail early), with
+     5,000 test triples (two query chunks a block), RotatE raw (59
+     blocks), TransR filtered, and the sampled eval filtered and with
+     neg_deg_sample;
   3. the TransE_l2 main path: dglke_tpu_torch.cli.train.main on an
      FB15k-shaped synthetic dataset with the flagship flags and --test,
      with the launch counts read around that run only and held to
@@ -174,9 +183,13 @@ Phases (any failure exits non-zero and prints no result line):
      --mix_cpu_gpu (1,000 steps, filtered test eval; launch counts held),
      its checkpoint through dglke_tpu_torch-eval in host mode (adopted
      from config.json) and with --no_mix_cpu_gpu on the card: the filtered
-     ranks of all three identical; the training run replays one CUDA graph
-     a step (two graphs).  Two host steps on the card against the CPU; the
-     host step profile on both routes (the fed call's graph and
+     ranks of all three identical, each host eval printing its eval graph
+     line; the training run replays one CUDA graph a step (two graphs).
+     The same flagship with --valid every 50 of 200 steps
+     (phase_host_valid): the host eval's graphs captured in the second
+     Valid eval and replayed by the later ones, the tables bit-equal to
+     the run without eval.  Two host steps on the card against the CPU;
+     the host step profile on both routes (the fed call's graph and
      host_step);
   7. the planted quality gate of every family on the card (MRR >= 0.85,
      HITS@10 >= 0.99, the JAX package's calibrated configs), in fp32 and
@@ -214,8 +227,11 @@ Phases (any failure exits non-zero and prints no result line):
      init and mapping seconds, the sampled test eval, a 50-step profile
      after 50 on both routes, a filtered
      full-entity host eval of 1,000 test triples streaming the table
-     through the card once, and the card's peak allocation held under
-     HOST_PEAK_CEILING;
+     through the card once, on the graph route and on the eager baseline
+     (capacity_full_eval: seconds and streaming rate of each, a window of
+     blocks traced and split into copy, math and idle, the ranks equal,
+     one block's staging copy timed alone), and the card's peak
+     allocation held under HOST_PEAK_CEILING;
   8. the kernel summary: a `kernels:` line, one JSON line of per-kernel
      numbers, the card's name and power limit, and the result line.
 
@@ -365,6 +381,12 @@ for _label in ("TransE_l2 host", "Freebase host"):
                                  "sparse_adagrad_rows": 2000,
                                  "outer_adagrad_update": 0}
 HOST_PATHS = ("TransE_l2 host", "Freebase host")
+# Their evals take the eval graphs too: the flagship's filtered test eval
+# makes one pos/side call a direction and one block call (its 14,951
+# entities fit one block), the capacity run's sampled test eval one group
+# call a mode: each key called once, nothing captured.
+for _label in HOST_PATHS:
+    EXPECTED_EVAL_GRAPHS[_label] = (0, 0)
 # The capacity run: the Freebase TransE_l2 recipe (examples/freebase.sh:
 # 8-11: batch 1,000, 200 negatives, hidden 400, gamma 10, lr 0.1, -rc 1e-9,
 # -adv; --batch_size_eval 1000 --neg_sample_size_eval 1000, filtered,
@@ -1403,8 +1425,8 @@ def graph_route(label: str, argv: list, text: str):
 def eval_graphs(label: str, text: str):
     """The eval CUDA graph lines of a run's log ("[0]Test eval CUDA graphs:
     N captured, M replays", one for each eval), summed and held to
-    EXPECTED_EVAL_GRAPHS[label]; a run not listed there (no eval, host
-    tables, --dist) must print none.  Returns (captured, replays) or
+    EXPECTED_EVAL_GRAPHS[label]; a run not listed there (no eval,
+    --dist) must print none.  Returns (captured, replays) or
     None."""
     lines = re.findall(r"\w+ eval CUDA graphs: (\d+) captured, (\d+) "
                        r"replays", text)
@@ -1995,10 +2017,24 @@ def _eval_ranks_of(fn):
     return ranks
 
 
+def eager_calls(model):
+    """The eval graphs' baseline for ``model``: an EvalCalls whose every
+    call runs its group function eagerly on the current stream, its memo
+    key counted, batched as the graph route batches."""
+    from dglke_tpu_torch.models.eval_step import EvalCalls
+
+    class EagerCalls(EvalCalls):
+        def _call(self, state, static, fn, args):
+            self.keys[self._key(state, static, args)] += 1
+            return fn(*args)
+
+    return EagerCalls(model)
+
+
 def eval_graph_parity(label: str, recipe: dict, run) -> None:
     """The recipe's eval at full width on fresh tables, through the eval's
     fused calls twice: batched as for graphs, every call's group function
-    eagerly on the default stream (EagerCalls), then the graph route
+    eagerly on the default stream (eager_calls), then the graph route
     (each call shape eager once on the capture stream, captured at its
     second call, replayed from there).  ``run(cfg, model, state)`` returns
     the outputs (rank arrays, top-10 positions).  They must be bit-equal,
@@ -2012,21 +2048,13 @@ def eval_graph_parity(label: str, recipe: dict, run) -> None:
     from dglke_tpu_torch.models.ke_model import KEModel
     from dglke_tpu_torch.ops import rows
 
-    class EagerCalls(EvalCalls):
-        """The baseline: each call's group function eagerly on the
-        current stream, its memo key counted."""
-
-        def _call(self, state, static, fn, args):
-            self.keys[self._key(state, static, args)] += 1
-            return fn(*args)
-
     cfg = KGEConfig(**recipe)
     model = KEModel(cfg, N_ENT, N_REL, device="cuda")
     state = model.init_state()
     out = {}
     for route in ("eager", "graph"):
-        model.eval_calls = calls = (EvalCalls if route == "graph"
-                                    else EagerCalls)(model)
+        model.eval_calls = calls = (EvalCalls(model) if route == "graph"
+                                    else eager_calls(model))
         rows.reset_launches()
         t0 = time.perf_counter()
         res = run(cfg, model, state)
@@ -2105,6 +2133,136 @@ def phase_eval_graphs() -> None:
     eval_graph_parity("eval graphs candidates Valid and Test",
                       dict(TRANSE, batch_size_eval=WIKI_EVAL_BATCH),
                       candidates)
+
+
+# Host mode's eval calls (host_table.py), the cases of
+# phase_host_eval_graphs on mapped host tables.  The block is 16,384
+# entities for the matmul forms, so 50,000 stream in four blocks, the
+# tail starting early at row 33,616; 5,000 test triples a direction are
+# over the 4,096 rows a chunk holds at that block (_Q_CAP_BYTES), so each
+# block makes two chunks a direction; RotatE's and TransR's blocks follow
+# the queries' rows (256 and 512 at 2,000 triples: 59 and 30 blocks).
+HOST_EVAL_ENT = 50_000
+
+
+def host_eval_graph_parity(label: str, recipe: dict, n_ent: int,
+                           n_test: int) -> None:
+    """The recipe's test eval on mapped host tables of ``n_ent`` entities
+    at full width (drawn as host mode draws them), twice on each route:
+    the eager baseline (eager_calls: the same calls and staging copies,
+    every call's group function run eagerly), then the graph route (each
+    memo key eager once on the capture stream, captured at its second
+    call, replayed from there).  The integer ranks must be equal on both
+    routes and in both evals, the launches equal (K1 counted through the
+    replays), the memo keys the same, and the graphs and replays those the
+    keys' calls give; and the ranks those of trainer.evaluate on copies
+    of the tables on the card."""
+    import torch
+    from dglke_tpu_torch import host_table
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    from dglke_tpu_torch.data.sampler import FilterIndex
+    from dglke_tpu_torch.models.eval_step import EvalCalls
+    from dglke_tpu_torch.models.ke_model import KEModel, TrainState
+    from dglke_tpu_torch.ops import rows
+    from dglke_tpu_torch.ops.embedding import EmbeddingState
+    from dglke_tpu_torch.trainer import evaluate
+    cfg = KGEConfig(**dict(recipe, batch_size_eval=EVAL_BATCH,
+                           mix_cpu_gpu=True))
+    ds = synthetic_dataset(n_entities=n_ent, n_relations=N_REL,
+                           n_train=100_000, n_valid=100, n_test=n_test,
+                           seed=0)
+    fi = FilterIndex(ds) if cfg.eval_filter else None
+    model = KEModel(cfg, n_ent, N_REL, device="cuda")
+    init = host_table.init_host_state(KEModel(cfg, n_ent, N_REL,
+                                              device="cpu"), seed=1)
+    state = _host_copy(model, init, "cuda")
+    out = {}
+    for route in ("eager", "graph"):
+        model.eval_calls = calls = (EvalCalls(model) if route == "graph"
+                                    else eager_calls(model))
+        rows.reset_launches()
+        lines = []
+        t0 = time.perf_counter()
+        ranks = [_eval_ranks_of(lambda: evaluate(
+            cfg, ds, model, state, "test", filter_index=fi,
+            log=lines.append)) for _ in range(2)]
+        torch.cuda.synchronize()
+        out[route] = (ranks, dict(rows.launches), calls.captured,
+                      calls.replays, dict(calls.keys),
+                      time.perf_counter() - t0, lines)
+    (g, gl, cap, rep, keys, gs, lines), (e, el, ecap, erep, ekeys, es, _) = (
+        out["graph"], out["eager"])
+    if not all(np.array_equal(g[0], x) for x in g[1:] + e):
+        fail(f"{label}: host eval ranks differ between the routes or the "
+             f"two evals")
+    if gl != el or not gl["gather_rows"]:
+        fail(f"{label}: launches {gl} on the graph route, {el} eager")
+    want = (sum(n >= 2 for n in keys.values()),
+            sum(n - 1 for n in keys.values()))
+    if keys != ekeys or (cap, rep) != want or not cap or (ecap, erep) != (
+            0, 0):
+        fail(f"{label}: {cap} graphs, {rep} replays (the keys' calls give "
+             f"{want}); eager {ecap}, {erep}")
+    # each key makes half its calls in each eval: in the first, a key of
+    # two or more calls an eval captures and replays all but its first;
+    # in the second, the keys of one call an eval capture, and every call
+    # replays
+    said = [tuple(map(int, x)) for x in re.findall(
+        r"\[0\]Test eval CUDA graphs: (\d+) captured, (\d+) replays",
+        "\n".join(lines))]
+    half = [n // 2 for n in keys.values()]
+    if said != [(sum(n >= 2 for n in half), sum(n - 1 for n in half)),
+                (sum(n == 1 for n in half), sum(half))]:
+        fail(f"{label}: eval graph lines {said}, the keys' calls {half}")
+    blocks = sum(n for k, n in keys.items() if k[0] == "host_block") // 2
+
+    def card(t):
+        return None if t is None else EmbeddingState(t.emb.cuda(),
+                                                     t.state_sum.cuda())
+
+    dev_state = TrainState(card(state.entity), card(state.relation),
+                           projection=card(state.projection))
+    model.eval_calls = EvalCalls(model)
+    on_card = _eval_ranks_of(lambda: evaluate(
+        cfg, ds, model, dev_state, "test", filter_index=fi, log=lambda *a:
+        None))
+    if not np.array_equal(on_card, g[0]):
+        fail(f"{label}: host eval ranks differ from the card tables' "
+             f"({int((on_card != g[0]).sum())} of {len(on_card)} rows)")
+    print(f"{label}: {len(g[0])} ranks a host eval on mapped tables "
+          f"({n_ent} x {model.entity_dim}); {sum(keys.values())} calls of "
+          f"{len(keys)} memo keys over two evals ({blocks} blocks an eval); "
+          f"{cap} CUDA graph(s) captured, {rep} replays; ranks equal to the "
+          f"eager calls' and to the card tables' evaluate, launches equal "
+          f"({gl}); {gs:.2f} s graph route (captures included), {es:.2f} s "
+          f"eager")
+    del model, state, dev_state, out, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_host_eval_graphs() -> None:
+    """Phase 2c on host tables, host_eval_graph_parity of: TransE_l2
+    filtered over HOST_EVAL_ENT entities (four blocks), with 2,000 test
+    triples and with 5,000 (two chunks a block a direction); RotatE raw
+    and TransR filtered (the projection read from its mapped table) at
+    N_ENT; and the sampled eval at N_ENT, filtered and with
+    neg_deg_sample (raw): 125 batches a mode, groups of 32, the last
+    padded."""
+    sampled = dict(TRANSE, neg_sample_size_eval=WIKI_EVAL_NEG)
+    for label, recipe, n_ent, n_test in (
+            ("TransE_l2 filtered, 4 blocks", TRANSE, HOST_EVAL_ENT, 2000),
+            ("TransE_l2 filtered, 2 chunks a block", TRANSE, HOST_EVAL_ENT,
+             5000),
+            ("RotatE raw", dict(ROTATE, no_eval_filter=True), N_ENT, 2000),
+            ("TransR filtered", TRANSR, N_ENT, 2000),
+            ("sampled filtered", sampled, N_ENT, 2000),
+            ("sampled neg_deg_sample raw", dict(
+                sampled, neg_deg_sample_eval=True, no_eval_filter=True),
+             N_ENT, 2000)):
+        host_eval_graph_parity(f"host eval graphs {label}", recipe, n_ent,
+                               n_test)
 
 
 def _fb15k_recipe_eval(name: str) -> str:
@@ -3424,8 +3582,13 @@ def phase_host_main():
                  f"{said}, expected {host}")
         how = " ".join(extra) or "(adopts the saved mix_cpu_gpu)"
         mrr = _floats(r"Test average MRR: (\S+)", out.getvalue())
+        said = re.findall(r"\[0\]Test eval CUDA graphs: .*",
+                          out.getvalue())
+        if len(said) != 1:
+            fail(f"dglke_tpu_torch-eval {how}: eval graph lines {said}")
         print(f"dglke_tpu_torch-eval {how}: {time.time() - t0:.3f} s, "
-              f"{'host' if host else 'device'} tables, MRR {mrr}")
+              f"{'host' if host else 'device'} tables, MRR {mrr}; "
+              f"{said[0]}")
     if len(ranks.ranks) != 3 or not all(
             np.array_equal(ranks.ranks[0], r) for r in ranks.ranks[1:]):
         fail(f"host main path: filtered ranks differ between the training "
@@ -3724,6 +3887,161 @@ def phase_capacity_parity(model, state, ds):
               f"untouched rows unchanged")
 
 
+# The full eval's window of blocks traced for its copy / math / idle split
+# (phase_capacity): HOST_WINDOW block calls from the HOST_WINDOW_AT-th.
+HOST_WINDOW_AT, HOST_WINDOW = 1000, 64
+
+
+def _union_us(spans) -> float:
+    """Microseconds covered by the union of (start, end) spans."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _window_split(model, run, label: str) -> dict:
+    """``run()`` (a full host eval on ``model``) with torch.profiler
+    tracing the card over its block calls [HOST_WINDOW_AT, + HOST_WINDOW):
+    the window's device timeline, from its first device event to its last,
+    split into copy (the staging copies), math (the kernels), both at once,
+    and idle.  Returns the split in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    calls = model.eval_calls
+    real = calls.host_block
+    seen = [0]
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def block(*args, **kwargs):
+        if seen[0] == HOST_WINDOW_AT:
+            prof.start()
+        real(*args, **kwargs)
+        seen[0] += 1
+        if seen[0] == HOST_WINDOW_AT + HOST_WINDOW:
+            torch.cuda.synchronize()
+            prof.stop()
+
+    calls.host_block = block
+    try:
+        run()
+    finally:
+        del calls.host_block
+    if seen[0] < HOST_WINDOW_AT + HOST_WINDOW:
+        fail(f"{label}: {seen[0]} block calls, under the traced window")
+    path = os.path.join(WORK, "host_eval_window.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    spans = {"kernel": [], "gpu_memcpy": []}
+    for e in events:
+        if e.get("cat") in spans and "dur" in e:
+            spans[e["cat"]].append((float(e["ts"]),
+                                    float(e["ts"]) + float(e["dur"])))
+    every = spans["kernel"] + spans["gpu_memcpy"]
+    if not spans["kernel"] or not spans["gpu_memcpy"]:
+        fail(f"{label}: the window's trace holds {len(spans['kernel'])} "
+             f"kernels and {len(spans['gpu_memcpy'])} copies")
+    wall = max(b for _, b in every) - min(a for a, _ in every)
+    copy, math_, busy = (_union_us(x) for x in (
+        spans["gpu_memcpy"], spans["kernel"], every))
+    out = {"wall": wall / 1e3, "copy": copy / 1e3, "math": math_ / 1e3,
+           "both": (copy + math_ - busy) / 1e3, "idle": (wall - busy) / 1e3,
+           "kernels": len(spans["kernel"]),
+           "copies": len(spans["gpu_memcpy"])}
+    print(f"{label}, blocks {HOST_WINDOW_AT}-"
+          f"{HOST_WINDOW_AT + HOST_WINDOW - 1} traced [{card_line()}]: "
+          f"{out['wall']:.3f} ms of device timeline "
+          f"({out['wall'] / HOST_WINDOW:.4f} a block): copy "
+          f"{out['copy']:.3f} ms, math {out['math']:.3f} ms, "
+          f"both at once {out['both']:.3f} ms, idle {out['idle']:.3f} ms "
+          f"({100 * out['idle'] / out['wall']:.1f}%; busy "
+          f"{100 * busy / wall:.1f}%); {out['kernels']} kernels, "
+          f"{out['copies']} copies")
+    return out
+
+
+def capacity_full_eval(cfg, ds, model, state, table: int) -> None:
+    """The capacity run's filtered full-entity host eval (FB_FULL_EVAL
+    test triples x 2 modes against all FB_ENT entities) on both routes:
+    the graph route (the model's eval calls, its memo fresh) and the eager
+    baseline (eager_calls), each timed once whole and once with a window
+    of blocks traced (_window_split); their ranks must be equal in all
+    four evals.  Then one block's staging copy timed alone."""
+    import torch
+    from dglke_tpu_torch.host_table import evaluate_host
+    from dglke_tpu_torch.models.eval_step import EvalCalls
+    out, ranks = {}, []
+    for route in ("graph", "eager"):
+        model.eval_calls = (EvalCalls(model) if route == "graph"
+                            else eager_calls(model))
+        lines = []
+
+        def run():
+            with _RankLog() as log:
+                m = evaluate_host(cfg, ds, model, state, "test",
+                                  log=lines.append)
+            torch.cuda.synchronize()
+            ranks.extend(log.ranks)
+            return m
+
+        t0 = time.perf_counter()
+        m = run()
+        full_s = time.perf_counter() - t0
+        calls = model.eval_calls
+        blocks = sum(n for k, n in calls.keys.items()
+                     if k[0] == "host_block")
+        (rows_, width), = calls.staging
+        split = _window_split(model, run, f"capacity run: full eval, "
+                                          f"{route} route")
+        out[route] = (full_s, split)
+        said = [x for x in lines if "eval CUDA graphs" in x]
+        print(f"capacity run: filtered full-entity host eval, {route} "
+              f"route [{card_line()}]: {FB_FULL_EVAL} test triples x 2 "
+              f"modes against {FB_ENT} entities in {full_s:.3f} s ({blocks} "
+              f"blocks of {rows_} rows); the table streamed through the "
+              f"card once at {table / full_s / 1e9:.2f} GB/s (eval "
+              f"seconds included); "
+              f"MRR {m['MRR']!r}, HITS@10 {m['HITS@10']!r}; "
+              f"{said or 'no graph line'}")
+        if route == "graph" and (calls.captured < 2 or not said):
+            fail(f"capacity run: the full eval captured {calls.captured} "
+                 f"graphs ({said})")
+    if len(ranks) != 4 or not all(np.array_equal(ranks[0], r)
+                                  for r in ranks[1:]):
+        fail("capacity run: the full eval's ranks differ between the "
+             "routes or the runs")
+    (gs, gw), (es, ew) = out["graph"], out["eager"]
+    print(f"capacity run: full eval, CUDA graph against eager "
+          f"[{card_line()}]: {gs:.3f} / {es:.3f} s, {table / gs / 1e9:.2f} / "
+          f"{table / es / 1e9:.2f} GB/s; window busy "
+          f"{100 * (1 - gw['idle'] / gw['wall']):.1f}% / "
+          f"{100 * (1 - ew['idle'] / ew['wall']):.1f}%, device ms a block "
+          f"{gw['wall'] / HOST_WINDOW:.4f} / {ew['wall'] / HOST_WINDOW:.4f}; "
+          f"{len(ranks[0])} ranks equal in all four evals")
+    # one block's staging copy alone, from rows across the table
+    buf = model.eval_calls.staging[(rows_, width)][0]
+    emb = state.entity.emb
+    starts = np.linspace(0, FB_ENT - rows_, 20).astype(np.int64)
+    buf.copy_(emb[:rows_], non_blocking=True)
+    torch.cuda.synchronize()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for a in starts:
+        buf.copy_(emb[int(a):int(a) + rows_], non_blocking=True)
+    end.record()
+    end.synchronize()
+    ms = begin.elapsed_time(end) / len(starts)
+    print(f"capacity run: one block's staging copy alone [{card_line()}]: "
+          f"{rows_} x {width} fp32 ({rows_ * width * 4} B) in {ms:.4f} ms, "
+          f"{rows_ * width * 4 / ms / 1e6:.2f} GB/s (CUDA events, "
+          f"{len(starts)} blocks across the table)")
+
+
 def phase_capacity():
     """The Freebase TransE_l2 recipe (examples/freebase.sh:8-11) with
     --mix_cpu_gpu through dglke_tpu_torch-train --dataset Freebase
@@ -3737,7 +4055,6 @@ def phase_capacity():
     import dataclasses
     import resource
     import torch
-    from dglke_tpu_torch.host_table import evaluate_host
     card = torch.cuda.get_device_properties(0).total_memory
     table = FB_ENT * FB["hidden_dim"] * 4
     print(f"capacity run: entity table {FB_ENT} x {FB['hidden_dim']} fp32 = "
@@ -3792,15 +4109,7 @@ def phase_capacity():
     phase_host_profile("Freebase host", model, state, ds)
     cfg = dataclasses.replace(trained["config"], neg_sample_size_eval=-1,
                               eval_percent=FB_FULL_EVAL / FB_TEST)
-    lines = []
-    t0 = time.time()
-    m = evaluate_host(cfg, ds, model, state, "test", log=lines.append)
-    full_s = time.time() - t0
-    print(f"capacity run: filtered full-entity host eval of "
-          f"{FB_FULL_EVAL} test triples x 2 modes against {FB_ENT} entities "
-          f"in {full_s:.3f} s; the table streamed through the card once at "
-          f"{table / full_s / 1e9:.2f} GB/s (eval seconds included); MRR "
-          f"{m['MRR']!r}, HITS@10 {m['HITS@10']!r}")
+    capacity_full_eval(cfg, ds, model, state, table)
     peak = torch.cuda.max_memory_allocated()
     print(f"capacity run: the card's peak allocation over the run, the "
           f"profile and the full eval {peak} bytes ({peak / 1e9:.3f} GB; "
@@ -4558,6 +4867,18 @@ EXPECTED_LAUNCHES["TransE_l2 valid"] = {
     "group_ids_sort": 0, "sparse_adagrad_rows": 2 * PROFILE_STEPS,
     "outer_adagrad_update": 0}
 EXPECTED_EVAL_GRAPHS["TransE_l2 valid"] = (2, 14)
+# The same on host tables (--mix_cpu_gpu), with and without --valid: each
+# Valid eval (1,000 triples) makes one pos/side call a direction (two K1
+# each) and one block call; the first eval runs the three keys eagerly,
+# the second captures them, and every later call replays.
+EXPECTED_LAUNCHES["TransE_l2 host valid"] = {
+    "gather_rows": 2 * PROFILE_STEPS + 16, "group_ids": 2 * PROFILE_STEPS,
+    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * PROFILE_STEPS,
+    "outer_adagrad_update": 0}
+EXPECTED_EVAL_GRAPHS["TransE_l2 host valid"] = (3, 9)
+EXPECTED_LAUNCHES["TransE_l2 host valid baseline"] = dict(
+    EXPECTED_LAUNCHES["TransE_l2 host valid"], gather_rows=2 * PROFILE_STEPS)
+HOST_PATHS += ("TransE_l2 host valid", "TransE_l2 host valid baseline")
 # The hand-written kernels a flagship step launches, by the name the trace
 # gives them, and how many times a step (entity and relation rows).
 PROFILE_KERNELS = {"gather_rows_vec4": 2, "group_ids": 2,
@@ -4680,6 +5001,41 @@ def phase_valid_graphs(plain: str):
           f"{evals} Valid evals through the eval graphs between its "
           f"replays; every saved table bit-equal to the run without eval")
     return counts
+
+
+def phase_host_valid():
+    """Host tables' training graphs and eval graphs in one run: the
+    flagship with --mix_cpu_gpu, PROFILE_STEPS steps with --valid every
+    VALID_EVERY (the host eval's graphs captured in the second Valid eval
+    and replayed by the later ones, EXPECTED_EVAL_GRAPHS), launches held,
+    and every saved table bit-equal to the same run's without --valid.
+    Returns the launch counts by path."""
+    data = _fb15k_shaped("data", n_train=300_000)
+    paths, ckpts = {}, []
+    for label, extra in (
+            ("TransE_l2 host valid", ["--valid", "--eval_interval",
+                                      str(VALID_EVERY)]),
+            ("TransE_l2 host valid baseline", [])):
+        save = os.path.join(WORK, label.replace(" ", "_"))
+        argv = ["--dataset", "fb15k_shaped", *_udd_args(data),
+                *_recipe_flags(TRANSE), "--max_step", str(PROFILE_STEPS),
+                "--log_interval", str(PROFILE_STEPS // 4), "--mix_cpu_gpu",
+                *extra, "--save_path", save]
+        paths[label], text, _, _ = run_cli(label, argv)
+        ckpts.append(os.path.join(save, "TransE_l2_fb15k_shaped_0"))
+        evals = len(re.findall(r"\[0\]Valid takes", text))
+        if evals != (PROFILE_STEPS // VALID_EVERY if extra else 0):
+            fail(f"{label}: {evals} Valid evals")
+    for table in ("entity", "entity_state", "relation", "relation_state"):
+        f = f"fb15k_shaped_TransE_l2_{table}.npy"
+        if not np.array_equal(*(np.load(os.path.join(c, f))
+                                for c in ckpts)):
+            fail(f"host valid run: {f} differs from the run without eval")
+    print(f"host valid run: {PROFILE_STEPS} host-table steps through the "
+          f"training graphs with {PROFILE_STEPS // VALID_EVERY} Valid evals "
+          f"through the host eval's graphs between their replays; every "
+          f"saved table bit-equal to the run without eval")
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -4914,6 +5270,8 @@ def main() -> int:
         lap("phase 2b")
         phase_eval_graphs()
         lap("phase 2c")
+        phase_host_eval_graphs()
+        lap("phase 2c on host tables")
         main_metrics = {}
         paths = {"TransE_l2": phase_main_path(TRANSE, batch_size_eval=500,
                                               metrics=main_metrics)}
@@ -4978,6 +5336,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         kernels += phase_host_kernels()
         paths["TransE_l2 host"] = phase_host_main()
+        paths.update(phase_host_valid())
         phase_host_step_parity(TRANSE)
         phase_host_flagship_profile()
         lap("phase 6b")

@@ -34,6 +34,15 @@ replays a CUDA graph of the step (host_rows_step), whose K1 and K2 reach
 the mapped tables; on the CPU it runs the step eagerly.  host_step is the
 same step eagerly, with its batch uploaded.
 
+The eval makes the model's eval calls (models/eval_step.py), as the JAX
+package calls its three jits: the sampled groups through the device
+path's sampled call, the full-entity eval through host_pos_side (one
+call a direction) and host_block_counts (one call a streamed block,
+every direction and query chunk in it).  On a card each is a CUDA graph
+a memo key, replayed, K1 reading the mapped tables inside it; the
+block's rows reach it through a staging buffer that a copy-engine copy
+fills under the previous block's call.
+
 K2 writes the mapped tables asynchronously on the current stream: every
 host-side read of a host table first waits for the card
 (ops/rows.py:sync_mapped), as utils/io.py:save_model does.
@@ -323,16 +332,129 @@ def evaluate_host(config: KGEConfig, dataset, model: KEModel,
                                        log=log)
 
 
-def _upload_block(emb: torch.Tensor, cs: int, block: int,
-                  device: torch.device) -> torch.Tensor:
-    """Rows [cs, cs + block) of a host table on ``device``: on the card one
-    copy from the pinned table, queued on the current stream behind the
-    kernels that write it."""
-    src = emb[cs:cs + block]
-    if device.type == "cpu":
-        return src
-    out = torch.empty(src.shape, dtype=torch.float32, device=device)
-    return out.copy_(src, non_blocking=True)
+def host_pos_side(model: KEModel, state: HostState, ids, *,
+                  neg_head: bool) -> tuple:
+    """The pos/side preamble of one direction's queries (the JAX package's
+    _host_pos_side_fn, the group function of EvalCalls.host_pos_side):
+    ids [h | t | r] int32 on the model's device; K1 gathers the [h | t]
+    entity rows, the relation rows (and TransR's projection rows) from the
+    host tables, then KEModel._rows_pos_side.  Returns (pos [n], side rows
+    [n, D] (TransR's projected), rel rows, TransR's proj rows or None)."""
+    n = ids.shape[0] // 3
+    ent = gather_rows(state.entity, ids[:2 * n], model.entity_dim)
+    rel = gather_rows(state.relation, ids[2 * n:], model.relation_dim)
+    proj = (gather_rows(state.projection, ids[2 * n:], model.proj_dim)
+            if model.is_transr else None)
+    pos, side = model._rows_pos_side(ent[:n], ent[n:], rel, proj,
+                                     neg_head=neg_head)
+    return pos, side, rel, proj
+
+
+def host_block_counts(model: KEModel, cand, cs, start_row, dirs,
+                      q_cap: int) -> None:
+    """One candidate block against every query chunk of every direction
+    (the JAX package's _host_block_counts_fn with its loop body, the group
+    function of EvalCalls.host_block): ``cand`` holds the entity rows
+    [cs, cs + block), of which rows from ``start_row`` on are counted
+    (the tail block starts early, so that every block has one shape).
+    ``cs`` and ``start_row`` are ints or 0-d int64 tensors on cand's
+    device: inside a CUDA graph the tensors, written before each replay,
+    give each block its own place.  Each direction (a HostBlocks dict) has
+    KEModel._block_ge_counts of each chunk of at most ``q_cap`` query rows
+    added into its counts."""
+    block = cand.shape[0]
+    gids = cs + torch.arange(block, device=cand.device)
+    valid = (gids >= start_row) & (gids < model.n_entities)
+    for d in dirs:
+        local = d["fid"] - cs
+        in_blk = (d["fid"] >= start_row) & (local < block) & (d["fm"] > 0)
+        n_pad = len(d["counts"])
+        q = min(n_pad, q_cap)
+        for q0 in range(0, n_pad, q):
+            sl = slice(q0, q0 + q)
+            d["counts"][sl] += model._block_ge_counts(
+                d["pos"][sl], d["side"][sl], d["rel"][sl],
+                None if d["proj"] is None else d["proj"][sl], cand, valid,
+                local[sl], in_blk[sl], neg_head=d["neg_head"])
+
+
+def _queries(sampler) -> Optional[dict]:
+    """One direction's queries, all its batches in one: h, r, t, the real
+    rows (nv), and the filter lists padded to the widest (fid, fm; eight
+    zero columns unfiltered).  None for an empty sampler."""
+    batches = list(sampler)
+    if not batches:
+        return None
+    h, r, t = (np.concatenate([ba[k] for ba in batches])
+               for k in ("h", "r", "t"))
+    nv = np.concatenate([
+        np.arange(len(ba["h"])) < ba["n_valid"] for ba in batches])
+    fmax = (max(ba["filter_ids"].shape[1] for ba in batches)
+            if "filter_ids" in batches[0] else 8)
+    fid = np.zeros((len(h), fmax), np.int32)
+    fm = np.zeros((len(h), fmax), np.uint8)
+    if "filter_ids" in batches[0]:
+        o = 0
+        for ba in batches:
+            n, w = ba["filter_ids"].shape
+            fid[o:o + n, :w] = ba["filter_ids"]
+            fm[o:o + n, :w] = ba["filter_mask"]
+            o += n
+    return dict(neg_head=batches[0]["neg_head"], h=h, r=r, t=t, nv=nv,
+                fid=torch.from_numpy(fid), fm=torch.from_numpy(fm))
+
+
+def _stream_blocks(model: KEModel, state: HostState, calls, hb, block: int,
+                   q_cap: int) -> None:
+    """Stream the entity table through the model's device once, one block
+    call a block (calls.host_block).  Each block is first copied into one
+    of two staging buffers, in turn; on a card by the copy engine on
+    calls.copy_stream, from the mapped table, so that block i + 1's copy
+    runs under block i's call.  Events order it: the copy stream first
+    waits for the current stream (the training's last K2 writes the
+    table), a buffer is refilled only after the call that read it, and a
+    call waits for its buffer's copy."""
+    n_ent = model.n_entities
+    src = state.entity.emb
+    card = model.device.type == "cuda"
+    if card and rows.mapped_address(src) is None:
+        raise ValueError("host eval: the entity table is not mapped for "
+                         f"{model.device} (rows.map_host)")
+    bufs = calls.host_buffers(block, src.shape[1])
+    starts = range(0, n_ent, block)
+    if card:
+        main = torch.cuda.current_stream(model.device)
+        copier = calls.copy_stream
+        copier.wait_stream(main)
+        filled = [torch.cuda.Event() for _ in bufs]
+        freed = [torch.cuda.Event() for _ in bufs]
+
+    def stage(i):
+        j = i % 2
+        cs = min(starts[i], n_ent - block)
+        if not card:
+            bufs[j].copy_(src[cs:cs + block])
+            return
+        with torch.cuda.stream(copier):
+            if i >= 2:
+                copier.wait_event(freed[j])
+            bufs[j].copy_(src[cs:cs + block], non_blocking=True)
+            filled[j].record(copier)
+
+    stage(0)
+    for i, start_row in enumerate(starts):
+        j = i % 2
+        if i + 1 < len(starts):
+            stage(i + 1)
+        if card:
+            main.wait_event(filled[j])
+        hb.cs.fill_(min(start_row, n_ent - block))
+        hb.start.fill_(start_row)
+        calls.host_block(state, hb, j, partial(
+            host_block_counts, model, bufs[j], hb.cs, hb.start, hb.dirs,
+            q_cap))
+        if card:
+            freed[j].record(main)
 
 
 @torch.no_grad()
@@ -341,14 +463,17 @@ def evaluate_host_with_samplers(model: KEModel, state: HostState,
                                 log=print) -> Dict[str, float]:
     """Full-entity ranking with the table streamed from host memory.
 
-    All query batches of both directions are collected first (their
-    pos/side rows are small, gathered by K1 from the host tables); the
-    entity table then crosses the host link once, in contiguous blocks,
-    each block scored against every query row of both directions by
-    KEModel._block_ge_counts (the device path's tie-exact count).  The
-    query axis is cut into chunks of at most _Q_CAP_BYTES of scores, padded
-    to a multiple of the chunk."""
-    from dglke_tpu_torch.trainer import (CandidateEvalSampler,
+    All query batches of both directions are collected first; their
+    pos/side rows come from one host_pos_side call a direction (K1 gathers
+    from the host tables).  The entity table then crosses the host link
+    once, in contiguous blocks of one shape, each block scored against
+    every query row of both directions by one host_block_counts call
+    (KEModel._block_ge_counts, the device path's tie-exact count).  The
+    query axis is cut into chunks of at most _Q_CAP_BYTES of scores,
+    padded to a multiple of the chunk.  The calls are the model's
+    eval_calls: on a card CUDA graphs, memoized across evals (a --valid
+    eval of one split reuses its graphs every interval)."""
+    from dglke_tpu_torch.trainer import (CandidateEvalSampler, _log_graphs,
                                          combine_rank_metrics,
                                          evaluate_with_samplers)
 
@@ -360,97 +485,53 @@ def evaluate_host_with_samplers(model: KEModel, state: HostState,
             "interchange) or evaluate on a vocab-sharded mesh")
     if any(getattr(s, "neg_sample_size", 0) > 0 for s in samplers):
         # Sampled negatives (--neg_sample_size_eval, the protocol of the
-        # reference's Freebase-scale recipes): the device path's loop, whose
+        # reference's Freebase-scale recipes): the device path's grouped
+        # calls (the JAX package's _host_sampled_ranks_fn a batch), whose
         # eval_ranks_sampled gathers each group's [h | t | neg] entity rows
-        # and relation rows from the host tables with K1 and ranks them with
-        # _rows_eval_ranks_sampled.  Only the K candidates and the batch
-        # rows cross the link.
+        # and relation rows from the host tables with K1 and ranks them
+        # with _rows_eval_ranks_sampled.  Only the K candidates and the
+        # batch rows cross the link.
         return evaluate_with_samplers(model, state, samplers, phase=phase,
                                       log=log)
     start = time.time()
     dev = model.device
-    n_ent = model.n_entities
-    dirs = []      # one entry per direction: queries, filters and counts
-    for sampler in samplers:
-        batches = list(sampler)
-        if not batches:
-            continue
-        neg_head = batches[0]["neg_head"]
-        h = np.concatenate([ba["h"] for ba in batches])
-        r = np.concatenate([ba["r"] for ba in batches])
-        t = np.concatenate([ba["t"] for ba in batches])
-        nv = np.concatenate([
-            np.arange(len(ba["h"])) < ba["n_valid"] for ba in batches])
-        if "filter_ids" in batches[0]:
-            fmax = max(ba["filter_ids"].shape[1] for ba in batches)
-            fid = np.zeros((len(h), fmax), np.int32)
-            fm = np.zeros((len(h), fmax), np.uint8)
-            o = 0
-            for ba in batches:
-                n, w = ba["filter_ids"].shape
-                fid[o:o + n, :w] = ba["filter_ids"]
-                fm[o:o + n, :w] = ba["filter_mask"]
-                o += n
-        else:
-            fid = np.zeros((len(h), 8), np.int32)
-            fm = np.zeros((len(h), 8), np.uint8)
-        n = len(h)
-        ids = torch.from_numpy(np.concatenate([h, t, r]).astype(
-            np.int32)).to(dev)
-        ent = gather_rows(state.entity, ids[:2 * n], model.entity_dim)
-        rel_rows = gather_rows(state.relation, ids[2 * n:],
-                               model.relation_dim)
-        proj_rows = (gather_rows(state.projection, ids[2 * n:],
-                                 model.proj_dim) if model.is_transr
-                     else None)
-        pos, side = model._rows_pos_side(ent[:n], ent[n:], rel_rows,
-                                         proj_rows, neg_head=neg_head)
-        dirs.append(dict(neg_head=neg_head, pos=pos, side=side, rel=rel_rows,
-                         proj=proj_rows, fid=torch.from_numpy(fid).to(dev),
-                         fm=torch.from_numpy(fm).to(dev), nv=nv))
-    if not dirs:
+    calls = model.eval_calls
+    graphs = (calls.captured, calls.replays)
+    queries = [q for q in map(_queries, samplers) if q is not None]
+    if not queries:
         raise ValueError("evaluation saw zero edges (empty split or "
                          "eval_percent too small)")
+    for q in queries:
+        ids = torch.from_numpy(np.concatenate(
+            [q["h"], q["t"], q["r"]]).astype(np.int32)).to(dev)
+        out = calls.host_pos_side(
+            state, partial(host_pos_side, model, state,
+                           neg_head=q["neg_head"]), ids,
+            neg_head=q["neg_head"], phase=phase)
+        # copied out at once: the next eval call may rewrite them
+        q.update(zip(("pos", "side", "rel", "proj"),
+                     (None if x is None else x.clone() for x in out)))
 
-    block = min(model._eval_block_size(max(len(d["nv"]) for d in dirs)),
-                n_ent)
+    block = min(model._eval_block_size(max(len(q["nv"]) for q in queries)),
+                model.n_entities)
     # The query axis holds the whole split (collected above so that the
     # table crosses the link once): chunk it so that one call's score
     # matrix stays under _Q_CAP_BYTES.
     q_cap = max(_Q_MIN_CHUNK, _Q_CAP_BYTES // max(block * 4, 1))
-    for d in dirs:
-        n_q = len(d["nv"])
-        pad = (-n_q) % q_cap if n_q > q_cap else 0
-        for k in ("pos", "side", "rel", "proj", "fid", "fm"):
-            if d[k] is not None and pad:
-                d[k] = torch.cat([d[k], d[k].new_zeros(
-                    (pad,) + tuple(d[k].shape[1:]))])
-        d["counts"] = torch.zeros((n_q + pad,), dtype=torch.int64,
-                                  device=dev)
-    for start_row in range(0, n_ent, block):
-        cs = min(start_row, n_ent - block)
-        cand = _upload_block(state.entity.emb, cs, block, dev)
-        gids = cs + torch.arange(block, device=dev)
-        valid = (gids >= start_row) & (gids < n_ent)
-        for d in dirs:
-            local = d["fid"] - cs
-            in_blk = (d["fid"] >= start_row) & (local < block) & (d["fm"] > 0)
-            n_pad = len(d["counts"])
-            q = n_pad if n_pad <= q_cap else q_cap
-            for q0 in range(0, n_pad, q):
-                sl = slice(q0, q0 + q)
-                d["counts"][sl] += model._block_ge_counts(
-                    d["pos"][sl], d["side"][sl], d["rel"][sl],
-                    None if d["proj"] is None else d["proj"][sl], cand,
-                    valid, local[sl], in_blk[sl], neg_head=d["neg_head"])
+    n_pads = [n + ((-n) % q_cap if n > q_cap else 0)
+              for n in (len(q["nv"]) for q in queries)]
+    hb = calls.host_blocks(state, queries, n_pads, block, q_cap, phase)
+    _stream_blocks(model, state, calls, hb, block, q_cap)
 
     ranks = torch.cat([
-        (torch.clamp(d["counts"][:len(d["nv"])], min=0) + 1)[
-            torch.from_numpy(d["nv"]).to(dev)] for d in dirs])
+        (torch.clamp(d["counts"][:len(q["nv"])], min=0) + 1)[
+            torch.from_numpy(q["nv"]).to(dev)]
+        for q, d in zip(queries, hb.dirs)])
     metrics = combine_rank_metrics(
         ranks.cpu().numpy(), "evaluation saw zero edges (empty split or "
         "eval_percent too small)")
     for k, v in metrics.items():
         log(f"[0]{phase} average {k}: {v}")
     log(f"[0]{phase} takes {time.time() - start:.3f} seconds")
+    _log_graphs(calls, state, graphs, f"[0]{phase}", log)
     return metrics

@@ -54,14 +54,16 @@ def capture_stream(device) -> "torch.cuda.Stream":
 def run_on_capture_stream(device, fn):
     """``fn()`` eagerly on the card's capture stream, after the current
     stream's work and before its later work.  Returns (the stream, fn's
-    output tensor)."""
+    output: a tensor, a tuple of tensors and Nones, or None)."""
     main = torch.cuda.current_stream(device)
     stream = capture_stream(device)
     stream.wait_stream(main)
     with torch.cuda.stream(stream):
         out = fn()
     main.wait_stream(stream)
-    out.record_stream(main)
+    for t in (out if isinstance(out, tuple) else (out,)):
+        if t is not None:
+            t.record_stream(main)
     return stream, out
 
 

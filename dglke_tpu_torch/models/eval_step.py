@@ -16,12 +16,29 @@ Three group functions, each a KEModel method run eagerly:
 The trainer's eval loops (trainer._mega_eval, _sampled_eval,
 candidate_outputs) batch a split as the JAX package's do and hand each
 call its inputs as device tensors; nothing in a group function reads a
-device value on the host.
+device value on the host.  Host-resident tables (--mix_cpu_gpu) rank
+their sampled groups by the same sampled call, K1 reading the rows from
+the mapped tables; their full-entity eval (host_table.py, the JAX
+package's _host_pos_side_fn and _host_block_counts_fn) makes two more:
+  - host_pos_side: one direction's queries, ids [h | t | r], to their
+                positive scores, side rows, relation rows (and TransR's
+                projection rows) (host_table.host_pos_side);
+  - host_block: one candidate block of the streamed entity table against
+                every query chunk of every direction, added into each
+                direction's counts (host_table.host_block_counts).  Its
+                inputs are static tensors of the memo (HostBlocks): the
+                directions' query rows, filter lists and int64 counts,
+                filled once an eval; the block's place, two 0-d int64
+                tensors written before each call; and one of two staging
+                buffers of the block's rows, shared by every key of one
+                block shape, which the caller refills by a copy on
+                copy_stream outside the call.  The buffer's index is part
+                of the key: one graph a buffer.
 
-On the CPU, under a ShardingPlan (--dist: the vocab route's gather reads
-its split counts on the host, and gloo collectives cannot be captured) and
-on host-resident tables (--mix_cpu_gpu), every call runs its group
-function.  On a card the calls are memoized on the model, one entry per
+On the CPU and under a ShardingPlan (--dist: the vocab route's gather
+reads its split counts on the host, and gloo collectives cannot be
+captured) every call runs its group function.  On a card the calls are
+memoized on the model, one entry per
 static call shape: (the kind, the eval phase, the static flags, every
 input's shape and dtype, the tables' data pointers, shapes and dtypes), as
 the JAX package's jit memo keys its compiles, so that the periodic --valid
@@ -68,6 +85,24 @@ class _Entry:
     launches: Optional[dict] = None     # launches by wrapper, one replay
 
 
+# The inputs of host mode's block call that each direction brings.
+_HOST_INPUTS = ("pos", "side", "rel", "proj", "fid", "fm")
+
+
+@dataclass
+class HostBlocks:
+    """The static inputs of host mode's block call for one memo key, on the
+    model's device: for each direction a dict of its query rows (pos, side,
+    rel, TransR's proj or None) and filter lists (fid, fm), padded with
+    zero rows, its int64 counts and its neg_head; the block's first row
+    ``cs`` and the first row it counts ``start`` (0-d int64); and the key
+    without the staging buffer's index."""
+    static: tuple
+    dirs: list
+    cs: torch.Tensor
+    start: torch.Tensor
+
+
 class EvalCalls:
     """The eval's fused calls of one KEModel (its ``eval_calls``).
 
@@ -84,6 +119,9 @@ class EvalCalls:
         self.keys: Counter = Counter()
         self.pool = None            # the memory pool the eval graphs share
         self.stream = None          # the capture stream, once used
+        self.blocks: dict = {}      # memo key -> HostBlocks
+        self.staging: dict = {}     # (rows, width) -> two staging buffers
+        self._copy_stream = None
         self.captured = 0
         self.replays = 0
 
@@ -93,11 +131,17 @@ class EvalCalls:
 
     def on_graphs(self, state) -> bool:
         """Whether this model's eval calls on ``state`` run as CUDA graphs:
-        on a card, without a plan, on tables on the card (host-resident
-        tables, host_table.HostState, stay eager)."""
+        on a card, without a plan (tables on the card or mapped host
+        tables alike)."""
         model = self.model
-        return (model.device.type == "cuda" and model.plan is None
-                and not getattr(state, "is_host", False))
+        return model.device.type == "cuda" and model.plan is None
+
+    @property
+    def copy_stream(self) -> "torch.cuda.Stream":
+        """The stream of host mode's staging copies (on a card)."""
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.model.device)
+        return self._copy_stream
 
     # -- the calls -----------------------------------------------------------
 
@@ -126,6 +170,62 @@ class EvalCalls:
         return self._call(state, ("candidates", phase, top), fn,
                           (query, cand_ids, ans))
 
+    def host_pos_side(self, state, fn, ids, *, neg_head: bool,
+                      phase: str) -> tuple:
+        """One direction's (pos, side, rel, proj or None) from ``fn(ids)``,
+        host_table.host_pos_side on ids [h | t | r]: rewritten by the
+        next call, copy them out."""
+        return self._call(state, ("host_pos_side", phase, neg_head), fn,
+                          (ids,))
+
+    def host_blocks(self, state, dirs: list, n_pads: list, block: int,
+                    q_cap: int, phase: str) -> HostBlocks:
+        """The block call's static inputs for one eval, its directions'
+        inputs copied in: each of ``dirs`` a dict of its query rows (pos,
+        side, rel, proj) and filter lists (fid, fm), tensors, and its
+        neg_head, padded with zero rows to its ``n_pads`` entry; the
+        counts zeroed.  Memoized by the phase, the block, the query chunk
+        ``q_cap``, TransR or not, each direction's (neg_head, padded rows,
+        filter width) and the tables."""
+        model = self.model
+        static = ("host_block", phase, block, q_cap, model.is_transr,
+                  tuple((d["neg_head"], n, d["fid"].shape[1])
+                        for d, n in zip(dirs, n_pads)))
+        key = self._key(state, static, ())
+        hb = self.blocks.get(key)
+        dev = model.device
+        if hb is None:
+            hb = self.blocks[key] = HostBlocks(static, [
+                {"neg_head": d["neg_head"],
+                 "counts": torch.zeros((n,), dtype=torch.int64, device=dev),
+                 **{k: None if d[k] is None else d[k].new_zeros(
+                     (n,) + d[k].shape[1:], device=dev) for k in _HOST_INPUTS}}
+                for d, n in zip(dirs, n_pads)],
+                torch.zeros((), dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+        for d, s in zip(dirs, hb.dirs):
+            for k in _HOST_INPUTS:
+                if d[k] is not None:
+                    s[k][:len(d[k])].copy_(d[k])
+                    s[k][len(d[k]):].zero_()
+            s["counts"].zero_()
+        return hb
+
+    def host_buffers(self, rows: int, width: int) -> list:
+        """The two fp32 staging buffers [rows, width] of the block call,
+        shared by every key of that shape."""
+        bufs = self.staging.get((rows, width))
+        if bufs is None:
+            bufs = self.staging[(rows, width)] = [
+                torch.empty((rows, width), dtype=torch.float32,
+                            device=self.model.device) for _ in range(2)]
+        return bufs
+
+    def host_block(self, state, hb: HostBlocks, buffer: int, fn) -> None:
+        """One candidate block: ``fn()`` reads staging buffer ``buffer``
+        and hb's static inputs, and adds into hb's counts."""
+        self._call(state, hb.static + (buffer,), fn, ())
+
     def _sampled(self, state, h, r, t, neg, neg_keep, n_valid, *,
                  neg_head, neg_deg_sample):
         return self.model.eval_ranks_sampled(
@@ -143,7 +243,7 @@ class EvalCalls:
             tuple((x.emb.data_ptr(), tuple(x.emb.shape), x.emb.dtype)
                   for x in tables))
 
-    def _call(self, state, static: tuple, fn, args: tuple) -> torch.Tensor:
+    def _call(self, state, static: tuple, fn, args: tuple):
         key = self._key(state, static, args)
         self.keys[key] += 1
         if not self.on_graphs(state):

@@ -47,6 +47,8 @@
 //          writes ss[u];
 //       4. recomputes sum_j g_j from the slice in shared memory and writes
 //          the new slice once, as 16-byte stores.
+//     A last cluster barrier holds every CTA until the others' reads of
+//     its shared memory are done, as distributed shared memory requires.
 //     Each touched row is read once and written once.  At hidden 500 the
 //     cluster is 16 CTAs of 62.5 KB (size 16 is non-portable and is
 //     allowed explicitly), two CTAs to an SM; 14 such clusters fit an
@@ -511,6 +513,9 @@ outer_cluster(float* __restrict__ emb, int64_t n_rows, int64_t pitch,
     STAMP(it, 5);
     seg = next;
   }
+  // The other CTAs read rank 0's claims after the last cluster barrier: no
+  // CTA may exit (releasing its shared memory) before all of them have.
+  cluster.sync();
 #ifdef DGLKE_OUTER_STAMPS
   if (threadIdx.x == 0 && blockIdx.x < kStampCtas) g_segments[blockIdx.x] = it;
 #endif

@@ -441,8 +441,10 @@ def test_cpu_route_runs_eagerly_no_graph():
 
 
 def test_graph_route_only_on_a_card_without_plan_on_card_tables():
-    """Which eval calls a card would capture: none on the CPU, under a
-    plan (--dist) or on host-resident tables (--mix_cpu_gpu)."""
+    """Which eval calls a card would capture: on one card without a plan,
+    on tables on the card and on host-resident tables (--mix_cpu_gpu,
+    mapped for the card) alike; none on the CPU or under a plan
+    (--dist)."""
     from types import SimpleNamespace
     from dglke_tpu_torch.models.eval_step import EvalCalls
 
@@ -454,9 +456,10 @@ def test_graph_route_only_on_a_card_without_plan_on_card_tables():
     on_card, on_host = SimpleNamespace(), SimpleNamespace(is_host=True)
     model = Model(card)
     calls = EvalCalls(model)
-    assert calls.on_graphs(on_card) and not calls.on_graphs(on_host)
+    assert calls.on_graphs(on_card) and calls.on_graphs(on_host)
     for model in (Model(cpu), Model(card, plan=object())):
-        assert not EvalCalls(model).on_graphs(on_card)
+        for state in (on_card, on_host):
+            assert not EvalCalls(model).on_graphs(state)
 
 
 def test_eval_calls_hold_no_cycle_through_the_model():

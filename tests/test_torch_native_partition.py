@@ -6,10 +6,17 @@ self-loops and duplicate edges; partition_and_write and the partition CLI
 on their default (LDG) paths write byte-identical artifacts to the JAX
 package's default path, unpatched; bad ids raise ValueError; and a failed
 build raises instead of falling back to the numpy LDG, whose other stream
-order would write other partitions."""
+order would write other partitions.
+
+The JAX package's native module is given a private build for the length
+of this module (jax_native): its own _load runs ``make`` in the shared
+native/ directory with no lock, so under pytest-xdist another worker's
+build can rewrite the library while this one loads it, and the reference
+then reports itself unavailable for the rest of the worker's life."""
 
 import filecmp
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -21,6 +28,24 @@ from dglke_tpu_torch.data import partition_graph as ppg
 from dglke_tpu_torch.data.dataset import synthetic_dataset
 
 N_NODES = 120
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native module built from its own sources (the
+    Makefile and both C++ files copied) into a directory of this module's
+    alone, and loaded by its own _load; restored after the module."""
+    src = jnative._NATIVE_DIR
+    build = tmp_path_factory.mktemp("jax_native")
+    for name in ("Makefile", "kge_sampler.cpp", "ldg_partition.cpp"):
+        shutil.copy(os.path.join(src, name), build / name)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_NATIVE_DIR", str(build))
+        mp.setattr(jnative, "_SO_PATH", str(build / "libkge_native.so"))
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_build_failed", False)
+        assert jnative._load() is not None, "the JAX native build failed"
+        yield jnative
 
 
 def _graph(seed: int):
@@ -37,6 +62,7 @@ def _graph(seed: int):
     return h.astype(np.int64), t.astype(np.int64)
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("seed", [0, 1, 7])
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 def test_native_ldg_matches_jax_native(k, seed):
@@ -66,6 +92,7 @@ def _tree_equal(a, b):
             assert x.read() == y.read(), f
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("k", [2, 3])
 def test_partition_and_write_default_path_is_byte_identical(tmp_path, k):
     ds = synthetic_dataset(n_entities=97, n_relations=7, n_train=1500,
@@ -82,6 +109,7 @@ def test_partition_and_write_default_path_is_byte_identical(tmp_path, k):
     _tree_equal(str(tmp_path / "p"), str(tmp_path / "j"))
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_partition_cli_default_method_writes_the_jax_clis_files(tmp_path):
     from dglke_tpu.cli import partition as jcli
     from dglke_tpu_torch.cli import partition as pcli
@@ -105,6 +133,7 @@ def test_partition_cli_default_method_writes_the_jax_clis_files(tmp_path):
     _tree_equal(str(tmp_path / "p" / "kg"), str(tmp_path / "j" / "kg"))
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("h,t,n,k", [
     ([0, 1, 5], [1, 2, 0], 5, 2),     # id == n_nodes
     ([0, -1], [1, 2], 5, 2),          # negative id
@@ -154,6 +183,7 @@ def test_failed_compile_raises_with_the_compilers_output(fresh_build,
     assert not list((fresh_build / "build").glob("*.so"))
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_build_is_keyed_by_the_source_digest(fresh_build):
     h, t = _graph(3)
     a, _ = pnative.ldg_partition_native(h, t, N_NODES, 2, 3)
