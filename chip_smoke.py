@@ -210,16 +210,23 @@ Phases (any failure exits non-zero and prints no result line):
      the flagship shapes and at RESCAL's (K3 on every replica) against
      one device's step on the 2,000-row global batch, replicas bit-equal
      across ranks; the flagship under --dist on 2 ranks x batch 1,000,
-     each plan, 200 steps and the filtered test eval, the metrics of both
+     each plan, 100 steps and the filtered test eval, the metrics of both
      ranks equal to one device's dglke_tpu_torch-eval of the npy
      checkpoint written through rank 0; RESCAL under --dist (vocab), 100
      steps; ogbl-wikikg2 at full width (2,500,604 x 500, 2.5 GB a rank)
-     under --dist --table_sharding vocab, 200 steps saved every 100
-     (--sharded_ckpt) and resumed for 100 with the sampled test eval, the
-     loaded tables bit-equal to the saved ones; and --dist on one rank
-     over NCCL against the run without --dist, bit-equal.  Launches exact
-     on every rank; each rank's host ms, collective bytes and collective
-     ms per step printed (not multi-card numbers);
+     under --dist --table_sharding vocab, 100 steps saved every 50
+     (--sharded_ckpt) and resumed for 50 with the sampled test eval, the
+     loaded tables bit-equal to the saved ones (the gloo phases run each
+     step group eagerly as one call, on the fixed-capacity route); and
+     --dist on one rank over NCCL on the graph route (phase_dist_nccl:
+     one CUDA graph a step group, the collectives inside): the flagship
+     under each plan and RESCAL under the vocab plan through the CLI,
+     bit-equal to the runs without --dist, then a replayed group against
+     the eager group at full width, bit for bit, both routes timed, and
+     the vocab plan's test eval of the flagship checkpoint as EvalCalls
+     graphs, its integer ranks one device's.  Launches exact on every
+     rank; each rank's host ms, collective bytes and collective ms per
+     step printed (not multi-card numbers);
   7b. the capacity run: the Freebase TransE_l2 recipe
      (examples/freebase.sh:8-11) with --mix_cpu_gpu through the CLI at
      FB_ENT entities, an entity table larger than the card (cuts listed at
@@ -4189,14 +4196,23 @@ def phase_chunked_save(model, state):
 
 DIST_RANKS = 2
 DIST_TIMEOUT = 900          # seconds a rank set may take, then killed
-DIST_STEPS = 200            # the flagship under --dist, each plan (cut
-# from 500 when the bf16, profile and LDG phases joined the script)
-DIST_RESCAL_STEPS = 100     # RESCAL under --dist (K3 on every replica)
-# wikikg2 under --dist --table_sharding vocab: 200 steps saved every 100
-# (--sharded_ckpt), then resumed for 100 more with the recipe's sampled
-# test eval
-DIST_WIKI_STEPS, DIST_WIKI_EVERY, DIST_WIKI_RESUME = 200, 100, 100
-NCCL_STEPS = 100            # --dist on one rank over NCCL
+DIST_STEPS = 100            # the flagship under --dist, each plan (cut
+# from 500 when the bf16, profile and LDG phases joined the script, and
+# from 200 when the one-rank NCCL phase grew to the graph route's cases)
+DIST_RESCAL_STEPS = 50      # RESCAL under --dist (K3 on every replica; cut
+# from 100 with DIST_STEPS)
+# wikikg2 under --dist --table_sharding vocab: 100 steps saved every 50
+# (--sharded_ckpt), then resumed for 50 more with the recipe's sampled
+# test eval (cut from 200, 100 and 100 with DIST_STEPS)
+DIST_WIKI_STEPS, DIST_WIKI_EVERY, DIST_WIKI_RESUME = 100, 50, 50
+NCCL_STEPS = 100            # --dist on one rank over NCCL, each case
+# The direct cases at one NCCL rank (_worker_nccl): the flagship under each
+# plan and RESCAL under the vocab plan, NCCL_GROUPS groups of GROUP_S steps
+# on the graph route against the group function called eagerly, then
+# NCCL_TIMED groups timed on each route.
+NCCL_CASES = (("TransE_l2", "vocab"), ("TransE_l2", "replicated"),
+              ("RESCAL", "vocab"))
+NCCL_GROUPS, NCCL_TIMED = 5, 5
 DIST_TIMED = 20             # steps timed after each plan's parity step
 DIST_NOTE = ("2 ranks sharing one H100 over host-staged gloo: not a "
              "multi-card number")
@@ -4211,30 +4227,37 @@ DIST_RTOL, DIST_ATOL = 1e-4, 1e-5
 # 2 x 3,000 ids on every replica; the relation update over 2 x 1,000), and
 # on RESCAL K3 (with its grouping) in place of the relation K2.  The
 # flagship's filtered test eval of 2,000 triples at batch 500, a group
-# call a mode (trainer._mega_eval, eagerly under a plan): over the
+# call a mode (trainer._mega_eval, eagerly over gloo): over the
 # vocab-sharded table every rank ranks all 4 batches of a mode in one
 # call, 2 K1 each (the routed [h | t] rows; the relation rows), scoring its
 # own rows in slices; over replicas each rank ranks its stride, 2 batches
 # a mode in one call of 4 K1 (h, t, the relation rows and the 14,951
 # candidate rows).  wikikg2's sampled test eval of 20,000 triples: every
-# rank ranks all 40 groups of batches, 2 K1 each.  An owner that receives
-# no id launches nothing (none does here).
+# rank ranks all 40 groups of batches, 2 K1 each.  On the vocab plan's
+# fixed-capacity route every owner launches K1 and K2 on all n x C slots
+# it receives, pads included, so the counts do not depend on the ids.  At
+# one rank over NCCL (no eval) the steps run in CUDA graph replays, which
+# add their capture's counts, and the run without --dist takes the
+# single-device graph route: the same counts.
 for _label, _k1, _steps in (("TransE_l2 dist vocab", 4, DIST_STEPS),
                             ("TransE_l2 dist replicated", 8, DIST_STEPS),
                             ("wikikg2 dist save", 0, DIST_WIKI_STEPS),
                             ("wikikg2 dist resume", 80, DIST_WIKI_RESUME),
                             ("TransE_l2 nccl", 0, NCCL_STEPS),
+                            ("TransE_l2 nccl replicated", 0, NCCL_STEPS),
                             ("TransE_l2 nccl baseline", 0, NCCL_STEPS)):
     EXPECTED_LAUNCHES[_label] = {"gather_rows": 2 * _steps + _k1,
                                  "group_ids": 2 * _steps,
                                  "group_ids_sort": 0,
                                  "sparse_adagrad_rows": 2 * _steps,
                                  "outer_adagrad_update": 0}
-EXPECTED_LAUNCHES["RESCAL dist vocab"] = {
-    "gather_rows": 2 * DIST_RESCAL_STEPS,
-    "group_ids": 2 * DIST_RESCAL_STEPS, "group_ids_sort": 0,
-    "sparse_adagrad_rows": DIST_RESCAL_STEPS,
-    "outer_adagrad_update": DIST_RESCAL_STEPS}
+for _label, _steps in (("RESCAL dist vocab", DIST_RESCAL_STEPS),
+                       ("RESCAL nccl", NCCL_STEPS),
+                       ("RESCAL nccl baseline", NCCL_STEPS)):
+    EXPECTED_LAUNCHES[_label] = {
+        "gather_rows": 2 * _steps, "group_ids": 2 * _steps,
+        "group_ids_sort": 0, "sparse_adagrad_rows": _steps,
+        "outer_adagrad_update": _steps}
 
 
 def _free_port() -> int:
@@ -4361,8 +4384,12 @@ def _worker_cli(spec: dict) -> dict:
                  ("load_sharded", load)):
         setattr(train_cli, k, f)
     rows.reset_launches()
-    with _RankLog() as ranks:
-        rc = train_cli.main(spec["argv"])
+    try:
+        with _RankLog() as ranks:
+            rc = train_cli.main(spec["argv"])
+    finally:
+        for k, f in real.items():
+            setattr(train_cli, k, f)
     comm, steps = seen["comm"], max(1, seen["steps"])
     return {"rc": rc, "launches": dict(rows.launches),
             "eval_ranks": [r.tolist() for r in ranks.ranks],
@@ -4450,12 +4477,156 @@ def _worker_step(spec: dict) -> dict:
     return out
 
 
+def _nccl_route(comm, fused, pipe, state, route: str, groups: int):
+    """``groups`` groups of the fused call on ``route``: "graph" (its CUDA
+    graph replayed after a first eager group on the capture stream) or
+    "eager" (the group function called on the default stream).  Returns
+    the logs [K, groups * s]."""
+    import torch
+    logs = []
+    for _ in range(groups):
+        if route == "graph":
+            _, log = fused(state)
+            logs.append(torch.stack([log[k] for k in fused.keys]))
+        else:
+            pipe.begin_group(fused.s)
+            logs.append(fused.group(state))
+            pipe.end_group(fused.s)
+    torch.cuda.synchronize()
+    return torch.cat(logs, 1)
+
+
+def _worker_nccl(spec: dict) -> dict:
+    """One rank over NCCL.  First dglke_tpu_torch-train with each of
+    spec["runs"] ((label, argv) pairs; each run's result as _worker_cli
+    gives it, with its printed text).  Then each of NCCL_CASES at full
+    width, from the same tables: NCCL_GROUPS groups of GROUP_S steps through the fused call on
+    its graph route and through its group function called eagerly (every
+    table, its Adagrad state and the logs bit-equal; launches and
+    collective bytes equal; one graph, NCCL_GROUPS - 1 replays; the bytes
+    a replay adds), then NCCL_TIMED groups on each route on the host
+    clock and NCCL_TIMED under torch.profiler (busy share, kernels and
+    graph launches a step), the peak allocation over the timed groups.
+    Then the vocab plan's filtered test eval of the checkpoint
+    spec["ckpt"] (2,000 triples at batch 500), twice (its calls' second
+    run captures their graphs), against one device's eval of the same
+    checkpoint: the integer ranks equal."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.data.dataset import synthetic_dataset
+    from dglke_tpu_torch.data.sampler import FilterIndex
+    from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.models.pipeline_step import DevicePipelineStep
+    from dglke_tpu_torch.ops import rows
+    from dglke_tpu_torch.parallel.mesh import ShardingPlan, init_distributed
+    from dglke_tpu_torch.trainer import DevicePipeline, evaluate
+    from dglke_tpu_torch.utils.io import load_model_state
+    runs = {}
+    for label, argv in spec["runs"]:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            runs[label] = _worker_cli({"argv": argv})
+        runs[label]["text"] = text.getvalue()
+    comm = init_distributed("cuda")
+    out = {"backend": comm.backend, "layout": comm.layout, "cases": {},
+           "runs": runs}
+    ds = synthetic_dataset(N_ENT, N_REL, n_train=300_000, n_valid=1000,
+                           n_test=2000, seed=0)
+    for family, ts in NCCL_CASES:
+        cfg = KGEConfig(**(TRANSE if family == "TransE_l2" else RESCAL))
+        plan = ShardingPlan(comm, ts, N_ENT)
+        model = KEModel(cfg, N_ENT, N_REL, plan=plan)
+        init = plan.init_state(model)
+        neg_total = cfg.num_chunks * cfg.neg_sample_size
+        res, snaps = {}, {}
+        t_case = time.perf_counter()
+        for route in ("graph", "eager"):
+            state = _clone(init)
+            pipe = DevicePipeline(model, ds, cfg.batch_size, neg_total,
+                                  seed=cfg.seed)
+            fused = DevicePipelineStep(model, pipe, GROUP_S)
+            if not fused.on_graphs:
+                raise RuntimeError(f"{family} {ts}: not on the graph route")
+            rows.reset_launches()
+            comm.reset_counters()
+            logs = _nccl_route(comm, fused, pipe, state, route, NCCL_GROUPS)
+            launches, coll = dict(rows.launches), comm.counters()["bytes"]
+            snaps[route] = _clone(state)
+            graphs, replays = len(fused.graphs), fused.replays
+            per_replay = [g.comm_bytes for g in fused.graphs.values()]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _nccl_route(comm, fused, pipe, state, route, NCCL_TIMED)
+            host_ms = ((time.perf_counter() - t0) * 1e3
+                       / (NCCL_TIMED * GROUP_S))
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _nccl_route(comm, fused, pipe, state, route, NCCL_TIMED)
+            kern = _kernel_events(prof)
+            steps = NCCL_TIMED * GROUP_S
+            res[route] = {
+                "logs": logs.cpu().numpy().tobytes().hex(),
+                "launches": launches, "coll_bytes": coll,
+                "graphs": graphs, "replays": replays,
+                "bytes_a_replay": per_replay, "host_ms": host_ms,
+                "busy_ms": sum(e.self_device_time_total
+                               for e in kern) / 1e3 / steps,
+                "kernels": sum(e.count for e in kern) / steps,
+                "graph_launches": sum(
+                    e.count for e in prof.key_averages()
+                    if e.key == "cudaGraphLaunch") / steps,
+                "peak_mb": peak_mb}
+            del state, pipe, fused
+        g, e = snaps["graph"], snaps["eager"]
+        res["same_tables"] = all(
+            torch.equal(getattr(getattr(g, t), part),
+                        getattr(getattr(e, t), part))
+            for t in ("entity", "relation") for part in ("emb", "state_sum"))
+        res["same_step"] = (g.step == e.step
+                            == init.step + NCCL_GROUPS * GROUP_S)
+        res["seconds"] = time.perf_counter() - t_case
+        out["cases"][f"{family} {ts}"] = res
+        del init, model, plan, snaps, g, e
+        torch.cuda.empty_cache()
+    # the vocab plan's test eval of the checkpoint, twice, against one
+    # device's eval of it
+    t_eval = time.perf_counter()
+    cfg = KGEConfig(**TRANSE, dataset="fb15k_shaped", batch_size_eval=500)
+    index = FilterIndex(ds)
+    got = {}
+    for name, plan in (("vocab", ShardingPlan(comm, "vocab", N_ENT)),
+                       ("one device", None)):
+        model = KEModel(cfg, N_ENT, N_REL, plan=plan,
+                        device=None if plan else comm.device)
+        state = load_model_state(cfg, model, spec["ckpt"])
+        evals = []
+        for _ in range(2 if plan else 1):
+            with _RankLog() as ranks:
+                t0 = time.perf_counter()
+                evaluate(cfg, ds, model, state, "test", filter_index=index,
+                         log=lambda *a: None, plan=plan)
+                torch.cuda.synchronize()
+            evals.append({"ranks": ranks.ranks[0].tolist(),
+                          "s": time.perf_counter() - t0})
+        calls = model.eval_calls
+        got[name] = {"evals": evals, "captured": calls.captured,
+                     "replays": calls.replays,
+                     "on_graphs": calls.on_graphs(state)}
+        del model, state
+    got["seconds"] = time.perf_counter() - t_eval
+    out["eval"] = got
+    comm.close()
+    return out
+
+
 def dist_worker(spec_path: str) -> int:
     """One rank of a dist phase (``chip_smoke.py --dist-worker spec``)."""
     with open(spec_path) as f:
         spec = json.load(f)
-    result = (_worker_step(spec) if spec["kind"] == "step"
-              else _worker_cli(spec))
+    result = {"step": _worker_step, "nccl": _worker_nccl}.get(
+        spec["kind"], _worker_cli)(spec)
     print("RESULT " + json.dumps(result))
     return 0
 
@@ -4489,6 +4660,16 @@ def _hold_backend(label: str, res, backend: str, layout: str) -> None:
         if (r["backend"], r["layout"]) != (backend, layout):
             fail(f"{label} rank {rank}: backend {r['backend']} "
                  f"({r['layout']}), expected {backend} ({layout})")
+
+
+def _hold_gloo_route(label: str, text: str) -> None:
+    """Two ranks sharing the card over gloo run each step group eagerly as
+    one call: rank 0's route line says so, and no graph line follows."""
+    if not re.search(r"device-resident pipeline: \d+ steps a group, 2 ranks "
+                     r"x \d+ rows a step, each group eagerly \(gloo\)", text):
+        fail(f"{label}: rank 0 did not print the eager gloo route line")
+    if "CUDA graphs:" in text:
+        fail(f"{label}: a CUDA graph line over gloo")
 
 
 def phase_dist_step_parity():
@@ -4544,6 +4725,7 @@ def _dist_flagship(label: str, table_sharding: str, recipe: dict,
     if f"Using 2-rank mesh (tables: {table_sharding}; backend gloo: 2 "\
             f"ranks share cuda:0)" not in texts[0]:
         fail(f"{label}: rank 0 did not print its mesh line")
+    _hold_gloo_route(label, texts[0])
     losses = _floats(r"average loss: (\S+)", texts[0])
     if not losses or not all(math.isfinite(x) for x in losses):
         fail(f"{label}: loss not finite: {losses}")
@@ -4642,6 +4824,7 @@ def phase_dist_wikikg2():
             os.path.join(WORK, "dist_wiki_resume")]})
     paths["wikikg2 dist resume"] = _hold_launches("wikikg2 dist resume",
                                                   second)
+    _hold_gloo_route("wikikg2 dist resume", texts[0])
     for rank, (a, b) in enumerate(zip(first, second)):
         if a["final"] != b["loaded"]:
             fail(f"wikikg2 dist rank {rank}: the tables loaded "
@@ -4665,38 +4848,141 @@ def phase_dist_wikikg2():
     return paths
 
 
+def dist_graph_route(label: str, text: str, steps: int) -> None:
+    """A --dist run at one NCCL rank takes the graph route: its route line
+    says so, and it captures one graph and replays it steps / GROUP_S - 1
+    times."""
+    if (f"device-resident pipeline: {GROUP_S} steps a group, 1 ranks x "
+            f"{BATCH} rows a step, one CUDA graph") not in text:
+        fail(f"{label}: no graph route line")
+    got = re.search(r"\[proc 0\]CUDA graphs: (\d+) captured, (\d+) replays",
+                    text)
+    want = (1, steps // GROUP_S - 1)
+    if got is None or (int(got.group(1)), int(got.group(2))) != want:
+        fail(f"{label}: CUDA graphs {got and got.groups()}, expected {want}")
+
+
 def phase_dist_nccl():
-    """--dist on one rank over NCCL (the flagship, vocab plan, NCCL_STEPS
-    steps) against the same run without --dist on the same seed: the
-    backend line says nccl, launches exact, and the saved tables are
-    bit-equal.  Returns the launch counts by path."""
+    """--dist on one rank over NCCL, on the graph route: the flagship
+    under each plan and RESCAL under the vocab plan (K3 in the graph),
+    NCCL_STEPS steps each through the CLI, against the same runs without
+    --dist on the same seed: the backend line says nccl, the route line
+    and the graph line say one CUDA graph, launches exact, and every table
+    bit-equal.  The three runs and the direct cases (nccl_direct) share
+    one rank process.  Returns the launch counts by path."""
     data = _fb15k_shaped("data", n_train=300_000)
-    argv = ["--dataset", "fb15k_shaped", *_udd_args(data),
-            *_recipe_flags(TRANSE), "--max_step", str(NCCL_STEPS),
-            "--log_interval", str(NCCL_STEPS)]
-    res, texts = run_ranks("nccl", {"kind": "cli", "argv": [
-        "--dist", "--table_sharding", "vocab", *argv, "--save_path",
-        os.path.join(WORK, "nccl")]}, world=1)
-    _hold_backend("TransE_l2 nccl", res, "nccl", "one card a rank")
-    if "Using 1-rank mesh (tables: vocab; backend nccl: one card a rank)" \
-            not in texts[0]:
-        fail("TransE_l2 nccl: no nccl mesh line")
-    paths = {"TransE_l2 nccl": _hold_launches("TransE_l2 nccl", res)}
-    counts, _, _, _ = run_cli("TransE_l2 nccl baseline", [
-        *argv, "--save_path", os.path.join(WORK, "nodist")])
-    paths["TransE_l2 nccl baseline"] = counts
-    a = os.path.join(WORK, "nccl", "TransE_l2_fb15k_shaped_0")
-    b = os.path.join(WORK, "nodist", "TransE_l2_fb15k_shaped_0")
-    for table in ("entity", "entity_state", "relation", "relation_state",
-                  "step"):
-        f = f"fb15k_shaped_TransE_l2_{table}.npy"
-        if not np.array_equal(np.load(os.path.join(a, f)),
-                              np.load(os.path.join(b, f))):
-            fail(f"TransE_l2 nccl: {f} differs from the run without --dist")
-    print(f"TransE_l2 nccl: {NCCL_STEPS} steps on 1 rank over NCCL; every "
-          f"saved table bit-equal to the run without --dist")
-    _rank_numbers(f"TransE_l2 nccl [1 rank over NCCL; {card_line()}]", res)
+    paths, digests, runs = {}, {}, []
+    for family, recipe in (("TransE_l2", TRANSE), ("RESCAL", RESCAL)):
+        argv = ["--dataset", "fb15k_shaped", *_udd_args(data),
+                *_recipe_flags(recipe), "--max_step", str(NCCL_STEPS),
+                "--log_interval", str(NCCL_STEPS)]
+        label = f"{family} nccl baseline"
+        counts, _, _, state = run_cli(label, [*argv, "--no_save_emb"])
+        paths[label] = counts
+        digests[family] = _digest(state)
+        del state
+        for ts in ("vocab", "replicated") if family == "TransE_l2" else (
+                "vocab",):
+            label = f"{family} nccl" + (" replicated" if ts != "vocab"
+                                        else "")
+            save = (["--save_path", os.path.join(WORK, "nccl")]
+                    if label == "TransE_l2 nccl" else ["--no_save_emb"])
+            runs.append((label, ["--dist", "--table_sharding", ts, *argv,
+                                 *save]))
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    res = nccl_direct(os.path.join(WORK, "nccl", "TransE_l2_fb15k_shaped_0"),
+                      runs)
+    card = card_line()
+    for label, argv in runs:
+        r = res["runs"][label]
+        ts = argv[argv.index("--table_sharding") + 1]
+        family = label.split()[0]
+        print(f"{label}: dglke_tpu_torch-train " + " ".join(argv))
+        print("\n".join(f"  [rank 0] {ln}" for ln in r["text"].splitlines()))
+        _hold_backend(label, [r], "nccl", "one card a rank")
+        if f"Using 1-rank mesh (tables: {ts}; backend nccl: one card a "\
+                f"rank)" not in r["text"]:
+            fail(f"{label}: no nccl mesh line")
+        dist_graph_route(label, r["text"], NCCL_STEPS)
+        paths[label] = _hold_launches(label, [r])
+        if r["final"] != digests[family]:
+            fail(f"{label}: tables {r['final']} differ from the run "
+                 f"without --dist {digests[family]}")
+        print(f"{label}: {NCCL_STEPS} steps on 1 rank over NCCL, one CUDA "
+              f"graph replayed {NCCL_STEPS // GROUP_S - 1} times; every "
+              f"table bit-equal to the run without --dist")
+        _rank_numbers(f"{label} [1 rank over NCCL; {card}]", [r])
     return paths
+
+
+def nccl_direct(ckpt: str, runs=()) -> dict:
+    """One rank over NCCL (_worker_nccl): the CLI ``runs`` ((label, argv)
+    pairs, checked by the caller), then the direct cases and their
+    checks: each case's group replayed bit-equal to the eager group,
+    launches and collective bytes equal, both routes' numbers printed; the
+    vocab plan's test eval of ``ckpt`` (written by one of ``runs``) as
+    graphs, its ranks one device's.  Returns the rank's result."""
+    card = card_line()
+    (res,), _ = run_ranks("nccl", {"kind": "nccl", "ckpt": ckpt,
+                                   "runs": list(runs)}, world=1)
+    _hold_backend("nccl direct", [res], "nccl", "one card a rank")
+    for case, r in res["cases"].items():
+        g, e = r["graph"], r["eager"]
+        label = f"{case} nccl group"
+        if not (r["same_tables"] and r["same_step"]):
+            fail(f"{label}: the tables differ between the CUDA graph and "
+                 f"the eager group")
+        if g["logs"] != e["logs"]:
+            fail(f"{label}: the logs differ between the CUDA graph and the "
+                 f"eager group")
+        if g["launches"] != e["launches"] or not any(g["launches"].values()):
+            fail(f"{label}: launches {g['launches']} on the graph route, "
+                 f"{e['launches']} eager")
+        if g["coll_bytes"] != e["coll_bytes"] or not g["coll_bytes"]:
+            fail(f"{label}: collective bytes {g['coll_bytes']} on the graph "
+                 f"route, {e['coll_bytes']} eager")
+        if (g["graphs"], g["replays"]) != (1, NCCL_GROUPS - 1):
+            fail(f"{label}: {g['graphs']} graphs, {g['replays']} replays")
+        print(f"{label}: {NCCL_GROUPS} groups of {GROUP_S} steps through one "
+              f"CUDA graph ({g['replays']} replays) bit-equal to the eager "
+              f"group function (every table, its Adagrad state, the logs); "
+              f"launches equal ({g['launches']}); collective bytes equal, "
+              f"{g['coll_bytes']} in all, {g['bytes_a_replay'][0]} added by "
+              f"each replay; {r['seconds']:.1f} s")
+        print(f"{case} nccl step, CUDA graph against eager [1 rank over "
+              f"NCCL; {card}]: host {g['host_ms']:.4f} / {e['host_ms']:.4f} "
+              f"ms a step, device busy {g['busy_ms']:.4f} / "
+              f"{e['busy_ms']:.4f} ms, busy share "
+              f"{100 * g['busy_ms'] / g['host_ms']:.1f}% / "
+              f"{100 * e['busy_ms'] / e['host_ms']:.1f}%, kernels "
+              f"{g['kernels']:.1f} / {e['kernels']:.1f} and graph launches "
+              f"{g['graph_launches']:.2f} / {e['graph_launches']:.2f} a "
+              f"step, graphs {g['graphs']} / {e['graphs']}, replays "
+              f"{g['replays']} / {e['replays']} (over the parity groups), "
+              f"peak allocated {g['peak_mb']:.1f} / {e['peak_mb']:.1f} MB")
+    ev = res["eval"]
+    (want,) = [x["ranks"] for x in ev["one device"]["evals"]]
+    vocab = ev["vocab"]
+    if not vocab["on_graphs"] or (vocab["captured"],
+                                  vocab["replays"]) != (2, 2):
+        fail(f"nccl eval: on graphs {vocab['on_graphs']}, "
+             f"{vocab['captured']} captured, {vocab['replays']} replays; "
+             f"expected 2 and 2")
+    for i, x in enumerate(vocab["evals"]):
+        if x["ranks"] != want:
+            fail(f"nccl eval {i}: the vocab plan's ranks differ from one "
+                 f"device's")
+    print(f"TransE_l2 nccl eval [1 rank over NCCL; {card}]: the vocab plan's "
+          f"filtered test eval of the checkpoint ({len(want)} ranks, 2,000 "
+          f"triples x 2 modes at batch 500) eagerly "
+          f"({vocab['evals'][0]['s']:.3f} s) and as EvalCalls graphs "
+          f"({vocab['evals'][1]['s']:.3f} s; {vocab['captured']} captured, "
+          f"{vocab['replays']} replays): integer ranks equal to one "
+          f"device's eval ({ev['one device']['evals'][0]['s']:.3f} s); "
+          f"{ev['seconds']:.1f} s with the filter index")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -5181,6 +5467,7 @@ def phase_dist_partition():
             os.path.join(WORK, "dist_partition")]
     res, texts = run_ranks("partition", {"kind": "cli", "argv": argv})
     _hold_backend(label, res, "gloo", "2 ranks share cuda:0")
+    _hold_gloo_route(label, texts[0])
     losses = _floats(r"average loss: (\S+)", texts[0])
     if not losses or not all(math.isfinite(x) for x in losses):
         fail(f"{label}: loss not finite: {losses}")

@@ -14,9 +14,17 @@ Every later call replays a CUDA graph of the group function, captured once
 per memo key, as the JAX package's jit memo keys its compiles.  A failed
 capture or replay raises: there is no eager fallback.
 
+Under a ShardingPlan (--dist) the calls replay graphs where the plan's
+collectives run over NCCL, which a graph captures on the capture stream
+(the call's first, eager run on that stream is each collective's first
+use there; the communicator started eagerly in mesh.init_distributed).
+Over gloo the collectives are staged through host memory, which capture
+cannot hold: there every call runs the group function eagerly.
+
 The kernel wrappers count their launches in Python, which a replay does
 not run: the counts of a capture are taken out again (rows.take_launches)
-and each replay adds its graph's counts (rows.add_launches).  A replay
+and each replay adds its graph's counts (rows.add_launches); so are the
+bytes of a plan's collectives (Comm.take_bytes / add_bytes).  A replay
 runs no Python either, so what the host advances per step (state.step)
 is advanced around it.
 """
@@ -84,6 +92,14 @@ def capture(fn, stream, pool=None, generators=()):
     return graph, out, rows.take_launches(before)
 
 
+def graphs_on(device, plan=None) -> bool:
+    """Whether fused calls on ``device`` under ``plan`` (a ShardingPlan or
+    None) replay CUDA graphs: on a card, without a plan or with one whose
+    collectives run over NCCL."""
+    return device.type == "cuda" and (plan is None
+                                      or plan.comm.backend == "nccl")
+
+
 def table_key(state) -> tuple:
     """The state tables' part of a memo key: each table's and its Adagrad
     state's data pointer (a mapped host table's CPU pointer), and its
@@ -98,6 +114,7 @@ class _Graph:
     graph: "torch.cuda.CUDAGraph"
     logs: torch.Tensor    # the group's [K, s] logs, rewritten by each replay
     launches: dict        # launches by wrapper, one replay
+    comm_bytes: int = 0   # the plan's collective bytes, one replay
 
 
 class GroupCall:
@@ -105,10 +122,11 @@ class GroupCall:
     gives ``group(state, span)``, the group function (it sets ``keys``,
     the log keys in the order of its logs' rows), and ``_key(state)``, the
     memo key of the call it set up; ``_generators()`` lists the device
-    generators a graph reads."""
+    generators a graph reads.  ``plan``: the ShardingPlan whose
+    collectives the group function runs, or None."""
 
-    def __init__(self, device, steps_per_call: int):
-        self.device, self.s = device, steps_per_call
+    def __init__(self, device, steps_per_call: int, plan=None):
+        self.device, self.s, self.plan = device, steps_per_call, plan
         self.keys = None        # the log keys, from the first call
         self.graphs: dict = {}  # memo key -> _Graph
         self.stream = None      # the capture stream, once warmed up on it
@@ -116,8 +134,8 @@ class GroupCall:
 
     @property
     def on_graphs(self) -> bool:
-        """Whether the calls replay CUDA graphs: on a card."""
-        return self.device.type == "cuda"
+        """Whether the calls replay CUDA graphs (graphs_on)."""
+        return graphs_on(self.device, self.plan)
 
     def group(self, state, span=no_span) -> torch.Tensor:
         raise NotImplementedError
@@ -140,15 +158,21 @@ class GroupCall:
             return logs
         key = self._key(state)
         entry = self.graphs.get(key)
+        comm = None if self.plan is None else self.plan.comm
         if entry is None:
             step = state.step
+            before = None if comm is None else comm.counters()
             entry = self.graphs[key] = _Graph(*capture(
                 lambda: self.group(state), self.stream,
                 generators=self._generators()))
+            if comm is not None:
+                entry.comm_bytes = comm.take_bytes(before)
             state.step = step
         with span(first, first + self.s - 1):
             entry.graph.replay()
         rows.add_launches(entry.launches)
+        if comm is not None:
+            comm.add_bytes(entry.comm_bytes)
         state.step += self.s
         self.replays += 1
         return entry.logs.clone()

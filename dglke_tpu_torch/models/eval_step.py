@@ -35,9 +35,11 @@ package's _host_pos_side_fn and _host_block_counts_fn) makes two more:
                 copy_stream outside the call.  The buffer's index is part
                 of the key: one graph a buffer.
 
-On the CPU and under a ShardingPlan (--dist: the vocab route's gather
-reads its split counts on the host, and gloo collectives cannot be
-captured) every call runs its group function.  On a card the calls are
+On the CPU, and under a ShardingPlan (--dist) whose collectives run over
+gloo (staged through host memory, which capture cannot hold), every call
+runs its group function.  On a card, without a plan or under one over
+NCCL (the vocab plan's routed gather and its all-reduce of the counts
+captured with the rest: cuda_graphs.graphs_on), the calls are
 memoized on the model, one entry per
 static call shape: (the kind, the eval phase, the static flags, every
 input's shape and dtype, the tables' data pointers, shapes and dtypes), as
@@ -60,7 +62,8 @@ at once.  A failed capture or replay raises: there is no eager fallback.
 
 The kernel wrappers count their launches in Python, which a replay does
 not run: the counts of a capture are taken out again (rows.take_launches)
-and each replay adds its graph's counts (rows.add_launches).
+and each replay adds its graph's counts (rows.add_launches); so are the
+bytes of a plan's collectives (Comm.take_bytes / add_bytes).
 """
 
 from __future__ import annotations
@@ -73,7 +76,11 @@ from typing import Optional
 
 import torch
 
-from dglke_tpu_torch.models.cuda_graphs import capture, run_on_capture_stream
+from dglke_tpu_torch.models.cuda_graphs import (
+    capture,
+    graphs_on,
+    run_on_capture_stream,
+)
 from dglke_tpu_torch.ops import rows
 
 
@@ -83,6 +90,7 @@ class _Entry:
     graph: Optional["torch.cuda.CUDAGraph"] = None
     out: Optional[torch.Tensor] = None  # rewritten by each replay
     launches: Optional[dict] = None     # launches by wrapper, one replay
+    comm_bytes: int = 0                 # collective bytes, one replay
 
 
 # The inputs of host mode's block call that each direction brings.
@@ -131,10 +139,10 @@ class EvalCalls:
 
     def on_graphs(self, state) -> bool:
         """Whether this model's eval calls on ``state`` run as CUDA graphs:
-        on a card, without a plan (tables on the card or mapped host
-        tables alike)."""
+        on a card, without a plan or under one over NCCL (tables on the
+        card or mapped host tables alike; host tables take no plan)."""
         model = self.model
-        return model.device.type == "cuda" and model.plan is None
+        return graphs_on(model.device, model.plan)
 
     @property
     def copy_stream(self) -> "torch.cuda.Stream":
@@ -263,14 +271,26 @@ class EvalCalls:
             self._capture(entry, fn)
         entry.graph.replay()
         rows.add_launches(entry.launches)
+        comm = self._comm
+        if comm is not None:
+            comm.add_bytes(entry.comm_bytes)
         self.replays += 1
         return entry.out
+
+    @property
+    def _comm(self):
+        plan = self.model.plan
+        return None if plan is None else plan.comm
 
     def _capture(self, entry: _Entry, fn) -> None:
         """Capture the group function on the entry's static inputs into a
         CUDA graph in the eval graphs' shared pool; nothing runs."""
+        comm = self._comm
+        before = None if comm is None else comm.counters()
         entry.graph, entry.out, entry.launches = capture(
             lambda: fn(*entry.inputs), self.stream, pool=self.pool)
+        if comm is not None:
+            entry.comm_bytes = comm.take_bytes(before)
         if self.pool is None:
             self.pool = entry.graph.pool()
         self.captured += 1

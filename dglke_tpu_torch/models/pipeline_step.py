@@ -10,9 +10,15 @@ train_step, or under --async_update train_step_async with the group's last
 entity update applied at its end, and the steps' logs come back as one
 [K, s] tensor.  Nothing in it reads a device value on the host.
 
-On a card the calls replay CUDA graphs (models/cuda_graphs.py:GroupCall),
-memoized on (the parity of the group's first step, the state tables' data
-pointers and dtypes); with s = 1 head-first and tail-first steps
+Under a ShardingPlan (--dist) the same group function runs on the rank's
+DevicePipeline (its streams seeded from (seed, rank)), each step's rows and
+updates through the plan's collectives: the counterpart of the JAX
+package's make_device_pipeline_step_multihost (ke_model.py:721-857).
+
+On a card (under a plan, one whose collectives run over NCCL) the calls
+replay CUDA graphs (models/cuda_graphs.py:GroupCall), memoized on (the
+parity of the group's first step, the state tables' data pointers and
+dtypes); with s = 1 head-first and tail-first steps
 alternate, which takes two graphs.  Between replays the host only writes
 where the group starts and reseeds its generators (DevicePipeline.
 begin_group), and advances its own counters.
@@ -36,7 +42,7 @@ class DevicePipelineStep(GroupCall):
             raise ValueError(
                 f"a step group of {steps_per_call} x {pipeline.b} rows must "
                 f"fit one epoch of {pipeline.n_edges} edges")
-        super().__init__(pipeline.device, steps_per_call)
+        super().__init__(pipeline.device, steps_per_call, model.plan)
         self.model, self.pipeline = model, pipeline
         self.use_async = model.config.async_update and steps_per_call > 1
 

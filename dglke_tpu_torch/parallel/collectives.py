@@ -17,13 +17,18 @@ to ``Comm.bytes`` the bytes of the tensors it is handed and of those it
 returns on this rank (the rank's own part included), and to ``Comm.ms``
 its time on the host clock: on the staged route the copies and the
 collective, on NCCL the time to enqueue it.  The plans' collectives carry
-batch-sized tensors only, never a table.
+batch-sized tensors only, never a table, and take no shape or split that
+is read from the device: under NCCL a CUDA graph captures them
+(models/cuda_graphs.py).  A replay runs no Python, so a capture's bytes
+are taken back out (``take_bytes``) and each replay adds them
+(``add_bytes``), as rows.take_launches / rows.add_launches treat kernel
+launches; ``ms`` counts eager calls only, and a replay is timed as a
+whole by its span.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List
 
 import torch
 import torch.distributed as dist
@@ -59,6 +64,18 @@ class Comm:
     def counters(self) -> dict:
         return {"bytes": self.bytes, "ms": self.ms}
 
+    def take_bytes(self, before: dict) -> int:
+        """The bytes counted since ``before`` (a copy of counters()), taken
+        back out with the ms: a capture enqueues its collectives into a
+        graph and moves nothing."""
+        n = self.bytes - before["bytes"]
+        self.bytes, self.ms = before["bytes"], before["ms"]
+        return n
+
+    def add_bytes(self, n: int) -> None:
+        """Count ``n`` bytes, those one replay of a graph moves."""
+        self.bytes += n
+
     def _count(self, t0: float, *tensors: torch.Tensor) -> None:
         self.ms += (time.perf_counter() - t0) * 1e3
         self.bytes += sum(_nbytes(t) for t in tensors)
@@ -78,16 +95,15 @@ class Comm:
         self._count(t0, x, out)
         return out
 
-    def all_to_all(self, x: torch.Tensor, send_counts: List[int],
-                   recv_counts: List[int]) -> torch.Tensor:
-        """Rows ``x`` split by ``send_counts`` (rows to rank 0, 1, ...);
-        returns the rows received, ``recv_counts`` from each rank in rank
-        order.  Zero counts are allowed anywhere."""
+    def exchange(self, x: torch.Tensor) -> torch.Tensor:
+        """Equal blocks: ``x`` [n * C, ...] holds C rows for each rank, in
+        rank order; returns the C rows each rank holds for this one, in
+        rank order, [n * C, ...].  No split list: nothing is read on the
+        host."""
         t0 = time.perf_counter()
         src = x.to(self.wire).contiguous()
-        out = torch.empty((sum(recv_counts),) + tuple(x.shape[1:]),
-                          dtype=x.dtype, device=self.wire)
-        dist.all_to_all_single(out, src, list(recv_counts), list(send_counts))
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src)
         out = out.to(x.device)
         self._count(t0, x, out)
         return out

@@ -15,15 +15,26 @@ it:
     are cut into contiguous ranges of ``per = ceil(N / n)`` rows, the last
     one zero-padded (mesh.py:90-105 of the JAX package); padded rows are
     never referenced.  A gather routes each id to its owner
-    (``id // per``): the ids are split by owner in their order, exchanged
-    (counts, then ids), the owner runs K1 on its shard with local ids, and
-    the rows come back and are put in the original order.  The update
-    runs the same route backwards: each owner receives (local id, gradient
-    row) in (source rank, position) order and runs K2 on its shard.  Ids
-    travel as they come, duplicates included, so K2 sums every occurrence
-    in a fixed order as on one device.  Relation tables and TransR's
-    projection table stay replicated (mesh.py:65-74) and take the
-    replicated route.
+    (``id // per``) through a fixed-capacity exchange, computed on the
+    device only, so that a CUDA graph can hold it (XLA gives the JAX
+    package's gather static shapes the same way): a rank of N ids sends
+    each rank a block of C = N slots, the worst case, so no id ever
+    overflows and nothing is decided on the host.  An id's slot in its
+    owner's block is its stable rank among this rank's ids of that owner;
+    the rest of a block is pad slots, local id 0.  The owner runs K1 on
+    all n * C local ids it receives, the rows go back along the same
+    blocks, and each id takes its own slot's row (pad rows are dropped).
+    The update runs the same route backwards: each owner receives (local
+    id, gradient row) in (source rank, position) order, the pad slots
+    with zero rows, and runs K2 on all n * C of them: a zero row at an
+    in-range id leaves that row and its state_sum bit-equal.  Ids travel
+    as they come, duplicates included, so K2 sums every occurrence in a
+    fixed order as on one device; at n = 1 the route hands K1 and K2 one
+    device's ids in one device's order.  The cost: n x the bytes of an
+    exchange sized to each owner's own count, and an owner's K1 and K2
+    over n * C ids.
+    Relation tables and TransR's projection table stay replicated
+    (mesh.py:65-74) and take the replicated route.
 
 Only batch-sized tensors cross ranks (collectives.Comm counts them).
 """
@@ -34,7 +45,7 @@ import dataclasses
 import datetime
 import math
 import os
-from typing import List, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -119,13 +130,12 @@ def init_distributed(device: str = "cuda", environ=None,
 
 
 class Route(NamedTuple):
-    """How one routed gather moved its ids: ``order`` sorts them by owner
-    (stable), ``send_counts`` / ``recv_counts`` are the rows to / from each
-    rank, ``recv_ids`` the local ids this rank received for its shard (in
-    source rank, position order).  The update of the same ids reuses it."""
-    order: torch.Tensor
-    send_counts: List[int]
-    recv_counts: List[int]
+    """How one routed gather moved its ids, on the device: ``slot`` [N]
+    is each id's slot in the [n * C] blocks it sent (owner * C + its
+    stable rank among the ids of that owner, C = N), ``recv_ids`` [n * C]
+    the local ids this rank received for its shard (in source rank,
+    position order; pad slots 0).  The update of the same ids reuses it."""
+    slot: torch.Tensor
     recv_ids: torch.Tensor
 
 
@@ -232,35 +242,33 @@ class ShardingPlan:
     def routed_gather(self, table, ids: torch.Tensor, dim: int):
         """fp32 rows [N, dim] of the sharded entity table at global ``ids``
         [N], in the ids' order, and the Route that moved them.  Each owner
-        runs K1 on its shard (no launch when it receives no id)."""
+        runs K1 on its shard over all n * N slots it receives."""
         from dglke_tpu_torch.ops import rows as row_ops
-        comm = self.comm
+        m = ids.shape[0]
         ids64 = ids.to(torch.int64)
         owner = torch.div(ids64, self.per, rounding_mode="floor")
-        order = torch.argsort(owner, stable=True)
-        local = (ids64 - owner * self.per)[order].to(torch.int32)
-        counts = torch.bincount(owner, minlength=self.n)
-        ones = [1] * self.n
-        # the splits must be on the host: one read of both counts
-        send_counts, recv_counts = torch.stack(
-            [counts, comm.all_to_all(counts, ones, ones)]).tolist()
-        recv_ids = comm.all_to_all(local, send_counts, recv_counts)
+        # each id's stable rank among the ids of its owner: a running
+        # count of the owners seen so far, one column a rank
+        seen = torch.cumsum(owner[:, None] == torch.arange(
+            self.n, device=ids.device)[None, :], dim=0)
+        slot = owner * m + seen.gather(1, owner[:, None])[:, 0] - 1
+        send = torch.zeros(self.n * m, dtype=torch.int32, device=ids.device)
+        send[slot] = (ids64 - owner * self.per).to(torch.int32)
+        recv_ids = self.comm.exchange(send)
         served = row_ops.gather_rows(table.emb, recv_ids, dim)
-        back = comm.all_to_all(served, recv_counts, send_counts)
-        out = torch.empty_like(back)
-        out[order] = back
-        return out, Route(order, send_counts, recv_counts, recv_ids)
+        return self.comm.exchange(served)[slot], Route(slot, recv_ids)
 
     def routed_update(self, table, route: Route, grads: torch.Tensor,
                       lr: float) -> None:
         """Row-sparse Adagrad of the gradient rows of a routed gather's ids,
         IN PLACE on this rank's shard: the rows go to their owners along
-        the route, and each owner runs K2 on what it receives (no launch
-        when it receives nothing)."""
+        the route (zero rows in the pad slots), and each owner runs K2 on
+        all n * N slots it receives."""
         from dglke_tpu_torch.ops.embedding import sparse_adagrad_update
-        g = self.comm.all_to_all(grads[route.order], route.send_counts,
-                                 route.recv_counts)
-        sparse_adagrad_update(table, route.recv_ids, g, lr)
+        send = grads.new_zeros((route.recv_ids.shape[0], grads.shape[1]))
+        send[route.slot] = grads
+        sparse_adagrad_update(table, route.recv_ids,
+                              self.comm.exchange(send), lr)
 
     # -- replicated tables ---------------------------------------------------
 

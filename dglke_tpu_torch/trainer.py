@@ -4,9 +4,10 @@ single device).
 Training is fed by the device-resident pipeline, or for a dataset smaller
 than two batches (and on one device at step group size 1) by the host-fed
 TrainSampler, and runs in groups of steps; --async_update defers entity
-updates inside each group.  On one device each group is one fused call
+updates inside each group.  Each group is one fused call
 (models/pipeline_step.py on the pipeline, models/fed_step.py on the
-host-fed route; on a card, one CUDA graph replayed).
+host-fed route; on a card, one CUDA graph replayed; under --dist over
+NCCL too, over gloo eagerly).
 Evaluation ranks against every entity (filtered or raw), against sampled
 negatives (--neg_sample_size_eval), or against a candidate list
 (wikikg90M), a group of batches a call as the JAX package batches them (on
@@ -384,17 +385,20 @@ def train(config: KGEConfig, dataset: KGDataset,
     by the host-fed TrainSampler, as in the JAX package.  Steps run in
     groups of ``steps_per_group``; with --async_update each step's entity
     update is applied after the next step's gather, and the group's last
-    one at its end.  On one device the
-    groups are fused calls (models/pipeline_step.py on the pipeline,
-    models/fed_step.py on the host-fed route): on a card one CUDA graph
-    replayed a group, on the CPU the same group eagerly.
+    one at its end.  The groups are fused
+    calls (models/pipeline_step.py on the pipeline, models/fed_step.py on
+    the host-fed route): on a card one CUDA graph replayed a group, on the
+    CPU the same group eagerly; under a plan the same, the plan's
+    collectives inside the graph over NCCL, and over gloo (host-staged,
+    which capture cannot hold) each group eagerly.
 
     ``plan``: this rank's parallel.mesh.ShardingPlan (--dist); ``dataset``
     is then this rank's edge partition, and ``model`` (built with the
     plan when omitted) steps through it.  Every rank takes max_step steps
     of batch_size rows from its own device pipeline, seeded from (seed,
     rank); a partition under one batch is refused, and the host-fed route
-    does not run.  The step group is agreed on the smallest partition.
+    does not run.  The step group is agreed on the smallest partition,
+    and is one step where two batches exceed it.
 
     ``profile_dir`` (--profile): a ProfileWindow trace of steps [2s, 4s)
     is written there."""
@@ -435,21 +439,23 @@ def train(config: KGEConfig, dataset: KGDataset,
                  else model.init_state())
     pipe_ok = plan is not None or n_train >= 2 * cfg.batch_size
     s = steps_per_group(cfg, n_train, pipe_ok, log=log)
+    if plan is not None and s * cfg.batch_size > n_train:
+        # a group's rows must fit one epoch of the smallest partition
+        s = 1
     # on one device the JAX package leaves its pipeline at s = 1 for the
     # host-fed TrainSampler (dglke_tpu/trainer.py:223-248); under a plan
     # the pipeline runs at every s
     device_route = pipe_ok and (s > 1 or plan is not None)
-    fused = None   # the fused call: single-device pipeline or host-fed
     if device_route:
         feed = DevicePipeline(model, dataset, cfg.batch_size,
                               cfg.num_chunks * cfg.neg_sample_size,
                               seed=cfg.seed, rank=rank)
-        if plan is None:
-            fused = DevicePipelineStep(model, feed, s)
-            how = (", one CUDA graph" if model.device.type == "cuda"
-                   else ", each group eagerly on the CPU")
-        else:
-            how = f", {plan.n} ranks x {cfg.batch_size} rows a step"
+        fused = DevicePipelineStep(model, feed, s)
+        how = ("" if plan is None
+               else f", {plan.n} ranks x {cfg.batch_size} rows a step")
+        how += (", one CUDA graph" if fused.on_graphs
+                else ", each group eagerly on the CPU" if plan is None
+                else f", each group eagerly ({plan.comm.backend})")
         log(f"[proc 0]device-resident pipeline: {s} steps a group{how}")
     else:
         feed = HostFeed(model, dataset, cfg.batch_size, cfg.neg_sample_size,
@@ -458,7 +464,6 @@ def train(config: KGEConfig, dataset: KGDataset,
         why = (f"{dataset.n_train} train edges < 2 x batch_size "
                f"{cfg.batch_size}" if not pipe_ok else "step group size 1")
         log(f"[proc 0]host-fed TrainSampler ({why}): {s} steps a group")
-    use_async = cfg.async_update and s > 1   # --dist's per-step loop
     window = ProfileWindow(profile_dir, s, model.device, log, rank)
     logs: list = []
     valid_metrics = None
@@ -497,23 +502,9 @@ def train(config: KGEConfig, dataset: KGDataset,
             sample_time += t1 - t0
             update_time += time.time() - t1
             logs.append(log_dict)
-        elif fused is not None:
+        else:
             state, log_dict = fused(state, window.span)
             logs.append(log_dict)
-        else:
-            pending = None
-            for i in range(s):
-                with window.span(step + i):
-                    h, r, t, neg, impts, neg_head = feed.next_batch()
-                    if use_async:
-                        state, pending, log_dict = model.train_step_async(
-                            state, pending, h, r, t, neg, impts,
-                            neg_head=neg_head)
-                    else:
-                        state, log_dict = model.train_step(
-                            state, h, r, t, neg, impts, neg_head=neg_head)
-                logs.append(log_dict)
-            model.flush_async(state, pending)
         step += s
         if crossed(step, prev, cfg.log_interval):
             flush_logs(step)
@@ -536,7 +527,7 @@ def train(config: KGEConfig, dataset: KGDataset,
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     total = time.time() - start
-    if fused is not None and fused.on_graphs:
+    if fused.on_graphs:
         log(f"[proc 0]CUDA graphs: {len(fused.graphs)} captured, "
             f"{fused.replays} replays")
     log(f"[proc 0]training takes {total} seconds")

@@ -313,9 +313,10 @@ def _expected_bytes(plan):
     rel = W * (1 + W) * (4 * B + 4 * B * dr)
     if plan == "replicated":
         return W * (1 + W) * (4 * n_e + 4 * n_e * de) + rel
-    # vocab: counts [W] int64 each way; ids out, rows back, gradient rows
-    # out (what each rank receives sums to what all send)
-    return W * (2 * 8 * W + 2 * 4 * n_e + 4 * 4 * n_e * de) + rel
+    # vocab, the fixed-capacity route: W blocks of n_e slots handed over
+    # and received each way, no counts; ids out, rows back, gradient rows
+    # out
+    return W * (2 * 4 * W * n_e + 4 * 4 * W * n_e * de) + rel
 
 
 @pytest.mark.parametrize("plan", PLANS)

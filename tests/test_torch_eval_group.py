@@ -444,7 +444,7 @@ def test_graph_route_only_on_a_card_without_plan_on_card_tables():
     """Which eval calls a card would capture: on one card without a plan,
     on tables on the card and on host-resident tables (--mix_cpu_gpu,
     mapped for the card) alike; none on the CPU or under a plan
-    (--dist)."""
+    (--dist) whose collectives run over gloo."""
     from types import SimpleNamespace
     from dglke_tpu_torch.models.eval_step import EvalCalls
 
@@ -457,7 +457,8 @@ def test_graph_route_only_on_a_card_without_plan_on_card_tables():
     model = Model(card)
     calls = EvalCalls(model)
     assert calls.on_graphs(on_card) and calls.on_graphs(on_host)
-    for model in (Model(cpu), Model(card, plan=object())):
+    gloo = SimpleNamespace(comm=SimpleNamespace(backend="gloo"))
+    for model in (Model(cpu), Model(card, plan=gloo)):
         for state in (on_card, on_host):
             assert not EvalCalls(model).on_graphs(state)
 
