@@ -28,14 +28,24 @@ Phases (any failure exits non-zero and prints no result line):
      it is fed torch.sort's sids and order in place of the grouping's);
      the id grouping bit-exact against torch.sort(stable=True) on ids at
      the main paths' shapes and at its edges (all equal, a permutation,
-     n = 1 and 33, n at the one-block limit and one past, 2^14 and 2^14 + 1
-     rows, a Freebase-sized id range), timed beside torch.sort with each
-     pass width; K2 on every route (one warp per segment; one block per
-     segment, at TransR's 1,000 x 160,000 projection rows) in both dtypes,
-     Adagrad and the plain row add, within tolerance of plain, two runs
-     bit-identical, untouched rows unchanged; the whole K2 call timed in
-     turns beside index_add_ and the plain version at four shapes, with its
-     time split between the grouping and the update;
+     n = 1 and 33, n at the one-block limit, 2^14 and 2^14 + 1 rows, a
+     Freebase-sized id range), and on its tiles route above 8,192 ids (one
+     past the limit, WN18's 12,288 ids at 2 ranks, a Freebase owner's
+     24,000 at 8 ranks in both id dtypes, all equal, a permutation, 2^20
+     ids over 2^14 and over 2^31 - 1 rows, five tiles, one tile forced),
+     timed beside torch.sort and the plain grouping (the one-block route
+     at the flagship's ids with each pass width, the tiles route at
+     12,288, 24,000 and 2^20 ids by kernel); K2 on every route (one warp
+     per segment; one block per segment, at TransR's 1,000 x 160,000
+     projection rows) in both dtypes, Adagrad and the plain row add, also
+     over 12,288 and 24,000 ids (the tiles route's grouping), within
+     tolerance of plain, two runs bit-identical, untouched rows unchanged;
+     the whole K2 call timed in turns beside index_add_ and the plain
+     version at five shapes, with its time split between the grouping and
+     the update; K2 over 12,288 ids captured in a CUDA graph on the shared
+     capture stream and replayed, bit-equal to the eager call
+     (phase_group_capture); K3 over 9,000 relation ids (its grouping on
+     the tiles route) held to its plain version;
   2b. the device pipeline's fused call (models/pipeline_step.py) as one
      CUDA graph a group, against the group function called eagerly on the
      same initial tables: every table, its Adagrad state and the logs bit
@@ -209,7 +219,12 @@ Phases (any failure exits non-zero and prints no result line):
      PIDs killed).  One step of each plan (vocab-sharded, replicated) at
      the flagship shapes and at RESCAL's (K3 on every replica) against
      one device's step on the 2,000-row global batch, replicas bit-equal
-     across ranks; the flagship under --dist on 2 ranks x batch 1,000,
+     across ranks; the same at WN18's DistMult recipe (40,943 x 512, batch
+     2,048 a rank: each owner's or replica's entity update groups 12,288
+     ids on the grouping's tiles route), each first step's tiles-route
+     groupings counted; WN18's DistMult recipe through the CLI under each
+     plan (50 and 20 steps), launches exact on each rank (phase_dist_wn18);
+     the flagship under --dist on 2 ranks x batch 1,000,
      each plan, 100 steps and the filtered test eval, the metrics of both
      ranks equal to one device's dglke_tpu_torch-eval of the npy
      checkpoint written through rank 0; RESCAL under --dist (vocab), 100
@@ -342,17 +357,17 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 # relation rows), so 80 K1 in the eval.
 EXPECTED_LAUNCHES = {
     "TransE_l2": {"gather_rows": 2008, "group_ids": 2000,
-                  "group_ids_sort": 0, "sparse_adagrad_rows": 2000,
+                  "group_ids_tiles": 0, "sparse_adagrad_rows": 2000,
                   "outer_adagrad_update": 0},
     "TransE_l2 async": {"gather_rows": 2008, "group_ids": 2000,
-                        "group_ids_sort": 0, "sparse_adagrad_rows": 2000,
+                        "group_ids_tiles": 0, "sparse_adagrad_rows": 2000,
                         "outer_adagrad_update": 0},
     "TransE_l2 host-fed": {"gather_rows": 200, "group_ids": 200,
-                           "group_ids_sort": 0, "sparse_adagrad_rows": 200,
+                           "group_ids_tiles": 0, "sparse_adagrad_rows": 200,
                            "outer_adagrad_update": 0},
-    "RESCAL": {"gather_rows": 2008, "group_ids": 2000, "group_ids_sort": 0,
+    "RESCAL": {"gather_rows": 2008, "group_ids": 2000, "group_ids_tiles": 0,
                "sparse_adagrad_rows": 1000, "outer_adagrad_update": 1000},
-    "wikikg2": {"gather_rows": 2080, "group_ids": 2000, "group_ids_sort": 0,
+    "wikikg2": {"gather_rows": 2080, "group_ids": 2000, "group_ids_tiles": 0,
                 "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0},
 }
 # The eval's CUDA graphs a run captures and replays (phase 2c), summed over
@@ -370,7 +385,7 @@ EXPECTED_EVAL_GRAPHS = {"TransE_l2": (0, 0), "TransE_l2 async": (0, 0),
 S1_STEPS = 301
 EXPECTED_LAUNCHES["TransE_l2 s = 1"] = {
     "gather_rows": 2 * S1_STEPS, "group_ids": 2 * S1_STEPS,
-    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * S1_STEPS,
+    "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * S1_STEPS,
     "outer_adagrad_update": 0}
 # Host-resident tables (--mix_cpu_gpu): each step gathers the entity and
 # the relation rows from the mapped host tables (K1 x 2) and writes both
@@ -384,7 +399,7 @@ EXPECTED_LAUNCHES["TransE_l2 s = 1"] = {
 # one grouped call a mode (host_table.py), two K1 each.
 for _label in ("TransE_l2 host", "Freebase host"):
     EXPECTED_LAUNCHES[_label] = {"gather_rows": 2004, "group_ids": 2000,
-                                 "group_ids_sort": 0,
+                                 "group_ids_tiles": 0,
                                  "sparse_adagrad_rows": 2000,
                                  "outer_adagrad_update": 0}
 HOST_PATHS = ("TransE_l2 host", "Freebase host")
@@ -428,7 +443,7 @@ for _label, _k1 in (("predict TransE_l2 batch_head", 3),
                     ("predict RESCAL all", 3), ("emb_sim batch_left", 2),
                     ("emb_sim all", 2), ("link_predict exclude", 3)):
     EXPECTED_LAUNCHES[_label] = {"gather_rows": _k1, "group_ids": 0,
-                                 "group_ids_sort": 0,
+                                 "group_ids_tiles": 0,
                                  "sparse_adagrad_rows": 0,
                                  "outer_adagrad_update": 0}
 # The serving requests, at the width of the checkpoints the TransE_l2 and
@@ -456,6 +471,9 @@ K2_RTOL, K2_ATOL = 1e-5, 1e-6
 # version adds per occurrence (index_add_): fp32 within rtol 1e-5 / atol
 # 1e-6, and two runs bit-identical.
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
+# K3 is also held on this many relation ids (its grouping's tiles route);
+# the plain version materializes their [9,000, 250,000] gradient, 9 GB.
+K3_WIDE_IDS = 9000
 # outer_update.cu and group_ids.cu with their phase stamps compiled in
 # (k3_phases, group_phases).
 K3_STAMPED = Path(ROOT, "dglke_tpu_torch", "ops", "csrc",
@@ -660,13 +678,17 @@ def _in_turns(fns: dict, iters: int) -> dict:
     return {k: sum(v) / len(v) for k, v in out.items()}
 
 
-def check_grouping(label: str, ids, n_rows: int) -> None:
-    """rows.group_ids bit-exact against torch.sort(ids.int32, stable=True),
-    its segments equal to the plain grouping's."""
+def check_grouping(label: str, ids, n_rows: int, plan=None) -> None:
+    """rows.group_ids (or rows.launch_group along ``plan``) bit-exact
+    against torch.sort(ids.int32, stable=True), its segments equal to the
+    plain grouping's."""
     import torch
     from dglke_tpu_torch.ops import rows
-    plan = rows.plan_group(ids.numel(), n_rows)
-    got = rows.group_ids(ids, n_rows)
+    if plan is None:
+        plan = rows.plan_group(ids.numel(), n_rows)
+        got = rows.group_ids(ids, n_rows)
+    else:
+        got = rows.launch_group(ids, n_rows, plan)
     sids, order = torch.sort(ids.to(torch.int32), stable=True)
     plain = rows.group_ids_plain(ids)
     torch.cuda.synchronize()
@@ -679,8 +701,8 @@ def check_grouping(label: str, ids, n_rows: int) -> None:
             and torch.equal(got.seg_first[:c], plain.seg_first[:c])):
         fail(f"group_ids {label}: segments differ from the plain grouping")
     print(f"group_ids {label} [{ids.numel()} {str(ids.dtype)[6:]} ids over "
-          f"{n_rows} rows, {c} segments; {plan}]: bit-exact against "
-          f"torch.sort(stable=True)")
+          f"{n_rows} rows, {c} segments; {plan}, {plan.kernels} kernel(s)]: "
+          f"bit-exact against torch.sort(stable=True)")
 
 
 def group_phases(label: str, ids, n_rows: int) -> None:
@@ -710,11 +732,19 @@ def group_phases(label: str, ids, n_rows: int) -> None:
           + f"; {float(ns.sum()) / 1e3:.3f} in all")
 
 
+# The tiles route's cases (above the one-block limit): WN18's entity ids
+# at 2 ranks (2 x 6,144, examples/wn18.sh:15-17), a Freebase owner's
+# (examples/freebase.sh:8-11 at the reference's 8 GPUs: 8 x 3,000 ids over
+# its 10,756,769-row shard, 24 bits), and 2^20 ids.
+TILES_TIMED = ((12_288, 40_943), (24_000, 10_756_769), (1 << 20, 1 << 14))
+
+
 def phase_group():
     """The id grouping bit-exact against torch.sort at the main paths'
-    shapes and at its edges; its time beside torch.sort's and the plain
-    grouping's, in turns, and by phase.  Returns its numbers for the JSON
-    line."""
+    shapes and at its edges, on both routes; its time beside torch.sort's
+    and the plain grouping's, in turns, and the one-block kernel's by
+    phase.  Returns its two entries for the JSON line (the one-block route
+    at the flagship ids, the tiles route at 12,288)."""
     import torch
     from dglke_tpu_torch.ops import rows
     gen, ent_ids, rel_ids = _flagship_ids(4)
@@ -740,19 +770,41 @@ def phase_group():
             ("n = 1", ent_ids[:1], N_ENT),
             ("n = 33", ent_ids[:33], N_ENT),
             ("n at the one-block limit", uniform(N_ENT, limit), N_ENT),
-            ("n one past the limit", uniform(N_ENT, limit + 1), N_ENT),
             ("n_rows = 2^14", uniform(1 << 14, N_ENT_IDS), 1 << 14),
             ("n_rows = 2^14 + 1", uniform((1 << 14) + 1, N_ENT_IDS),
              (1 << 14) + 1),
             ("Freebase id range", uniform(86_054_151, N_ENT_IDS,
-                                          torch.int64), 86_054_151)):
+                                          torch.int64), 86_054_151),
+            # the tiles route
+            ("n one past the limit (two tiles, one nearly empty)",
+             uniform(N_ENT, limit + 1), N_ENT),
+            ("WN18 entity ids at 2 ranks", uniform(40_943, 12_288), 40_943),
+            ("a Freebase owner's shard at 8 ranks",
+             uniform(10_756_769, 24_000), 10_756_769),
+            ("Freebase id range, 24,000 ids", uniform(
+                86_054_151, 24_000, torch.int64), 86_054_151),
+            ("all equal, 20,000 ids", torch.full(
+                (20_000,), 4321, dtype=torch.int32, device=dev), N_ENT),
+            ("permuted arange, 30,000 ids", torch.randperm(
+                30_000, generator=gen, device=dev).to(torch.int32), 30_000),
+            ("2^20 ids over 2^14 rows (long segments)",
+             uniform(1 << 14, 1 << 20), 1 << 14),
+            ("2^20 ids over 2^31 - 1 rows", uniform((1 << 31) - 1, 1 << 20),
+             (1 << 31) - 1),
+            ("five tiles (three passes)", uniform(40_943, 5 * limit - 7),
+             40_943)):
         check_grouping(label, ids, n_rows)
+    # The tiles route with no merge pass, forced on one tile.
+    check_grouping("tiles route forced on one tile (no merge pass)", ent_ids,
+                   N_ENT, rows.GroupPlan("tiles", 14, tiles=1, passes=0))
 
     # Times at the flagship shapes: the kernel, torch.sort and the plain
-    # grouping in turns; the kernel by phase.
+    # grouping in turns; the kernel by phase.  Then the tiles route.
     out = {}
-    for label, ids, n_rows in (("entity", ent_ids, N_ENT),
-                               ("relation", rel_ids, N_REL)):
+    cases = [("entity", ent_ids, N_ENT), ("relation", rel_ids, N_REL)] + [
+        (f"{n} ids", uniform(n_rows, n), n_rows) for n, n_rows in TILES_TIMED]
+    for label, ids, n_rows in cases:
+        plan = rows.plan_group(ids.numel(), n_rows)
         ms = _in_turns({
             "kernel": lambda: rows.group_ids(ids, n_rows),
             "torch.sort": lambda: torch.sort(ids, stable=True),
@@ -764,21 +816,33 @@ def phase_group():
         n = ids.numel()
         nbytes = 4 * n + 4 * n + 8 * n + 4 * (segs + 1) + 8 * segs + 4
         bound, by = bound_ms(nbytes, 0)
-        print(f"group_ids {label} [{n} ids over {n_rows} rows, "
-              f"{rows.plan_group(n, n_rows)}], device ms in turns: "
-              + ", ".join(f"{k} {v:.5f}" for k, v in ms.items())
+        print(f"group_ids {label} [{n} ids over {n_rows} rows, {segs} "
+              f"segments, {plan}, {plan.kernels} kernel(s)], device ms in "
+              f"turns: " + ", ".join(f"{k} {v:.5f}" for k, v in ms.items())
               + f"; ms per call with host overhead: group_ids "
               f"{host['group_ids']:.5f}, torch.sort {host['torch.sort']:.5f}"
               f"; bound {bound:.6f} ({by}, {nbytes} B)")
-        group_phases(label, ids, n_rows)
+        if plan.route == "block":
+            group_phases(label, ids, n_rows)
+        else:
+            split = device_ms_by_kernel(lambda: rows.group_ids(ids, n_rows))
+            print(f"group_ids {label}, the tiles route by kernel, device ms: "
+                  + ", ".join(f"{k[:60]} {v:.5f}" for k, v in split.items())
+                  + f"; launch latency, not the {bound:.6f} ms byte bound, "
+                  f"sets the floor of its {plan.kernels} launches")
         out[label] = (ms["kernel"], ms["plain"], ms["torch.sort"], bound, by)
-    ms, plain, lib, bound, by = out["entity"]
-    return {"name": "group_ids", "route": "cuda",
-            "source": "dglke_tpu_torch/ops/csrc/group_ids.cu",
-            "replaces": "dglke_tpu/ops/pallas/rows.py:227",
-            "launches": None, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib}
+
+    def entry(name: str, label: str) -> dict:
+        ms, plain, lib, bound, by = out[label]
+        return {"name": name, "route": "cuda",
+                "source": "dglke_tpu_torch/ops/csrc/group_ids.cu",
+                "replaces": "dglke_tpu/ops/pallas/rows.py:227",
+                "launches": None, "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                "library_ms": lib}
+
+    return [entry("group_ids", "entity"),
+            entry("group_ids_tiles", f"{TILES_TIMED[0][0]} ids")]
 
 
 def check_k2(label: str, table, ss0, ids, grads, adagrad: bool,
@@ -845,11 +909,12 @@ def check_k2(label: str, table, ss0, ids, grads, adagrad: bool,
 
 def phase_k2():
     """K2 on every route and both dtypes, Adagrad and the plain row add,
-    held to its plain version; the whole call timed in turns beside
-    index_add_ and the plain version at the flagship entity and relation
-    shapes, RESCAL's entity shape and TransR's projection shape, with its
-    device time split by kernel.  Returns its numbers for the JSON line
-    (the flagship entity shape)."""
+    held to its plain version, on batches on both routes of the grouping;
+    the whole call timed in turns beside index_add_ and the plain version
+    at the flagship entity and relation shapes, RESCAL's entity shape,
+    TransR's projection shape and 12,288 ids at the flagship width, with
+    its device time split by kernel.  Returns its numbers for the JSON
+    line (the flagship entity shape)."""
     import torch
     from dglke_tpu_torch.ops import rows
     gen, ent_ids, rel_ids = _flagship_ids(0)
@@ -861,6 +926,8 @@ def phase_k2():
     heavy = heavy[torch.randperm(N_ENT_IDS, generator=gen, device=dev)]
     heavy_rel = rel_ids.clone()
     heavy_rel[::3] = 5
+    wide_ids = torch.randint(0, N_ENT, (24_000,), generator=gen, device=dev,
+                             dtype=torch.int32)
     # The batches with long segments (1,200 and 334 occurrences of one id)
     # take gradients on a grid of 2^-10, whose sums are exact in fp32 in
     # any order, and are held to the plain version run in float64: the
@@ -872,7 +939,12 @@ def phase_k2():
         ("heavy duplicates (40% one id)", N_ENT, DIM, heavy, True),
         ("width 402 (no 16-byte path)", N_REL, 402, rel_ids, False),
         ("TransR projection", N_REL, DIM * DIM, rel_ids, False),
-        ("width 2,050, a third one id", N_REL, 2050, heavy_rel, True))
+        ("width 2,050, a third one id", N_REL, 2050, heavy_rel, True),
+        # above the one-block grouping's limit: the tiles route
+        ("flagship width, 12,288 ids", N_ENT, DIM, wide_ids[:12_288], False),
+        ("flagship width, 24,000 ids", N_ENT, DIM, wide_ids, False),
+        ("RESCAL entity, 24,000 ids", N_ENT, RESCAL["hidden_dim"], wide_ids,
+         False))
     tables = {}
     k2_err = 0.0
     for label, n_rows, width, ids, grid in shapes:
@@ -890,7 +962,7 @@ def phase_k2():
                 if dtype == torch.float32:
                     k2_err = max(k2_err, err)
         if label in ("flagship entity", "flagship relation", "RESCAL entity",
-                     "TransR projection"):
+                     "TransR projection", "flagship width, 12,288 ids"):
             tables[label] = (table, ss0, ids, grads)
         else:
             del table, grads
@@ -935,6 +1007,55 @@ def phase_k2():
             "launches": None, "max_abs_err": k2_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": by,
             "library_ms": ms["index_add_"]}
+
+
+def phase_group_capture():
+    """K2 over 12,288 ids (the tiles route's grouping) captured in a CUDA
+    graph on the shared capture stream (models/cuda_graphs.py) and
+    replayed, as the --dist step graph runs it on a card a rank: the table
+    and state_sum bit-equal to the same call run eagerly, the capture's
+    launch counts those of the eager call."""
+    import torch
+    from dglke_tpu_torch.models import cuda_graphs
+    from dglke_tpu_torch.ops import rows
+    gen, ent_ids, _ = _flagship_ids(5)
+    dev = ent_ids.device
+    ids = torch.randint(0, N_ENT, (12_288,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    grads = torch.randn((12_288, DIM), generator=gen, device=dev) * 0.1
+    table = torch.randn((N_ENT, DIM), generator=gen, device=dev) * 0.05
+    ss0 = torch.rand((N_ENT,), generator=gen, device=dev)
+    eager = (table.clone(), ss0.clone())
+    before = dict(rows.launches)
+    rows.sparse_adagrad_rows(*eager, ids, grads, LR)
+    torch.cuda.synchronize()
+    want = rows.take_launches(before)
+    # the first run on the capture stream, on copies; then the capture
+    warm = (table.clone(), ss0.clone())
+    stream, _ = cuda_graphs.run_on_capture_stream(
+        dev, lambda: rows.sparse_adagrad_rows(*warm, ids, grads, LR))
+    graphed = (table.clone(), ss0.clone())
+    graph, _, counts = cuda_graphs.capture(
+        lambda: rows.sparse_adagrad_rows(*graphed, ids, grads, LR), stream)
+    if not (torch.equal(graphed[0], table) and torch.equal(graphed[1], ss0)):
+        fail("K2 capture: the capture changed the table")
+    graph.replay()
+    torch.cuda.synchronize()
+    if counts != want or want["group_ids_tiles"] != 1:
+        fail(f"K2 capture: launches {counts} captured, {want} eagerly")
+    for what, got, exp in (("table", graphed[0], eager[0]),
+                           ("state_sum", graphed[1], eager[1]),
+                           ("the warm-up's table", warm[0], eager[0])):
+        if not torch.equal(got, exp):
+            fail(f"K2 capture over 12,288 ids: {what} differs from the "
+                 f"eager call's")
+    print(f"K2 sparse_adagrad_rows over 12,288 ids "
+          f"({rows.plan_group(12_288, N_ENT)}) captured on the capture "
+          f"stream and replayed: table and state_sum bit-equal to the eager "
+          f"call; the capture's launches {{"
+          + ", ".join(f"{k}: {v}" for k, v in counts.items() if v)
+          + "} those of the eager call")
+    del graph
 
 
 def phase_gather_shapes():
@@ -1150,6 +1271,19 @@ def phase_outer():
     print("K3 cluster route fed the grouping kernel's (sids, order) and "
           "torch.sort's: bit-identical table and state")
     del fed, t
+    # Above the one-block grouping's limit: 9,000 relation ids (RESCAL
+    # under --dist at 9 ranks of batch 1,000 all-gathers as many), grouped
+    # on the tiles route; the last 45 rows stay untouched.
+    wide = torch.randint(0, N_REL - 45, (K3_WIDE_IDS,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    fa = torch.randn((K3_WIDE_IDS, d), generator=gen, device=dev) * 0.1
+    fb = torch.randn((K3_WIDE_IDS, d), generator=gen, device=dev) * 0.1
+    check_k3(f"outer_adagrad_update, cluster route at hidden {d} [{N_REL} "
+             f"rows, {K3_WIDE_IDS} ids; grouping "
+             f"{rows.plan_group(K3_WIDE_IDS, N_REL)}]", table, ss0, wide, fa,
+             fb, lr, coef, norm)
+    del wide, fa, fb
+    torch.cuda.empty_cache()
     tiles = outer_update.OuterPlan("tiles")
     for p in (alt, tiles):
         check_k3(f"{p.route} route{f' of {p.cluster} CTAs' if p.cluster else ''}"
@@ -1302,17 +1436,23 @@ def _write_udd(path: str, ds) -> None:
                    np.stack([h, r, t], axis=1), fmt="%d", delimiter="\t")
 
 
-def _fb15k_shaped(name: str, n_train: int, n_valid: int = 1000,
-                  n_test: int = 2000) -> str:
-    """An FB15k-shaped synthetic dataset (14,951 / 1,345) under WORK/name,
-    written once; returns its directory."""
+def _synthetic_udd(name: str, n_entities: int, n_relations: int,
+                   n_train: int, n_valid: int, n_test: int) -> str:
+    """A synthetic dataset (data.dataset.synthetic_dataset, seed 0) under
+    WORK/name in the udd_hrt layout, written once; returns its directory."""
     from dglke_tpu_torch.data.dataset import synthetic_dataset
     path = os.path.join(WORK, name)
     if not os.path.isdir(path):
         _write_udd(path, synthetic_dataset(
-            n_entities=N_ENT, n_relations=N_REL, n_train=n_train,
+            n_entities=n_entities, n_relations=n_relations, n_train=n_train,
             n_valid=n_valid, n_test=n_test, seed=0))
     return path
+
+
+def _fb15k_shaped(name: str, n_train: int, n_valid: int = 1000,
+                  n_test: int = 2000) -> str:
+    """An FB15k-shaped synthetic dataset (14,951 / 1,345) under WORK/name."""
+    return _synthetic_udd(name, N_ENT, N_REL, n_train, n_valid, n_test)
 
 
 def _udd_args(path: str):
@@ -2343,7 +2483,7 @@ EVAL_RECIPE = "TransE_l2 eval recipe"
 # 1,024: 246 calls of 4 K1 each (h, t and r rows, the 14,951 candidate
 # rows), in 6 call shapes, three of them called more than once.
 EXPECTED_LAUNCHES[EVAL_RECIPE] = {"gather_rows": 984, "group_ids": 0,
-                                  "group_ids_sort": 0,
+                                  "group_ids_tiles": 0,
                                   "sparse_adagrad_rows": 0,
                                   "outer_adagrad_update": 0}
 EXPECTED_EVAL_GRAPHS[EVAL_RECIPE] = (3, 240)
@@ -4248,7 +4388,7 @@ for _label, _k1, _steps in (("TransE_l2 dist vocab", 4, DIST_STEPS),
                             ("TransE_l2 nccl baseline", 0, NCCL_STEPS)):
     EXPECTED_LAUNCHES[_label] = {"gather_rows": 2 * _steps + _k1,
                                  "group_ids": 2 * _steps,
-                                 "group_ids_sort": 0,
+                                 "group_ids_tiles": 0,
                                  "sparse_adagrad_rows": 2 * _steps,
                                  "outer_adagrad_update": 0}
 for _label, _steps in (("RESCAL dist vocab", DIST_RESCAL_STEPS),
@@ -4256,8 +4396,32 @@ for _label, _steps in (("RESCAL dist vocab", DIST_RESCAL_STEPS),
                        ("RESCAL nccl baseline", NCCL_STEPS)):
     EXPECTED_LAUNCHES[_label] = {
         "gather_rows": 2 * _steps, "group_ids": 2 * _steps,
-        "group_ids_sort": 0, "sparse_adagrad_rows": _steps,
+        "group_ids_tiles": 0, "sparse_adagrad_rows": _steps,
         "outer_adagrad_update": _steps}
+# WN18's DistMult recipe under --dist (examples/wn18.sh:15-17: batch 2,048,
+# 128 negatives, hidden 512, gamma 20, -adv, -rc 1e-6, lr 0.14) at WN18's
+# published shape, 40,943 entities and 18 relations (its 141,442 train
+# edges; 1,000 valid and 2,000 test triples), on synthetic data made as
+# _fb15k_shaped makes FB15k's.  A step gathers 3 x 2,048 entity ids a
+# rank, so at 2 ranks each owner (vocab) or replica (replicated) groups
+# 12,288 entity ids a step on the grouping's tiles route; the relation
+# update over 2 x 2,048 ids stays on the one-block route.  Cut:
+# DIST_WN18_STEPS steps a plan (the recipe runs 20,000), no eval.
+WN18_ENT, WN18_REL, WN18_TRAIN = 40_943, 18, 141_442
+DISTMULT_WN18 = dict(model_name="DistMult", hidden_dim=512, gamma=20.0,
+                     lr=0.14, batch_size=2048, neg_sample_size=128,
+                     neg_adversarial_sampling=True, regularization_coef=1e-6)
+DIST_WN18_STEPS = {"vocab": 50, "replicated": 20}
+for _ts, _steps in DIST_WN18_STEPS.items():
+    EXPECTED_LAUNCHES[f"DistMult WN18 dist {_ts}"] = {
+        "gather_rows": 2 * _steps, "group_ids": _steps,
+        "group_ids_tiles": _steps, "sparse_adagrad_rows": 2 * _steps,
+        "outer_adagrad_update": 0}
+# The cases of the one-step parity (phase_dist_step_parity): recipe, its
+# table sizes, and the tiles-route groupings of a plan's first step on a
+# rank (the entity update's, above 8,192 ids) and of one device's.
+STEP_CASES = ((TRANSE, N_ENT, N_REL, 0, 0), (RESCAL, N_ENT, N_REL, 0, 0),
+              (DISTMULT_WN18, WN18_ENT, WN18_REL, 1, 1))
 
 
 def _free_port() -> int:
@@ -4415,33 +4579,43 @@ def _clone(state):
 def _worker_step(spec: dict) -> dict:
     """One step of each plan at full width on this rank's slice of a
     global batch, against one device's step on the whole batch (both on
-    the card, from the same tables); then DIST_TIMED steps on the host
-    clock with the plan's collective counters."""
+    the card, from the same tables), for each of STEP_CASES, with the
+    tiles-route groupings of each first step; then DIST_TIMED steps on the
+    host clock with the plan's collective counters."""
     import torch
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.ops import rows
     from dglke_tpu_torch.parallel.mesh import ShardingPlan, init_distributed
     comm = init_distributed("cuda")
     rank, world, dev = comm.rank, comm.world, comm.device
     out = {"backend": comm.backend, "layout": comm.layout, "cases": {}}
-    for recipe in (TRANSE, RESCAL):
+
+    def tiles_of(step):
+        before = rows.launches["group_ids_tiles"]
+        step()
+        return rows.launches["group_ids_tiles"] - before
+
+    for recipe, n_ent, n_rel, _, _ in STEP_CASES:
         cfg = KGEConfig(**recipe)
         b, n_neg = cfg.batch_size, cfg.num_chunks * cfg.neg_sample_size
         rng = np.random.default_rng(11)
         ids = [torch.from_numpy(rng.integers(0, n, world * size).astype(
             np.int32)).to(dev) for n, size in
-            ((N_ENT, b), (N_REL, b), (N_ENT, b), (N_ENT, n_neg))]
+            ((n_ent, b), (n_rel, b), (n_ent, b), (n_ent, n_neg))]
         mine = [x[rank * len(x) // world:(rank + 1) * len(x) // world]
                 for x in ids]
-        one = KEModel(cfg, N_ENT, N_REL, device=dev)
+        one = KEModel(cfg, n_ent, n_rel, device=dev)
         full = one.init_state()
         ref = _clone(full)
-        one.train_step(ref, *ids, None, neg_head=True)
+        one_tiles = tiles_of(lambda: one.train_step(ref, *ids, None,
+                                                    neg_head=True))
         for ts in ("vocab", "replicated"):
-            plan = ShardingPlan(comm, ts, N_ENT)
-            model = KEModel(cfg, N_ENT, N_REL, plan=plan)
+            plan = ShardingPlan(comm, ts, n_ent)
+            model = KEModel(cfg, n_ent, n_rel, plan=plan)
             state = plan.shard_state(_clone(full))
-            model.train_step(state, *mine, None, neg_head=True)
+            tiles = tiles_of(lambda: model.train_step(state, *mine, None,
+                                                      neg_head=True))
             lo, n_real = plan.lo, plan.n_real
             worst = {}
             for name in ("entity", "relation"):
@@ -4468,6 +4642,7 @@ def _worker_step(spec: dict) -> dict:
             c = comm.counters()
             out["cases"][f"{recipe['model_name']} {ts}"] = {
                 "worst": worst, "digest": digest, "host_ms_per_step": ms,
+                "tiles": [tiles, one_tiles],
                 "coll_bytes_per_step": c["bytes"] / DIST_TIMED,
                 "coll_ms_per_step": c["ms"] / DIST_TIMED}
             del state, model
@@ -4674,15 +4849,26 @@ def _hold_gloo_route(label: str, text: str) -> None:
 
 def phase_dist_step_parity():
     """Two ranks sharing cuda:0 (gloo): one step of each plan at the
-    flagship shapes (14,951 x 400, 1,000 rows and 1,000 negatives a rank)
-    and at RESCAL's (hidden 500: K3 on every replica) against one device's
-    step on the 2,000-row global batch, also on the card, within
-    DIST_RTOL / DIST_ATOL; replicated tables bit-equal across the ranks;
+    flagship shapes (14,951 x 400, 1,000 rows and 1,000 negatives a rank),
+    at RESCAL's (hidden 500: K3 on every replica) and at WN18's DistMult
+    recipe (40,943 x 512, 2,048 rows and 2,048 negatives a rank: each
+    owner's or replica's entity update over 12,288 ids on the grouping's
+    tiles route) against one device's step on the global batch, also on
+    the card, within DIST_RTOL / DIST_ATOL; replicated tables bit-equal
+    across the ranks; the tiles-route groupings of each first step exact;
     then DIST_TIMED steps of each plan with their per-rank numbers."""
     res, _ = run_ranks("step", {"kind": "step"})
     _hold_backend("dist step", res, "gloo", "2 ranks share cuda:0")
     card = card_line()
+    want_tiles = {r["model_name"]: [plan, one]
+                  for r, _, _, plan, one in STEP_CASES}
     for case in res[0]["cases"]:
+        tiles = want_tiles[case.split()[0]]
+        for rank, r in enumerate(res):
+            if r["cases"][case]["tiles"] != tiles:
+                fail(f"dist step {case} rank {rank}: tiles-route groupings "
+                     f"[a rank's first step, one device's step] "
+                     f"{r['cases'][case]['tiles']}, expected {tiles}")
         for rank, r in enumerate(res):
             for what, (diff, ok) in r["cases"][case]["worst"].items():
                 if not ok:
@@ -4701,20 +4887,23 @@ def phase_dist_step_parity():
         print(f"dist step {case}: both ranks within rtol {DIST_RTOL} / "
               f"atol {DIST_ATOL} of one device's step on the global batch "
               f"(max |diff| {worst:.3g}); replicated tables bit-equal "
-              f"across ranks: {', '.join(sorted(want))}")
+              f"across ranks: {', '.join(sorted(want))}; tiles-route "
+              f"groupings of the first step {tiles[0]} a rank, {tiles[1]} "
+              f"on one device")
         _rank_numbers(f"dist step {case} [{DIST_NOTE}; {card}]",
                       [r["cases"][case] for r in res])
 
 
 def _dist_flagship(label: str, table_sharding: str, recipe: dict,
-                   steps: int, test: bool):
-    """The recipe on the FB15k-shaped data through dglke_tpu_torch-train
-    --dist on two ranks sharing the card; returns (results, texts, the
-    checkpoint directory)."""
-    data = _fb15k_shaped("data", n_train=300_000)
+                   steps: int, test: bool, data: str | None = None,
+                   dataset: str = "fb15k_shaped"):
+    """The recipe on the FB15k-shaped data (or ``dataset`` at ``data``)
+    through dglke_tpu_torch-train --dist on two ranks sharing the card;
+    returns (results, texts, the checkpoint directory)."""
+    data = data or _fb15k_shaped("data", n_train=300_000)
     save = os.path.join(WORK, "dist_" + label.replace(" ", "_"))
     argv = ["--dist", "--table_sharding", table_sharding,
-            "--dataset", "fb15k_shaped", *_udd_args(data),
+            "--dataset", dataset, *_udd_args(data),
             *_recipe_flags(recipe), "--max_step", str(steps),
             "--log_interval", str(steps // 2), "--save_path", save]
     argv += (["--test", "--batch_size_eval", "500"] if test
@@ -4729,7 +4918,8 @@ def _dist_flagship(label: str, table_sharding: str, recipe: dict,
     losses = _floats(r"average loss: (\S+)", texts[0])
     if not losses or not all(math.isfinite(x) for x in losses):
         fail(f"{label}: loss not finite: {losses}")
-    return res, texts, os.path.join(save, "TransE_l2_fb15k_shaped_0")
+    return res, texts, os.path.join(save,
+                                    f"{recipe['model_name']}_{dataset}_0")
 
 
 def phase_dist_flagship():
@@ -4791,6 +4981,31 @@ def phase_dist_flagship():
     print("RESCAL dist vocab: the 1,345 x 250,000 relation replicas "
           "bit-equal across ranks after K3 on each")
     _rank_numbers(f"{label} [{DIST_NOTE}; {card}]", res)
+    return paths
+
+
+def phase_dist_wn18():
+    """WN18's DistMult recipe (DISTMULT_WN18) under --dist on 2 ranks
+    sharing the card, each plan through dglke_tpu_torch-train for
+    DIST_WN18_STEPS steps: losses finite, the eager gloo route, launches
+    exact on each rank (the entity update's grouping on the tiles route
+    once a step), each rank's host ms a step.  Returns the launch counts
+    summed over the ranks, by path."""
+    data = _synthetic_udd("wn18_shaped", WN18_ENT, WN18_REL, WN18_TRAIN,
+                          1000, 2000)
+    card = card_line()
+    paths = {}
+    for ts, steps in DIST_WN18_STEPS.items():
+        label = f"DistMult WN18 dist {ts}"
+        res, _, _ = _dist_flagship(label, ts, DISTMULT_WN18, steps,
+                                   test=False, data=data,
+                                   dataset="wn18_shaped")
+        paths[label] = _hold_launches(label, res)
+        print(f"{label}: {steps} steps of 2 x {DISTMULT_WN18['batch_size']} "
+              f"rows, {WN18_ENT} x {DISTMULT_WN18['hidden_dim']} fp32; each "
+              f"rank's entity update grouped 12,288 ids a step on the tiles "
+              f"route ({steps} group_ids_tiles a rank)")
+        _rank_numbers(f"{label} [{DIST_NOTE}; {card}]", res)
     return paths
 
 
@@ -5001,7 +5216,7 @@ BF16_RESCAL_STEPS = 200
 EXPECTED_LAUNCHES["TransE_l2 bf16"] = dict(EXPECTED_LAUNCHES["TransE_l2"])
 EXPECTED_LAUNCHES["RESCAL bf16"] = {
     "gather_rows": 2 * BF16_RESCAL_STEPS, "group_ids": 2 * BF16_RESCAL_STEPS,
-    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * BF16_RESCAL_STEPS,
+    "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * BF16_RESCAL_STEPS,
     "outer_adagrad_update": 0}
 # The CPU test's tolerances (tests/test_torch_compute_bf16.py), in bf16
 # roundings (2^-8): each table's update within 8 of the largest update
@@ -5139,7 +5354,7 @@ PROFILE_STEPS = 200
 for _label in ("TransE_l2 profile", "TransE_l2 profile baseline"):
     EXPECTED_LAUNCHES[_label] = {"gather_rows": 2 * PROFILE_STEPS,
                                  "group_ids": 2 * PROFILE_STEPS,
-                                 "group_ids_sort": 0,
+                                 "group_ids_tiles": 0,
                                  "sparse_adagrad_rows": 2 * PROFILE_STEPS,
                                  "outer_adagrad_update": 0}
 # The same 200 steps with --valid every VALID_EVERY steps at
@@ -5150,7 +5365,7 @@ for _label in ("TransE_l2 profile", "TransE_l2 profile baseline"):
 VALID_EVERY = 50
 EXPECTED_LAUNCHES["TransE_l2 valid"] = {
     "gather_rows": 2 * PROFILE_STEPS + 64, "group_ids": 2 * PROFILE_STEPS,
-    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * PROFILE_STEPS,
+    "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * PROFILE_STEPS,
     "outer_adagrad_update": 0}
 EXPECTED_EVAL_GRAPHS["TransE_l2 valid"] = (2, 14)
 # The same on host tables (--mix_cpu_gpu), with and without --valid: each
@@ -5159,7 +5374,7 @@ EXPECTED_EVAL_GRAPHS["TransE_l2 valid"] = (2, 14)
 # the second captures them, and every later call replays.
 EXPECTED_LAUNCHES["TransE_l2 host valid"] = {
     "gather_rows": 2 * PROFILE_STEPS + 16, "group_ids": 2 * PROFILE_STEPS,
-    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * PROFILE_STEPS,
+    "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * PROFILE_STEPS,
     "outer_adagrad_update": 0}
 EXPECTED_EVAL_GRAPHS["TransE_l2 host valid"] = (3, 9)
 EXPECTED_LAUNCHES["TransE_l2 host valid baseline"] = dict(
@@ -5335,7 +5550,7 @@ LDG_TIMEOUT = 900
 DIST_PART_STEPS = 100
 EXPECTED_LAUNCHES["TransE_l2 dist partition"] = {
     "gather_rows": 2 * DIST_PART_STEPS, "group_ids": 2 * DIST_PART_STEPS,
-    "group_ids_sort": 0, "sparse_adagrad_rows": 2 * DIST_PART_STEPS,
+    "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * DIST_PART_STEPS,
     "outer_adagrad_update": 0}
 
 
@@ -5545,12 +5760,14 @@ def main() -> int:
         phase_build()
         lap("build")
         kernels = phase_kernels()
-        kernels.append(phase_group())
+        group, tiles = phase_group()
+        kernels.append(group)
         kernels.append(phase_k2())
+        phase_group_capture()
         phase_gather_shapes()
         k3, k1_wide = phase_outer()
         kernels[0].update(k1_wide)
-        kernels.append(k3)
+        kernels += [k3, tiles]
         phase_outer_routes()
         lap("phase 2")
         phase_graph_parity()
@@ -5638,6 +5855,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_dist_step_parity()
         paths.update(phase_dist_flagship())
+        paths.update(phase_dist_wn18())
         paths.update(phase_dist_wikikg2())
         paths.update(phase_dist_nccl())
         paths.update(phase_dist_partition())

@@ -42,9 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches per wrapper since the last reset_launches(); every kernel
-# wrapper of the package counts here.  "group_ids_sort" counts the batches
-# above the grouping kernel's limit, which take the stable torch.sort.
-launches = {"gather_rows": 0, "group_ids": 0, "group_ids_sort": 0,
+# wrapper of the package counts here.  The grouping counts one a batch:
+# "group_ids" on its one-block route, "group_ids_tiles" on its tiles route
+# (each such count is one call of 4 + passes kernels).
+launches = {"gather_rows": 0, "group_ids": 0, "group_ids_tiles": 0,
             "sparse_adagrad_rows": 0, "scatter_add_rows": 0,
             "outer_adagrad_update": 0}
 
@@ -151,6 +152,8 @@ SIGNATURES = {
 GROUP_SIGNATURES = {
     "dglke_group_ids": ([_P, _INT, _I64, _I64, _INT, _INT, _P, _P, _P, _P, _P,
                          _P, _P], _INT),
+    "dglke_group_ids_tiles": ([_P, _INT, _I64, _I64, _INT, _P, _P, _P, _P, _P,
+                               _P, _P, _I64, _P], _INT),
 }
 _MAX_INT32 = (1 << 31) - 1
 
@@ -348,36 +351,57 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Id grouping: the stable sort of K2's and K3's ids into segments of equal
 # ids (the counterpart of the conflict flags the JAX package computes
-# outside its kernel, dglke_tpu/ops/pallas/rows.py:window_conflicts)
+# outside its kernel, dglke_tpu/ops/pallas/rows.py:window_conflicts); on
+# the card a kernel of csrc/group_ids.cu at every batch size
 
 
-# The grouping kernel: one block of GROUP_THREADS threads, each holding
-# the fewest of GROUP_ITEMS ids that cover the batch; larger batches take
-# the stable torch.sort.
+# The grouping (csrc/group_ids.cu).  Up to GROUP_BLOCK_MAX ids: one block
+# of GROUP_THREADS threads, each holding the fewest of GROUP_ITEMS ids that
+# cover the batch.  Above: the tiles route, tiles of GROUP_BLOCK_MAX ids
+# sorted a block each, merged pairwise, then the segments listed by blocks
+# of GROUP_SEG_IDS ranks.
 GROUP_THREADS = 256
 GROUP_ITEMS = (1, 2, 4, 8, 12, 16, 24, 32)
 GROUP_BLOCK_MAX = GROUP_THREADS * GROUP_ITEMS[-1]
+GROUP_SEG_IDS = 2048
 
 
 @dataclass(frozen=True)
 class GroupPlan:
-    """How a batch of ids is grouped.  route: "block" (the kernel, one
-    block, ``items`` ids a thread) or "sort" (torch.sort); the kernel sorts
-    the ``bits`` that n_rows - 1 needs (at least one)."""
+    """How a batch of ids is grouped; both routes sort the ``bits`` that
+    n_rows - 1 needs (at least one).  route "block": one block, ``items``
+    ids a thread.  route "tiles": ``tiles`` sorted runs, merged in
+    ``passes`` passes."""
     route: str
     bits: int
     items: int = 0
+    tiles: int = 0
+    passes: int = 0
+
+    @property
+    def kernels(self) -> int:
+        """The CUDA kernels one grouping launches: the tile sort, the merge
+        passes and three for the segments on the tiles route."""
+        return 1 if self.route == "block" else 4 + self.passes
 
 
 def plan_group(n: int, n_rows: int) -> GroupPlan:
     """The grouping of ``n`` ids into a table of ``n_rows`` rows."""
-    if n < 0 or not 0 < n_rows <= _MAX_INT32 + 1:
+    if not 0 <= n <= _MAX_INT32 or not 0 < n_rows <= _MAX_INT32 + 1:
         raise ValueError(f"plan_group: {n} ids into {n_rows} rows")
     bits = max(1, (n_rows - 1).bit_length())
     if n > GROUP_BLOCK_MAX:
-        return GroupPlan("sort", bits)
+        tiles = -(-n // GROUP_BLOCK_MAX)
+        return GroupPlan("tiles", bits, tiles=tiles,
+                         passes=(tiles - 1).bit_length())
     items = next(k for k in GROUP_ITEMS if k * GROUP_THREADS >= n)
     return GroupPlan("block", bits, items)
+
+
+def group_scratch_slots(n: int) -> int:
+    """int32 slots of scratch the tiles route takes for ``n`` ids: two runs
+    of (id, position) pairs and a head count for each segment block."""
+    return 4 * n + -(-n // GROUP_SEG_IDS)
 
 
 @dataclass(frozen=True)
@@ -457,40 +481,48 @@ def group_ids_plain(ids: torch.Tensor) -> Grouping:
 
 
 def launch_group(ids: torch.Tensor, n_rows: int, plan: GroupPlan) -> Grouping:
-    """Launch the grouping kernel on CUDA ids (checked by the caller) along
-    a "block" plan; counts one launch of group_ids."""
+    """Launch the grouping on CUDA ids (checked by the caller) along
+    ``plan``'s route; counts one launch of group_ids ("block") or
+    group_ids_tiles ("tiles").  The tiles route takes any 1..2^31 - 1 ids
+    (the kernels size themselves from n alone), its scratch from torch's
+    allocator."""
     n = ids.shape[0]
-    if plan.route != "block" or not 0 < n <= GROUP_BLOCK_MAX:
-        raise ValueError(f"group_ids: the kernel takes 1..{GROUP_BLOCK_MAX} "
-                         f"ids, not {n} ({plan})")
+    limit = GROUP_BLOCK_MAX if plan.route == "block" else _MAX_INT32
+    if plan.route not in ("block", "tiles") or not 0 < n <= limit:
+        raise ValueError(f"group_ids: the {plan.route} route takes "
+                         f"1..{limit} ids, not {n} ({plan})")
     ids = ids.contiguous()
     g = _empty_grouping(n, ids.device)
     order, sids, heads, seg_ids, seg_first, count = g.pointers()
     lib = load_library(GROUP_SOURCE, GROUP_SIGNATURES)
+    args = (ids.data_ptr(), int(ids.dtype == torch.int64), n, n_rows,
+            plan.bits)
+    outs = (sids, order, heads, seg_ids, seg_first, count)
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = lib.dglke_group_ids(
-            ids.data_ptr(), int(ids.dtype == torch.int64), n, n_rows,
-            plan.bits, plan.items, sids, order, heads, seg_ids, seg_first,
-            count, stream)
-    check_launch(err, "group_ids")
-    launches["group_ids"] += 1
+        if plan.route == "block":
+            err = lib.dglke_group_ids(*args, plan.items, *outs, stream)
+        else:
+            scratch = torch.empty((group_scratch_slots(n),),
+                                  dtype=torch.int32, device=ids.device)
+            err = lib.dglke_group_ids_tiles(*args, *outs, scratch.data_ptr(),
+                                            scratch.numel(), stream)
+    name = "group_ids" if plan.route == "block" else "group_ids_tiles"
+    check_launch(err, name)
+    launches[name] += 1
     return g
 
 
 def group_ids(ids: torch.Tensor, n_rows: int) -> Grouping:
     """[N] int32/int64 ids in [0, n_rows) -> their Grouping.
 
-    On the card: the kernel of csrc/group_ids.cu for batches of up to
-    GROUP_BLOCK_MAX ids (one launch; ids out of range trap), the stable
-    torch.sort above that (counted as group_ids_sort)."""
+    On the card, csrc/group_ids.cu along plan_group's route: one launch of
+    one block up to GROUP_BLOCK_MAX ids, the tiles route above (counted as
+    group_ids_tiles); ids out of range trap."""
     if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
         raise TypeError("group_ids: ids must be a 1-D int32/int64 tensor")
     plan = plan_group(ids.shape[0], n_rows)
     if ids.device.type == "cpu" or ids.shape[0] == 0:
-        return group_ids_plain(ids)
-    if plan.route == "sort":
-        launches["group_ids_sort"] += 1
         return group_ids_plain(ids)
     return launch_group(ids, n_rows, plan)
 
@@ -617,10 +649,11 @@ def sparse_adagrad_rows(emb: torch.Tensor, state_sum: torch.Tensor,
     Replaces dglke_tpu/ops/pallas/rows.py:scatter_add_rows, grown into the
     whole dglke_tpu/ops/embedding.py:sparse_adagrad_update.  Bound by bytes:
     the gradient rows are read once and each touched table row is read and
-    written once.  On the card two launches: the ids are grouped
-    (group_ids), then each unique id's segment is summed in ascending
-    position order and written once (plan_update's route), so the result
-    does not depend on the order warps run in: state_sum[u] += sum
+    written once.  On the card the ids are grouped (group_ids: one launch,
+    4 + passes above GROUP_BLOCK_MAX ids), then in one launch each unique
+    id's segment is summed in ascending position order and written once
+    (plan_update's route), so the result does not depend on the order
+    warps run in: state_sum[u] += sum
     mean(g^2); emb[u] += -lr * sum(g) / (sqrt(state_sum[u]) + 1e-10),
     rounded once to the table dtype.  A CPU table and state_sum mapped by
     map_host, with ids and rows on the card, are updated in place over the

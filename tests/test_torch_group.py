@@ -2,7 +2,8 @@
 against the JAX package.
 
 On the CPU, rows.group_ids takes its plain version (the stable torch.sort
-and the segments from its head flags) and K2's wrappers take theirs; these
+and the segments from its head flags) at every batch size, and K2's
+wrappers take theirs; these
 tests hold them to numpy's stable argsort, to the JAX package's stable
 argsort and to the JAX package's K2 (the Pallas kernel in interpret mode,
 as tests/test_pallas_rows.py runs it, and ops/embedding.py).  The planners
@@ -40,18 +41,28 @@ FREEBASE_ROWS = 86_054_151
 @pytest.mark.parametrize("n_rows", [1, 2, 1345, 14951, 1 << 14, (1 << 14) + 1,
                                     FREEBASE_ROWS, 1 << 31])
 @pytest.mark.parametrize("n", [0, 1, 33, 1000, 3000, pt_rows.GROUP_BLOCK_MAX,
-                               pt_rows.GROUP_BLOCK_MAX + 1])
+                               pt_rows.GROUP_BLOCK_MAX + 1, 12_288, 24_000,
+                               1 << 20])
 def test_plan_group(n, n_rows):
-    """The bits cover n_rows - 1 and no more; the kernel takes every batch
-    up to the one-block limit, with the fewest ids a thread that cover it;
-    the stable torch.sort takes the rest."""
+    """The bits cover n_rows - 1 and no more; the one-block kernel takes
+    every batch up to its limit, with the fewest ids a thread that cover
+    it; the tiles route takes the rest, in tiles of the one-block limit
+    merged pairwise: 2 tiles in 1 pass at 8,193 and 12,288 ids, 3 in 2 at
+    24,000, 128 in 7 at 2^20."""
     plan = pt_rows.plan_group(n, n_rows)
     assert plan.bits >= 1 and (1 << plan.bits) >= n_rows
     assert plan.bits == 1 or (1 << (plan.bits - 1)) < n_rows
     if n > pt_rows.GROUP_BLOCK_MAX:
-        assert plan.route == "sort"
+        tiles, passes = {pt_rows.GROUP_BLOCK_MAX + 1: (2, 1), 12_288: (2, 1),
+                         24_000: (3, 2), 1 << 20: (128, 7)}[n]
+        assert plan == pt_rows.GroupPlan("tiles", plan.bits, tiles=tiles,
+                                         passes=passes)
+        assert (plan.tiles - 1) * pt_rows.GROUP_BLOCK_MAX < n
+        assert plan.tiles * pt_rows.GROUP_BLOCK_MAX >= n
+        assert 1 << (plan.passes - 1) < plan.tiles <= 1 << plan.passes
+        assert plan.kernels == 4 + passes
         return
-    assert plan.route == "block"
+    assert plan.route == "block" and plan.kernels == 1
     assert plan.items in pt_rows.GROUP_ITEMS
     assert plan.items * pt_rows.GROUP_THREADS >= n
     smaller = [k for k in pt_rows.GROUP_ITEMS if k < plan.items]
@@ -67,7 +78,8 @@ def test_plan_group_at_the_main_paths():
     assert pt_rows.plan_group(3000, FREEBASE_ROWS).bits == 27
 
 
-@pytest.mark.parametrize("n,n_rows", [(-1, 10), (5, 0), (5, (1 << 31) + 1)])
+@pytest.mark.parametrize("n,n_rows", [(-1, 10), (5, 0), (5, (1 << 31) + 1),
+                                      (1 << 31, 10)])
 def test_plan_group_refuses(n, n_rows):
     with pytest.raises(ValueError):
         pt_rows.plan_group(n, n_rows)
@@ -170,11 +182,54 @@ def test_group_ids_matches_a_stable_argsort(case, dtype):
     np.testing.assert_array_equal(g.seg_first[:c].numpy(), first)
 
 
-def test_group_ids_sort_route_counts_no_launch_on_the_cpu():
+def test_group_ids_tiles_route_counts_no_launch_on_the_cpu():
+    """CPU ids of the tiles route's size take the plain grouping."""
     pt_rows.reset_launches()
     ids = torch.zeros(pt_rows.GROUP_BLOCK_MAX + 1, dtype=torch.int32)
+    assert pt_rows.plan_group(ids.numel(), 3).route == "tiles"
     assert int(pt_rows.group_ids(ids, 3).count) == 1
     assert all(v == 0 for v in pt_rows.launches.values())
+
+
+def test_group_scratch_slots():
+    """Two runs of (id, position) pairs and a head count a segment block."""
+    n = 24_000
+    assert pt_rows.group_scratch_slots(n) == 4 * n + 12
+    assert pt_rows.group_scratch_slots(2048) == 4 * 2048 + 1
+
+
+def _long_segment_batch(n, seed):
+    """n ids over 10,000 rows with long segments: 30% one id, 10% another,
+    runs of one id longer than a 2,048-rank block, the rest uniform."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 10_000, n)
+    ids[:3 * n // 10] = 17
+    ids[3 * n // 10:4 * n // 10] = 9_999
+    ids = rng.permutation(ids)
+    ids[5_000:7_500] = 0          # a run of one id across a block edge
+    return ids, 10_000
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [12_288, 24_000])
+def test_group_ids_plain_above_the_block_limit(n, dtype):
+    """The yardstick of the tiles route on the card: the plain grouping of
+    a batch above the one-block limit, with long segments, is numpy's
+    stable argsort and the segments numpy's unique finds."""
+    ids, n_rows = _long_segment_batch(n, seed=n)
+    assert pt_rows.plan_group(n, n_rows).route == "tiles"
+    g = pt_rows.group_ids_plain(torch.from_numpy(ids).to(dtype))
+    want = np.argsort(ids, kind="stable")
+    np.testing.assert_array_equal(g.order.numpy(), want)
+    np.testing.assert_array_equal(g.sids.numpy(), ids[want].astype(np.int32))
+    uniq, first, counts = np.unique(ids, return_index=True,
+                                    return_counts=True)
+    c = int(g.count)
+    assert c == len(uniq) and counts.max() > pt_rows.GROUP_SEG_IDS
+    np.testing.assert_array_equal(g.heads[:c + 1].numpy(), np.concatenate(
+        [[0], np.cumsum(counts)]).astype(np.int32))
+    np.testing.assert_array_equal(g.seg_ids[:c].numpy(), uniq)
+    np.testing.assert_array_equal(g.seg_first[:c].numpy(), first)
 
 
 # -- K2 on long segments, against the JAX package --------------------------------

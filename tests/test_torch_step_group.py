@@ -351,7 +351,7 @@ def test_capture_counts_come_out_and_replays_add_them(monkeypatch):
     counted = rows.take_launches(before)
     assert rows.launches == before
     assert counted == {"gather_rows": 20, "group_ids": 20,
-                       "group_ids_sort": 0, "sparse_adagrad_rows": 10,
+                       "group_ids_tiles": 0, "sparse_adagrad_rows": 10,
                        "scatter_add_rows": 0, "outer_adagrad_update": 10}
     for _ in range(99):           # a run of 100 groups: 99 replays
         rows.add_launches(counted)
