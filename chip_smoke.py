@@ -3454,47 +3454,64 @@ def host_ms(fn, iters: int = 20) -> float:
 
 
 def check_k2_mapped(label: str, table, ss0, ids, grads, adagrad: bool):
-    """K2 on a mapped host table (and its mapped state_sum) against its
-    plain version on CPU copies of the same inputs: within K2_RTOL /
-    K2_ATOL, two runs bit-identical, untouched rows unchanged.  table and
-    ss0 are numpy arrays, ids and grads on the card."""
+    """K2 on a mapped host table (and its mapped state_sum) on each of
+    rows.UPDATE_ROUTES against its plain version on CPU copies of the same
+    inputs: the table route within K2_RTOL / K2_ATOL; the gather and rows
+    routes (the rows route given K1's rows at the ids, as the host step
+    gives them) bit-identical to it; the rows route twice bit-identical;
+    untouched rows unchanged.  table and ss0 are numpy arrays, ids and
+    grads on the card."""
     import torch
     from dglke_tpu_torch.ops import rows
 
-    def run(kernel: bool):
-        emb = table.copy()
-        state = ss0.copy() if adagrad else None
-        if kernel:
-            emb_t = rows.map_host(emb)
-            ss_t = rows.map_host(state) if adagrad else None
-            i, g = ids, grads
-        else:
+    def run(route):
+        emb = rows.host_zeros(table.shape)
+        emb[...] = table
+        state = None
+        if adagrad:
+            state = rows.host_zeros(ss0.shape)
+            state[...] = ss0
+        if route is None:
             emb_t = torch.from_numpy(emb)
             ss_t = torch.from_numpy(state) if adagrad else None
             i, g = ids.cpu(), grads.cpu()
-        if adagrad:
-            fn = (rows.sparse_adagrad_rows if kernel
-                  else rows.sparse_adagrad_plain)
-            fn(emb_t, ss_t, i, g, LR)
+            if adagrad:
+                rows.sparse_adagrad_plain(emb_t, ss_t, i, g, LR)
+            else:
+                rows.scatter_add_plain(emb_t, i, g)
         else:
-            (rows.scatter_add_rows if kernel else rows.scatter_add_plain)(
-                emb_t, i, g)
+            emb_t = rows.map_host(emb)
+            ss_t = rows.map_host(state) if adagrad else None
+            got = (rows.gather_rows(emb_t, ids) if route == "rows"
+                   else None)
+            if adagrad:
+                rows.sparse_adagrad_rows(emb_t, ss_t, ids, grads, LR,
+                                         route=route, rows=got)
+            else:
+                rows.scatter_add_rows(emb_t, ids, grads, route=route,
+                                      rows=got)
         torch.cuda.synchronize()
         # plain copies: the mapped ranges are released with the arrays
         return (emb_t.clone(), None if ss_t is None else ss_t.clone())
 
-    (ek, sk), (ep, sp) = run(True), run(False)
+    (ep, sp) = run(None)
+    out = {r: run(r) for r in rows.UPDATE_ROUTES}
     name = "sparse_adagrad_rows" if adagrad else "scatter_add_rows"
     what = f"K2 {name} {label} on a mapped host table"
+    ek, sk = out["table"]
     err = float((ek - ep).abs().max())
     if not torch.allclose(ek, ep, rtol=K2_RTOL, atol=K2_ATOL):
         fail(f"{what}: max |diff| {err} outside rtol {K2_RTOL} atol "
              f"{K2_ATOL}")
     if adagrad and not torch.allclose(sk, sp, rtol=K2_RTOL, atol=K2_ATOL):
         fail(f"{what} state_sum: max |diff| {float((sk - sp).abs().max())}")
-    ek2, sk2 = run(True)
-    if not (torch.equal(ek, ek2) and (not adagrad or torch.equal(sk, sk2))):
-        fail(f"{what}: two runs differ")
+    for r, (e, st) in out.items():
+        if not (torch.equal(e, ek) and (not adagrad or torch.equal(st, sk))):
+            fail(f"{what}: the {r} route differs from the table route's "
+                 f"bits")
+    e2, s2 = run("rows")
+    if not (torch.equal(e2, ek) and (not adagrad or torch.equal(s2, sk))):
+        fail(f"{what}: two runs of the rows route differ")
     untouched = torch.ones(table.shape[0], dtype=torch.bool)
     untouched[ids.long().cpu()] = False
     base = torch.from_numpy(table)
@@ -3502,27 +3519,131 @@ def check_k2_mapped(label: str, table, ss0, ids, grads, adagrad: bool):
                                                     base[untouched]):
         fail(f"{what}: no untouched row, or one changed")
     print(f"{what} [{ids.numel()} ids, {table.shape[0]} x {table.shape[1]}, "
-          f"{rows.plan_update(table.shape[1])}]: within rtol {K2_RTOL} / "
+          f"{rows.plan_update(table.shape[1])}]: routes "
+          f"{rows.UPDATE_ROUTES} bit-identical, within rtol {K2_RTOL} / "
           f"atol {K2_ATOL} of plain (max |diff| {err:.3g}); two runs "
           f"bit-identical; untouched rows unchanged")
     return err
 
 
+def host_facts(arrays) -> str:
+    """The host facts the mapped kernels' times move with: what pages back
+    ``arrays`` (and the transparent huge page mode), and the IOMMU units
+    the host lists."""
+    from dglke_tpu_torch.ops import rows
+    try:
+        units = sorted(os.listdir("/sys/class/iommu")) or "none listed"
+    except OSError:
+        units = "no /sys/class/iommu"
+    return (f"host facts: mapped tables {rows.host_pages(arrays)}; IOMMU "
+            f"units: {units}")
+
+
+# Id sets a timing cycles through on a mapped table: a step's ids are new
+# every step, and the same ids call after call keep their translations
+# warm on the card, which flatters a shape on a large table.
+FRESH_SETS = 16
+
+
+def fresh_ids(ids, n_rows: int, sets: int = FRESH_SETS) -> list:
+    """``ids`` and sets - 1 more of its size, uniform over n_rows rows."""
+    import torch
+    gen = torch.Generator(ids.device)
+    gen.manual_seed(sets)
+    return [ids] + [torch.randint(0, n_rows, ids.shape, generator=gen,
+                                  device=ids.device, dtype=ids.dtype)
+                    for _ in range(sets - 1)]
+
+
+def cycling(fn, args: list):
+    """A callable that calls fn on the next of ``args`` each time."""
+    it = [0]
+
+    def call():
+        it[0] += 1
+        return fn(*args[it[0] % len(args)])
+    return call
+
+
+def _time_k2_routes(table, ss_t, id_sets, grads, iters: int) -> dict:
+    """ms a call of each of K2's routes on a mapped table, in turns on
+    CUDA events, each call on the next of ``id_sets`` (each call updates the
+    table in place; the rows route is given K1's rows at the ids, gathered
+    once before)."""
+    from dglke_tpu_torch.ops import rows
+    args = [(i, rows.gather_rows(table, i)) for i in id_sets]
+    routes = rows.UPDATE_ROUTES
+    ms = {r: [] for r in routes}
+    for r in (*routes, *reversed(routes)):
+        ms[r].append(call_ms(cycling(
+            lambda i, got, r=r: rows.sparse_adagrad_rows(
+                table, ss_t, i, grads, LR, route=r,
+                rows=got if r == "rows" else None), args),
+            iters=iters, warmup=2))
+    return {r: sum(v) / len(v) for r, v in ms.items()}
+
+
+MAPPED_SWEEP = (1, 3, 100, 384, 401, 2047, 5000)
+
+
+def mapped_shape_sweep() -> None:
+    """K1's mapped shape bit-equal to its plain version on small mapped
+    tables in fp32 and bf16, at the widths MAPPED_SWEEP, each in a table
+    whose pitch is 5 elements above the width and whose memory starts 16
+    bytes past a line, at ids that include the first and the last row (the
+    windows at the table's two ends)."""
+    import torch
+    from dglke_tpu_torch.ops import rows
+    n_rows = 300
+    for dtype in (torch.float32, torch.bfloat16):
+        for width in MAPPED_SWEEP:
+            pitch = width + 5
+            size = torch.tensor([], dtype=dtype).element_size()
+            raw = rows.host_zeros((n_rows * pitch * size + 16,), np.uint8)
+            table = torch.from_numpy(raw[16:]).view(dtype).view(n_rows, pitch)
+            table.copy_(torch.randn(n_rows, pitch).to(dtype))
+            tab_t = rows.map_host(raw)
+            ids = torch.cat([torch.tensor([0, n_rows - 1]),
+                             torch.randint(0, n_rows, (998,))]).int()
+            for dim in (width, max(1, width - 2)):
+                got = rows.launch_gather(table[:, :width], ids.cuda(), dim,
+                                         "mapped",
+                                         rows.mapped_address(table))
+                torch.cuda.synchronize()
+                if not torch.equal(got.cpu(), rows.gather_rows_plain(
+                        table[:, :width], ids, dim)):
+                    fail(f"K1 mapped shape, {dtype} width {width} dim {dim} "
+                         f"pitch {pitch}: differs from its plain version")
+            del tab_t, table, raw
+    gc.collect()
+    print(f"K1 mapped shape on mapped tables in fp32 and bf16 at widths "
+          f"{MAPPED_SWEEP} (pitch + 5, memory 16 B past a line, the first "
+          f"and last rows among the ids): bit-equal to plain")
+
+
 def phase_host_kernels():
-    """K1 and K2 on tables in mapped host memory (rows.map_host), held to
-    their plain versions on the same inputs: K1 at the flagship's 3,000 ids
-    x 400 and on 1,000 of TransR's 160,000-wide projection rows, in the
-    mapped shape and in the shape a table on the card takes, timed in
-    turns on CUDA events; K2 on both routes (a warp per segment at the flagship; a
-    block per segment on the projection rows), Adagrad and the plain row
-    add.  Each is timed on the card beside its bound over the host link,
-    its plain version on the CPU, and the JAX package's design written in
-    PyTorch (the staging route: index_select into a pinned buffer and one
-    copy to the card; the gradients copied back and the plain update on
-    the CPU).  Returns the two kernels' JSON entries."""
+    """K1 and K2 on tables in mapped host memory (rows.map_host of
+    rows.host_zeros arrays, as host mode places them), held to their plain
+    versions on the same inputs: K1 at the flagship's 3,000 ids x 400 and
+    on 1,000 of TransR's 160,000-wide projection rows, in the mapped shape
+    (whole lines through shared memory), the earlier mapped shape
+    (wide_loads) and the shape a table on the card takes, timed in turns
+    on CUDA events, at the flagship on fresh ids each call (fresh_ids); at
+    the flagship the mapped shape also on the same table in numpy's own
+    memory (16 bytes off a line), in turns.  K2 on
+    the scratch route against the earlier table route at the mapped
+    address (a warp per segment at the flagship; a block per segment on
+    the projection rows), Adagrad and the plain row add, bit-identical and
+    timed in turns.  Each is timed beside its bound over the host link, its
+    plain version on the CPU, the JAX package's design written in PyTorch
+    (the staging route: index_select into a pinned buffer and one copy to
+    the card; the gradients copied back and the plain update on the CPU),
+    and the copy engine's rate for the whole mapped table.  Returns the two
+    kernels' JSON entries."""
     import torch
     from dglke_tpu_torch.ops import rows
     link = pcie_bytes_per_s()
+    mapped_shape_sweep()
     _, ent_ids, rel_ids = _flagship_ids(0)
     dev = ent_ids.device
     rng = np.random.default_rng(4)
@@ -3536,13 +3657,19 @@ def phase_host_kernels():
             ("TransR projection", proj_np, proj_ss, rel_ids)):
         width = tab_np.shape[1]
         t0 = time.time()
-        table = rows.map_host(tab_np.copy())
+        host = rows.host_zeros(tab_np.shape)
+        host[...] = tab_np
+        table = rows.map_host(host)
         reg_s = time.time() - t0
+        ss_host = rows.host_zeros(ss.shape)
+        ss_host[...] = ss
+        ss_t = rows.map_host(ss_host)
+        print(host_facts([host, ss_host]))
         ids_cpu = ids.cpu()
         want = rows.gather_rows_plain(table, ids_cpu, width)
-        # the chosen shape and the one a table on the card takes
-        shapes = ("wide_loads", rows.gather_shape(width))
-        ms = {}
+        chosen = rows.gather_shape(width, mapped=True)
+        # the chosen shape, the earlier one and the one a card table takes
+        shapes = (chosen, "wide_loads", rows.gather_shape(width))
         for shape in shapes:
             got = rows.launch_gather(table, ids, width, shape,
                                      rows.mapped_address(table))
@@ -3551,21 +3678,41 @@ def phase_host_kernels():
                 fail(f"K1 {shape} on a mapped {label} table: differs from "
                      f"its plain version")
             del got
-        chosen = rows.gather_shape(width, mapped=True)
         if not torch.equal(rows.gather_rows(table, ids, width).cpu(), want):
             fail(f"K1 gather_rows on a mapped {label} table: differs")
         # CUDA events around back-to-back calls: each call is device-bound
         # (the link), and torch.profiler's device trace of kernels on
         # mapped memory came back empty or partial on the card
         iters = 50 if width < rows.GATHER_WIDE_MIN else 5
-        ms = {s: [] for s in shapes}
-        for s in (*shapes, *reversed(shapes)):
-            ms[s].append(call_ms(lambda s=s: rows.launch_gather(
-                table, ids, width, s, rows.mapped_address(table)),
-                iters=iters, warmup=2))
+        # fresh ids a call at the flagship, as a step gathers them
+        id_sets = (fresh_ids(ids, tab_np.shape[0])
+                   if width < rows.GATHER_WIDE_MIN else [ids])
+        sets = [(i,) for i in id_sets]
+        fns = {s: cycling(lambda i, s=s: rows.launch_gather(
+            table, i, width, s, rows.mapped_address(table)), sets)
+            for s in shapes}
+        placed = None
+        if width < rows.GATHER_WIDE_MIN:
+            # the same rows in numpy's own memory, as tables were placed
+            # before host_zeros
+            placed = np.empty(tab_np.shape, np.float32)
+            placed[...] = tab_np
+            np_table = rows.map_host(placed)
+            if not torch.equal(rows.gather_rows(np_table, ids, width).cpu(),
+                               want):
+                fail(f"K1 on a mapped {label} table in numpy's memory: "
+                     f"differs")
+            fns[f"{chosen}, numpy's memory (+{placed.ctypes.data % 128} B)"] \
+                = cycling(lambda i: rows.gather_rows(np_table, i, width),
+                          sets)
+        ms = {s: [] for s in fns}
+        for s in (*fns, *reversed(fns)):
+            ms[s].append(call_ms(fns[s], iters=iters, warmup=2))
         ms = {s: sum(v) / len(v) for s, v in ms.items()}
-        k1 = call_ms(lambda: rows.gather_rows(table, ids, width),
-                     iters=iters, warmup=2)
+        del fns
+        if placed is not None:
+            del np_table, placed
+        k1 = ms[chosen]
         plain = host_ms(lambda: rows.gather_rows_plain(table, ids_cpu,
                                                        width), iters=iters)
         pinned = torch.empty((ids.numel(), width), pin_memory=True)
@@ -3577,12 +3724,14 @@ def phase_host_kernels():
             staged_out.copy_(pinned, non_blocking=True)
         staged_ms = host_ms(staged, iters=iters)
         del pinned, staged_out
-        # the link's rate for a plain copy of the whole mapped table (the
-        # full-entity host eval's block uploads)
+        # the copy engine's rate for a plain copy of the whole mapped table
+        # (the full-entity host eval's block uploads): the link's practical
+        # ceiling on this machine
         whole = torch.empty(table.shape, device=dev)
         copy_ms = call_ms(lambda: whole.copy_(table, non_blocking=True),
                           iters=iters // 5 or 1, warmup=1)
         del whole
+        copy_rate = table.numel() * 4 / copy_ms / 1e6
         uniq = int(torch.unique(ids_cpu).numel())
         link_bytes = uniq * width * 4
         hbm_bytes = ids.numel() * 4 + ids.numel() * width * 4
@@ -3590,27 +3739,29 @@ def phase_host_kernels():
         print(f"K1 gather_rows on a mapped {label} table [{ids.numel()} ids "
               f"({uniq} distinct), {tab_np.shape[0]} x {width} fp32 in host "
               f"memory, mapped in {reg_s:.3f} s], shape {chosen}: exact; "
-              f"ms per call {k1:.5f} (CUDA events; shapes in turns: "
-              + ", ".join(f"{s} {v:.4f}" for s, v in ms.items()) + ")"
+              f"ms per call {k1:.5f} (CUDA events; in turns: "
+              + ", ".join(f"{s} {v:.5f}" for s, v in ms.items()) + ")"
               + f"; bound {bound:.5f} (bytes: {link_bytes / 1e6:.3f} MB over "
               f"the link), {100 * bound / k1:.1f}% of it, "
               f"{link_bytes / k1 / 1e6:.2f} GB/s; plain on the CPU "
               f"{plain:.4f} ms; staging route (index_select into pinned + "
-              f"copy) {staged_ms:.4f} ms on the host clock; a copy of the "
-              f"whole mapped table to the card {copy_ms:.4f} ms "
-              f"({table.numel() * 4 / copy_ms / 1e6:.2f} GB/s)")
-        if ms[chosen] > min(ms.values()):
+              f"copy) {staged_ms:.4f} ms on the host clock; the copy engine "
+              f"on the whole mapped table {copy_ms:.4f} ms "
+              f"({copy_rate:.2f} GB/s)")
+        if ms[chosen] > min(ms[s] for s in shapes):
             print(f"  note: {chosen} is not the faster shape here")
         # K2 on the same table: Adagrad and the plain row add
         grads = torch.randn((ids.numel(), width), device=dev) * 0.1
         err = max(check_k2_mapped(label, tab_np, ss, ids, grads, True),
                   check_k2_mapped(label, tab_np, None, ids, grads, False))
-        ss_t = rows.map_host(ss.copy())
-        k2 = call_ms(lambda: rows.sparse_adagrad_rows(table, ss_t, ids,
-                                                      grads, LR),
-                     iters=iters, warmup=2)
+        k2_routes = _time_k2_routes(table, ss_t, id_sets, grads, iters)
+        main = rows.update_route(True, rows_given=True)   # the host step's
+        k2 = k2_routes[main]
+        got = rows.gather_rows(table, ids)
         k2_split = device_ms_by_kernel(lambda: rows.sparse_adagrad_rows(
-            table, ss_t, ids, grads, LR), iters=iters) or {"no trace": 0.0}
+            table, ss_t, ids, grads, LR, rows=got),
+            iters=iters) or {"no trace": 0.0}
+        del got
         g_cpu, ss_cpu = grads.cpu(), torch.from_numpy(ss.copy())
         cpu_tab = table.clone()
         k2_plain = host_ms(lambda: rows.sparse_adagrad_plain(
@@ -3625,8 +3776,11 @@ def phase_host_kernels():
         k2_link = uniq * (width + 1) * 4        # each way
         k2_hbm = ids.numel() * (width + 1) * 4
         k2_bound = max(k2_link / link * 1e3, k2_hbm / HBM_BYTES_PER_S * 1e3)
-        print(f"K2 sparse_adagrad_rows on a mapped {label} table: ms per "
-              f"call {k2:.5f} (CUDA events; torch.profiler by kernel: "
+        print(f"K2 sparse_adagrad_rows on a mapped {label} table, "
+              f"{main} route: ms per call {k2:.5f} (CUDA "
+              f"events; routes in turns: "
+              + ", ".join(f"{r} {v:.5f}" for r, v in k2_routes.items())
+              + "; torch.profiler by kernel: "
               + ", ".join(f"{k[:40]} {v:.5f}" for k, v in k2_split.items())
               + f"); bound {k2_bound:.5f} (bytes: {k2_link / 1e6:.3f} MB "
               f"each way over the link), {100 * k2_bound / k2:.1f}% of it; "
@@ -3636,8 +3790,8 @@ def phase_host_kernels():
         out[label] = dict(k1=k1, k1_plain=plain, k1_bound=bound,
                           k1_staged=staged_ms, k2=k2, k2_plain=k2_plain,
                           k2_bound=k2_bound, k2_staged=k2_staged, err=err,
-                          wide=ms)
-        del table, ss_t, grads
+                          shapes=ms, k2_routes=k2_routes, copy=copy_rate)
+        del table, ss_t, grads, host, ss_host
     gc.collect()
     if rows._mapped:
         fail(f"mapped ranges left after the phase: {len(rows._mapped)}")
@@ -3646,20 +3800,26 @@ def phase_host_kernels():
               "launches": None, "bound_by": "bytes", "paths": HOST_PATHS}
     return [
         {"name": "gather_rows (mapped host table)",
-         "counter": "gather_rows",
+         "counter": "gather_rows", "shape": rows.MAPPED_SHAPE,
          "replaces": "dglke_tpu/ops/pallas/rows.py:89", "max_abs_err": 0.0,
          "ms": f["k1"], "plain_ms": f["k1_plain"], "bound_ms": f["k1_bound"],
-         "library_ms": f["k1_staged"], "transr_projection_ms": p["k1"],
+         "library_ms": f["k1_staged"],
+         "old_shape_ms": f["shapes"]["wide_loads"],
+         "copy_engine_gb_s": f["copy"], "transr_projection_ms": p["k1"],
          "transr_projection_bound_ms": p["k1_bound"],
          "transr_projection_library_ms": p["k1_staged"],
-         "shapes_ms": f["wide"], "transr_projection_shapes_ms": p["wide"],
+         "shapes_ms": f["shapes"], "transr_projection_shapes_ms": p["shapes"],
          **common},
         {"name": "sparse_adagrad_rows (mapped host table)",
          "counter": "sparse_adagrad_rows",
+         "update_route": rows.update_route(True, rows_given=True),
          "replaces": "dglke_tpu/ops/pallas/rows.py:227",
          "max_abs_err": max(f["err"], p["err"]), "ms": f["k2"],
          "plain_ms": f["k2_plain"], "bound_ms": f["k2_bound"],
-         "library_ms": f["k2_staged"], "transr_projection_ms": p["k2"],
+         "library_ms": f["k2_staged"],
+         "old_route_ms": f["k2_routes"]["table"],
+         "routes_ms": f["k2_routes"], "transr_projection_ms": p["k2"],
+         "transr_projection_routes_ms": p["k2_routes"],
          "transr_projection_bound_ms": p["k2_bound"],
          "transr_projection_library_ms": p["k2_staged"], **common},
     ]
@@ -3802,7 +3962,8 @@ def phase_host_step_parity(recipe: dict):
     gc.collect()
 
 
-def phase_host_profile(label: str, model, state, ds, steps: int = 50):
+def phase_host_profile(label: str, model, state, ds, steps: int = 50,
+                       routes=("graph", "eager")):
     """Where a host-fed step's time goes (one TrainSampler batch a step: on
     host tables when ``state`` is a HostState, else the host-fed route on
     tables on the card), on both routes in turn: the fed call ("graph": one
@@ -3822,7 +3983,7 @@ def phase_host_profile(label: str, model, state, ds, steps: int = 50):
     cfg = model.config
     host = getattr(state, "is_host", False)
     out = {}
-    for route in ("graph", "eager"):
+    for route in routes:
         calls = [0]
         if route == "graph":
             feed = HostFeed(model, ds, cfg.batch_size, cfg.neg_sample_size,
@@ -3885,17 +4046,53 @@ def phase_host_profile(label: str, model, state, ds, steps: int = 50):
             print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
                   f"x{e.count / steps:.1f}  {e.key[:90]}")
         out[route] = (step_ms, busy, n_kern)
-    (hg, dg, kg), (he, de, ke) = out["graph"], out["eager"]
-    print(f"{label} step, CUDA graph against eager [{card_line()}]: "
-          f"host {hg:.4f} / {he:.4f} ms, device busy {dg:.4f} / {de:.4f} "
-          f"ms, busy share {100 * dg / hg:.1f}% / {100 * de / he:.1f}%, "
-          f"kernels {kg:.1f} / {ke:.1f} a step")
+    if len(out) == 2:
+        (hg, dg, kg), (he, de, ke) = out["graph"], out["eager"]
+        print(f"{label} step, CUDA graph against eager [{card_line()}]: "
+              f"host {hg:.4f} / {he:.4f} ms, device busy {dg:.4f} / "
+              f"{de:.4f} ms, busy share {100 * dg / hg:.1f}% / "
+              f"{100 * de / he:.1f}%, kernels {kg:.1f} / {ke:.1f} a step")
     return {k: (v[0], v[1] / v[0]) for k, v in out.items()}
+
+
+# A mapped table's K1 shape and K2 route in the host step: this slice's
+# (K2 reads K1's rows), and the earlier ones (the card's kernels at the
+# mapped address), for the step in turns.
+MAPPED_ROUTES = {"mapped / rows": ("mapped", "rows"),
+                 "wide_loads / table": ("wide_loads", "table")}
+
+
+def host_routes_in_turns(label: str, model, state, ds) -> dict:
+    """The host step on graphs (phase_host_profile's graph route, over 100
+    steps) with each of MAPPED_ROUTES in turn (a, b, b, a), each time in
+    fresh CUDA graphs: {routes: [(host ms a step, busy share), ...]}."""
+    from dglke_tpu_torch.ops import rows
+    kept = rows.MAPPED_SHAPE, rows.update_route
+    res = {k: [] for k in MAPPED_ROUTES}
+    try:
+        for k in (*MAPPED_ROUTES, *reversed(MAPPED_ROUTES)):
+            shape, route = MAPPED_ROUTES[k]
+            rows.MAPPED_SHAPE = shape
+            rows.update_route = (
+                lambda mapped, rows_given=False, route=route:
+                route if mapped else "table")
+            res[k].append(phase_host_profile(f"{label} ({k})", model, state,
+                                             ds, steps=100,
+                                             routes=("graph",))["graph"])
+    finally:
+        rows.MAPPED_SHAPE, rows.update_route = kept
+    print(f"{label} step on graphs, mapped K1 shape / K2 route in turns "
+          f"[{card_line()}]: " + "; ".join(
+              f"{k} " + ", ".join(f"{ms:.4f} ms at {100 * b:.1f}% busy"
+                                  for ms, b in v) for k, v in res.items()))
+    return res
 
 
 def phase_host_flagship_profile():
     """The host step profile at the flagship shape: fresh host tables of
-    14,951 x 400 and 1,345 x 400, mapped, on 100,000 train edges."""
+    14,951 x 400 and 1,345 x 400, mapped, on 100,000 train edges; then the
+    step on graphs with this slice's mapped routes and the earlier ones in
+    turns."""
     from dglke_tpu_torch import host_table
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.data.dataset import synthetic_dataset
@@ -3905,6 +4102,7 @@ def phase_host_flagship_profile():
     state = host_table.init_host_state(model, seed=0)
     ds = synthetic_dataset(N_ENT, N_REL, n_train=100_000, seed=0)
     phase_host_profile("TransE_l2 host", model, state, ds)
+    host_routes_in_turns("TransE_l2 host", model, state, ds)
     del state
     gc.collect()
 
@@ -4004,7 +4202,7 @@ def phase_capacity_parity(model, state, ds):
         neg_head=neg_head)
     torch.cuda.synchronize()
     held = []
-    for table, ids, grads in updates:
+    for table, ids, grads, _ in updates:
         uniq, inv = torch.unique(ids.long().cpu(), return_inverse=True)
         other = rng.integers(0, table.emb.shape[0], 1000)
         other = torch.from_numpy(other[~np.isin(other, uniq.numpy())])
@@ -4013,7 +4211,7 @@ def phase_capacity_parity(model, state, ds):
                      table.emb[other].clone()))
     host_table.host_step(model, state, batch)
     torch.cuda.synchronize()
-    for name, (table, ids, _), (uniq, inv, g, emb, ss, other, rest) in zip(
+    for name, (table, ids, _, _), (uniq, inv, g, emb, ss, other, rest) in zip(
             ("entity", "relation"), updates, held):
         rows.sparse_adagrad_plain(emb, ss, inv, g, cfg.lr)
         got_emb, got_ss = table.emb[uniq], table.state_sum[uniq]
@@ -4032,6 +4230,74 @@ def phase_capacity_parity(model, state, ds):
               f"/ atol {K2_ATOL} of sparse_adagrad_plain on CPU copies of "
               f"the touched rows (max |diff| {err:.3g}); {len(other)} "
               f"untouched rows unchanged")
+    capacity_routes(state.entity, cfg.lr, rng)
+
+
+def capacity_routes(ent, lr: float, rng) -> None:
+    """K1's shapes and K2's routes on the capacity run's entity table, in
+    turns on CUDA events, at N_ENT_IDS random ids over all FB_ENT rows: the
+    mapped shape against the earlier wide_loads, each bit-equal to the
+    host's rows; K2's routes (rows.UPDATE_ROUTES) bit-identical on the same
+    inputs (the touched rows restored after each), then timed with zero
+    gradients, which leave every bit of the table as it was."""
+    import torch
+    from dglke_tpu_torch.ops import rows
+    print(host_facts([ent.emb.numpy(), ent.state_sum.numpy()]))
+    ids = torch.from_numpy(rng.integers(0, FB_ENT, N_ENT_IDS).astype(
+        np.int32)).cuda()
+    width = ent.emb.shape[1]
+    addr = rows.mapped_address(ent.emb)
+    ids_cpu = ids.long().cpu()
+    want = ent.emb[ids_cpu]
+    shapes = (rows.MAPPED_SHAPE, "wide_loads")
+    for shape in shapes:
+        got = rows.launch_gather(ent.emb, ids, width, shape, addr)
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), want):
+            fail(f"capacity run: K1 {shape} differs from the host's rows")
+    id_sets = fresh_ids(ids, FB_ENT)
+    k1 = {s: [] for s in shapes}
+    for s in (*shapes, *reversed(shapes)):
+        k1[s].append(call_ms(cycling(lambda i, s=s: rows.launch_gather(
+            ent.emb, i, width, s, addr), [(i,) for i in id_sets]),
+            iters=50, warmup=2))
+    k1 = {s: sum(v) / 2 for s, v in k1.items()}
+    grads = torch.randn((N_ENT_IDS, width), device="cuda") * 0.1
+    uniq = torch.unique(ids_cpu)
+    saved = (ent.emb[uniq].clone(), ent.state_sum[uniq].clone())
+    after = {}
+    for route in rows.UPDATE_ROUTES:
+        got = rows.gather_rows(ent.emb, ids) if route == "rows" else None
+        rows.sparse_adagrad_rows(ent.emb, ent.state_sum, ids, grads, lr,
+                                 route=route, rows=got)
+        torch.cuda.synchronize()
+        after[route] = (ent.emb[uniq].clone(), ent.state_sum[uniq].clone())
+        ent.emb[uniq], ent.state_sum[uniq] = saved
+        del got
+    e0, s0 = after["table"]
+    for route, (e1, s1) in after.items():
+        if not (torch.equal(e0, e1) and torch.equal(s0, s1)):
+            fail(f"capacity run: K2's {route} route differs from the table "
+                 f"route's bits")
+    if torch.equal(e0, saved[0]):
+        fail("capacity run: K2 changed no row")
+    before = ent.emb[torch.unique(torch.cat(id_sets).long().cpu())]
+    k2 = _time_k2_routes(ent.emb, ent.state_sum, id_sets,
+                         torch.zeros_like(grads), 50)
+    torch.cuda.synchronize()
+    touched = torch.unique(torch.cat(id_sets).long().cpu())
+    if not (torch.equal(ent.emb[uniq], saved[0])
+            and torch.equal(ent.state_sum[uniq], saved[1])
+            and torch.equal(ent.emb[touched], before)):
+        fail("capacity run: zero gradients changed the table")
+    print(f"capacity run: routes in turns on the {FB_ENT} x {width} mapped "
+          f"table, {N_ENT_IDS} random ids ({len(uniq)} distinct) over all "
+          f"rows, fresh ones each call from {len(id_sets)} sets, ms a call "
+          f"(CUDA events): K1 "
+          + ", ".join(f"{s} {v:.5f}" for s, v in k1.items())
+          + " (each bit-equal to the host's rows); K2 "
+          + ", ".join(f"{r} {v:.5f}" for r, v in k2.items())
+          + " (bit-identical on the same inputs)")
 
 
 # The full eval's window of blocks traced for its copy / math / idle split
@@ -4235,8 +4501,8 @@ def phase_capacity():
     torch.cuda.reset_peak_memory_stats()
     trained = {}
     counts, text, model, state = run_cli("Freebase host", argv, trained)
-    init = re.search(r"host tables: (\d+) bytes drawn in (\S+) s; (.+) in "
-                     r"(\S+) s", text)
+    init = re.search(r"host tables: (\d+) bytes drawn in (\S+) s; (.+?) in "
+                     r"(\S+) s; (.+)", text)
     if init.group(3) != "pinned and mapped for cuda":
         fail("capacity run: the tables were not mapped for the card")
     train_s = _floats(r"training takes (\S+) seconds", text)
@@ -4246,7 +4512,8 @@ def phase_capacity():
         fail(f"capacity run: sampled test MRR {mrr} outside (0, 1]")
     print(f"capacity run: host tables of {init.group(1)} bytes drawn in "
           f"{init.group(2)} s ({int(init.group(1)) / max(float(init.group(2)), 1e-3) / 1e9:.2f}"
-          f" GB/s), pinned and mapped in {init.group(4)} s; {MAIN_STEPS} "
+          f" GB/s), pinned and mapped in {init.group(4)} s, "
+          f"{init.group(5)}; {MAIN_STEPS} "
           f"steps in {train_s[0]:.3f} s ({MAIN_STEPS * FB['batch_size'] / train_s[0]:.1f}"
           f" triples/s, host clock, first step included); sampled test eval "
           f"({FB_TEST} triples x 2 modes, {FB_EVAL_NEG} negatives, filtered) "
@@ -4254,6 +4521,7 @@ def phase_capacity():
     ds = trained["dataset"]
     phase_capacity_parity(model, state, ds)
     phase_host_profile("Freebase host", model, state, ds)
+    host_routes_in_turns("Freebase host", model, state, ds)
     cfg = dataclasses.replace(trained["config"], neg_sample_size_eval=-1,
                               eval_percent=FB_FULL_EVAL / FB_TEST)
     capacity_full_eval(cfg, ds, model, state, table)

@@ -22,9 +22,9 @@ numpy, uploads them, downloads the gradients and applies np.add.at on the
 host.  Here, on the card, the tables are pinned in place and mapped into
 the card's address space (ops/rows.py:map_host), and the step's kernels
 work on them there: K1 (gather_rows) reads the rows over the host link
-into rows on the card, K2 (sparse_adagrad_rows) reads and writes each
-touched row and its state once.  Only the touched rows cross the link, and
-the host does no table work.  On the CPU (device="cpu") the same code takes
+into rows on the card, K2 (sparse_adagrad_rows) updates each touched row
+from those rows and writes it and its state back once.  Only the touched
+rows cross the link, each once a way, and the host does no table work.  On the CPU (device="cpu") the same code takes
 the kernels' plain versions.
 
 Each training step is one fed call (models/fed_step.py, host_fed_step):
@@ -106,8 +106,10 @@ def _init_table(rng: np.random.Generator, num: int, dim: int,
     # float32-native generation, filled in row chunks of 64 MB: rng.uniform
     # would materialize a float64 intermediate, twice the table.  The same
     # draws and arithmetic as the JAX package's _init_table, written in
-    # place, so the bits are the same.
-    emb = np.empty((num, dim), np.float32)
+    # place, so the bits are the same.  The table lies in memory aligned to
+    # 2 MB, advised for huge pages before the draw touches it
+    # (ops/rows.py:host_zeros).
+    emb = rows.host_zeros((num, dim))
     step = max(1, (64 << 20) // max(dim * 4, 1))
     for a in range(0, num, step):
         blk = emb[a:min(a + step, num)]
@@ -134,14 +136,16 @@ def init_host_state(model: KEModel, seed: int = 0, log=None) -> HostState:
         arrays.append(_init_table(rng, model.n_relations, model.proj_dim,
                                   1.0))
     t1 = time.time()
-    tables = [_host_embedding(a, np.zeros((a.shape[0],), np.float32),
-                              model.device) for a in arrays]
+    states = [rows.host_zeros((a.shape[0],)) for a in arrays]
+    tables = [_host_embedding(a, ss, model.device)
+              for a, ss in zip(arrays, states)]
     if log is not None:
         n_bytes = sum(a.nbytes + 4 * a.shape[0] for a in arrays)
         where = (f"pinned and mapped for {model.device}"
                  if model.device.type == "cuda" else "wrapped on the CPU")
         log(f"[proc 0]host tables: {n_bytes} bytes drawn in "
-            f"{t1 - t0:.3f} s; {where} in {time.time() - t1:.3f} s")
+            f"{t1 - t0:.3f} s; {where} in {time.time() - t1:.3f} s; "
+            f"{rows.host_pages(arrays + states)}")
     return HostState(tables[0], tables[1],
                      tables[2] if model.is_transr else None, 0)
 
@@ -154,11 +158,16 @@ def load_host_state(config: KGEConfig, model: KEModel,
     utils.io.table_artifact_arrays."""
     from dglke_tpu_torch.utils.io import saved_step, table_artifact_arrays
 
+    def host_copy(a: np.ndarray) -> np.ndarray:
+        out = rows.host_zeros(a.shape)
+        out[...] = a
+        return out
+
     def load(name):
-        emb, ss = table_artifact_arrays(config, path, name)
-        return _host_embedding(np.ascontiguousarray(emb, dtype=np.float32),
-                               np.ascontiguousarray(ss, dtype=np.float32),
-                               model.device)
+        # read through a mapping of the files, straight into the tables'
+        # own memory (ops/rows.py:host_zeros)
+        emb, ss = table_artifact_arrays(config, path, name, mmap_mode="r")
+        return _host_embedding(host_copy(emb), host_copy(ss), model.device)
 
     return HostState(load("entity"), load("relation"),
                      load("projection") if model.is_transr else None,
@@ -173,8 +182,8 @@ def host_grads(model: KEModel, state: HostState, h, r, t, neg, impts, *,
     the loss and row gradients of every family by the plain row route
     (KEModel._rows_loss_and_grads, RESCAL included).  Nothing moves between
     the host and the card here: ids elsewhere raise.  Returns the step's
-    log dict (detached tensors) and, per table, (table, ids, row gradients)
-    for its write-back."""
+    log dict (detached tensors) and, per table, (table, ids, row gradients,
+    the rows gathered at the ids) for its write-back."""
     cfg = model.config
     for x in (h, r, t, neg, impts):
         if x is not None and x.device.type != model.device.type:
@@ -192,9 +201,10 @@ def host_grads(model: KEModel, state: HostState, h, r, t, neg, impts, *,
         ent_rows, rel_rows, proj_rows, impts, b=b, num_chunks=num_chunks,
         chunk_size=b // num_chunks, neg_sample_size=len(neg) // num_chunks,
         neg_head=neg_head)
-    updates = [(state.entity, ent_ids, g_ent), (state.relation, r, g_rel)]
+    updates = [(state.entity, ent_ids, g_ent, ent_rows),
+               (state.relation, r, g_rel, rel_rows)]
     if model.is_transr:
-        updates.append((state.projection, r, g_proj))
+        updates.append((state.projection, r, g_proj, proj_rows))
     return log, updates
 
 
@@ -204,12 +214,14 @@ def host_rows_step(model: KEModel, state: HostState, h, r, t, neg, impts, *,
     model's device (the group function's step, models/fed_step.py):
     host_grads, then each table written back by row-sparse Adagrad with
     the JAX ordering (the JAX package's host_adagrad_update): on the card
-    K2 (sparse_adagrad_rows) on the mapped table and state_sum, on the CPU
-    its plain version.  Returns the step's log dict."""
+    K2 (sparse_adagrad_rows) on the mapped table and state_sum, reading
+    the rows K1 gathered in this step rather than the host's a second time
+    (no table is written between the two), on the CPU its plain version.
+    Returns the step's log dict."""
     log, updates = host_grads(model, state, h, r, t, neg, impts,
                               neg_head=neg_head)
-    for table, ids, grads in updates:
-        sparse_adagrad_update(table, ids, grads, model.config.lr)
+    for table, ids, grads, gathered in updates:
+        sparse_adagrad_update(table, ids, grads, model.config.lr, gathered)
     state.step += 1
     return log
 

@@ -36,17 +36,28 @@
 //       one after another.
 //     The threshold between the two is measured on the card (chip_smoke.py
 //     times both shapes across widths) and stated in ops/rows.py.
-//   * host-resident tables (--mix_cpu_gpu): a table in pageable host
-//     memory pinned in place and mapped into the device's address space
-//     (dglke_host_register) is read and written by the same kernels at its
+//   * host-resident tables (--mix_cpu_gpu): a table in host memory pinned
+//     in place and mapped into the device's address space
+//     (dglke_host_register) is read and written by kernels at its
 //     device-side address, so only the batch's touched rows cross the host
-//     link (PCIe), once a step for the gather and once each way for the
-//     update; the link, not HBM, bounds them there.  A mapped table's rows
-//     are gathered by blocks over (row, chunk) with the threads' own loads
-//     (wide = 2) at every width: each thread issues its loads before its
-//     first store, more reads in flight over the link than one warp per
-//     row keeps, and the TMA bulk copy reads host memory right but over
-//     twice as slowly (measured, ops/rows.py:MAPPED_SHAPE).
+//     link (PCIe).  There the link, not HBM, bounds them, and what the SMs
+//     get of it: on an H100 the copy engine reads a mapped table at ~50
+//     GB/s, the SMs' own reads reach 24-45 GB/s depending on the host, and
+//     cp.async copies whose warp instruction starts off a 128-byte line ran
+//     up to three times slower than line-aligned ones.  A
+//     mapped table's rows are gathered by gather_rows_mapped: a warp takes
+//     a row (or a chunk of 1,920 bytes of a wide row) and copies the whole
+//     aligned 128-byte lines that cover it into shared memory with 16-byte
+//     cp.async copies, two rows a warp in flight before the first store,
+//     then shifts the row into place as it writes it out; the grid is
+//     sized from the SM count and strides over the rows.  The update
+//     (dglke_segment_update_mapped) reads the rows it starts from on the
+//     card: from the rows the step's gather already holds at the same ids
+//     (the host step), so each touched row crosses the link once each way
+//     a step and the update's link traffic is its writes; or, without them,
+//     gathered first into scratch by gather_rows_mapped.  The arithmetic is
+//     the update's below, unchanged (measured, ops/rows.py:MAPPED_SHAPE and
+//     MAPPED_UPDATE).
 //   * update: the TPU kernel serialised duplicate ids inside its DMA window
 //     with conflict flags; a GPU has no such window, and fp32 atomics would
 //     make the sum depend on the order in which blocks run.  The wrapper
@@ -76,6 +87,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "bulk_copy.cuh"
 
@@ -219,6 +232,120 @@ gather_rows_wide_scalar(const T* __restrict__ table,
   }
 }
 
+// Mapped gather (host-resident tables): one window a (row, chunk) item, the
+// whole 128-byte lines covering the chunk's bytes (ops/rows.py:line_window
+// is the same arithmetic), copied by 16-byte cp.async into the warp's slot;
+// kMapRows items a warp in flight.  A chunk is at most kMapSlot - kLine
+// bytes, so its window fits the slot at any shift.
+constexpr int kLine = 128;
+constexpr int kMapSlot = 2048;
+constexpr int kMapRows = 2;
+// Small blocks (4 rows), many of them, so the scheduler spreads the rows
+// evenly over the SMs.
+constexpr int kMapThreads = 64;
+constexpr int kMapWarps = kMapThreads / kWarp;
+constexpr int kMapBlocksPerSM = 16;  // 8 KB of slots a block
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// out[k, :dim] = float32(table[ids[k], :dim]) for k < rows, where rows is
+// n, or *count when count is given (K2's segments: rows past the count are
+// not read).  With ss, also ss_out[k] = ss[ids[k]], read beside the row.
+// A lane skips the vectors of its window that hold no byte of the row, so
+// the link carries the row's own 32-byte sectors, while each warp
+// instruction still spans whole lines.
+template <typename T>
+__global__ void __launch_bounds__(kMapThreads)
+gather_rows_mapped(const T* __restrict__ table, int64_t n_rows, int64_t pitch,
+                   const int32_t* __restrict__ ids,
+                   const int32_t* __restrict__ count, int64_t n,
+                   float* __restrict__ out, int64_t dim, int64_t chunk,
+                   const float* __restrict__ ss, float* __restrict__ ss_out) {
+  __shared__ __align__(16) unsigned char slots[kMapWarps][kMapRows][kMapSlot];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int64_t segs = count != nullptr ? int64_t(*count) : n;
+  const int64_t rows = segs < n ? segs : n;
+  const int64_t chunks = (dim + chunk - 1) / chunk;
+  const int64_t items = rows * chunks;
+  const int64_t step = int64_t(gridDim.x) * kMapWarps * kMapRows;
+  for (int64_t i0 = (int64_t(blockIdx.x) * kMapWarps + warp) * kMapRows;
+       i0 < items; i0 += step) {
+    int64_t row[kMapRows], c0[kMapRows];
+    int width[kMapRows], shift[kMapRows];
+    float state[kMapRows];
+#pragma unroll
+    for (int k = 0; k < kMapRows; ++k) {
+      row[k] = -1;
+      state[k] = 0.f;
+      if (i0 + k >= items) continue;
+      row[k] = (i0 + k) / chunks;
+      c0[k] = (i0 + k) % chunks * chunk;
+      const int64_t id = ids[row[k]];
+      if (id < 0 || id >= n_rows) __trap();
+      width[k] = static_cast<int>(dim - c0[k] < chunk ? dim - c0[k] : chunk);
+      const uintptr_t a = reinterpret_cast<uintptr_t>(table + id * pitch + c0[k]);
+      const uintptr_t a_end = a + uintptr_t(width[k]) * sizeof(T);
+      const uintptr_t first = a & ~uintptr_t(kLine - 1);
+      const uintptr_t end = (a_end + kLine - 1) & ~uintptr_t(kLine - 1);
+      shift[k] = static_cast<int>(a - first);
+      const uint32_t slot = smem_u32(slots[warp][k]);
+      for (uintptr_t v = first + 16 * lane; v < end; v += 16 * kWarp)
+        if (v + 16 > a && v < a_end)
+          cp_async16(slot + static_cast<uint32_t>(v - first),
+                     reinterpret_cast<const void*>(v));
+      if (ss != nullptr && c0[k] == 0 && lane == 0) state[k] = __ldcg(ss + id);
+    }
+    cp_async_wait_all();
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kMapRows; ++k) {
+      if (row[k] < 0) continue;
+      const T* src = reinterpret_cast<const T*>(slots[warp][k] + shift[k]);
+      float* dst = out + row[k] * dim + c0[k];
+      if (sizeof(T) == 4 && shift[k] % 16 == 0 && width[k] % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+        // fp32 rows on 16-byte boundaries: whole vectors out of the slot
+        const float4* src4 = reinterpret_cast<const float4*>(src);
+        float4* dst4 = reinterpret_cast<float4*>(dst);
+        for (int e = lane; e < width[k] / 4; e += kWarp) dst4[e] = src4[e];
+      } else {
+        for (int e = lane; e < width[k]; e += kWarp) dst[e] = to_float(src[e]);
+      }
+      if (ss != nullptr && c0[k] == 0 && lane == 0) ss_out[row[k]] = state[k];
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+int launch_gather_mapped(const T* table, int64_t n_rows, int64_t pitch,
+                         const int32_t* ids, const int32_t* count, int64_t n,
+                         float* out, int64_t dim, int64_t chunk,
+                         const float* ss, float* ss_out, cudaStream_t s) {
+  if (chunk <= 0 || chunk * int64_t(sizeof(T)) > kMapSlot - kLine)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t items = n * ((dim + chunk - 1) / chunk);
+  const int64_t per_block = int64_t(kMapWarps) * kMapRows;
+  int64_t blocks = (items + per_block - 1) / per_block;
+  if (blocks > int64_t(sms) * kMapBlocksPerSM) blocks = int64_t(sms) * kMapBlocksPerSM;
+  gather_rows_mapped<T><<<static_cast<unsigned>(blocks), kMapThreads, 0, s>>>(
+      table, n_rows, pitch, ids, count, n, out, dim, chunk, ss, ss_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Sum over a warp by a butterfly.  Every lane ends with the same bits: at
 // each step a lane adds the same two values as its partner, in the other
 // order, and addition commutes.
@@ -274,7 +401,12 @@ __device__ __forceinline__ float4 update4(float4 x, float4 acc, float lr,
 // What both update routes are given.  Segment k of the grouping
 // (group_ids.cu) is the occurrences order[heads[k] .. heads[k + 1]) of row
 // seg_ids[k], for k < count[0]; seg_first[k] = order[heads[k]], so that a
-// segment of one occurrence reads no order at all.
+// segment of one occurrence reads no order at all.  On the mapped routes
+// (kScratch) the row segment k starts from is read on the card, at
+// scratch[k] where gather_rows_mapped copied it (and its state_sum entry
+// into scratch_ss[k]), or with scratch_by_first at scratch[seg_first[k]]
+// of rows the caller already gathered at the ids (state_sum then read at
+// the table's); the results are written to the table's row seg_ids[k].
 struct UpdateArgs {
   void* emb;
   float* state_sum;  // null: the plain row add
@@ -288,6 +420,9 @@ struct UpdateArgs {
   const float* grads;
   int64_t n;
   float lr;
+  const float* scratch;     // [n, dim] fp32, on the mapped routes
+  const float* scratch_ss;  // [n] fp32, or null: state_sum read in place
+  int scratch_by_first;     // scratch rows by position in ids, not segment
 };
 
 struct Segment {
@@ -329,32 +464,57 @@ __device__ __forceinline__ float warp_std(const UpdateArgs& a, int u,
   return sqrtf(ss) + 1e-10f;
 }
 
+// Where segment k's row starts from: the table's row u, or on the mapped
+// routes an fp32 copy of it on the card.
+template <typename T, bool kScratch>
+using Source = typename std::conditional<kScratch, float, T>::type;
+
+template <typename T, bool kScratch>
+__device__ __forceinline__ const Source<T, kScratch>* source_row(
+    const UpdateArgs& a, int64_t k, const Segment& s, const T* row) {
+  if constexpr (kScratch)
+    return a.scratch + (a.scratch_by_first ? int64_t(s.first) : k) * a.dim;
+  else
+    return row;
+}
+
+template <bool kAdagrad, bool kScratch>
+__device__ __forceinline__ float start_state(const UpdateArgs& a, int64_t k,
+                                             int u) {
+  if (!kAdagrad) return 0.f;
+  return kScratch && a.scratch_ss != nullptr ? a.scratch_ss[k]
+                                             : a.state_sum[u];
+}
+
 // The warp route: one warp per segment, rows of up to 128 * K elements.
 // kVec: lane l holds vectors l, l + 32, ... (K of them) of 16-byte aligned
 // rows; otherwise elements l, l + 32, ... (4K of them).  The row and its
 // state are loaded first and used last; each gradient row is loaded once,
 // in ascending position order, into both sums.
-template <typename T, bool kAdagrad, bool kVec, int K>
+template <typename T, bool kAdagrad, bool kVec, int K, bool kScratch>
 __global__ void __launch_bounds__(kUpdateThreads)
 segment_update_warp(const UpdateArgs a) {
+  using S = Source<T, kScratch>;
   const int lane = threadIdx.x % kWarp;
+  const int64_t k = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
   Segment s;
-  if (!load_segment(a, (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp,
-                    &s))
-    return;
+  if (!load_segment(a, k, &s)) return;
   T* row = static_cast<T*>(a.emb) + int64_t(s.u) * a.pitch;
-  const float ss0 = kAdagrad ? a.state_sum[s.u] : 0.f;
+  const S* src = source_row<T, kScratch>(a, k, s, row);
+  const float ss0 = start_state<kAdagrad, kScratch>(a, k, s.u);
   double sq = 0.0;
   if constexpr (kVec) {
     using V = typename Vec4<T>::type;
+    using VS = typename Vec4<S>::type;
     V* row4 = reinterpret_cast<V*>(row);
+    const VS* src4 = reinterpret_cast<const VS*>(src);
     const int dim4 = a.dim / 4;
-    V raw[K];
+    VS raw[K];
     float4 acc[K];
 #pragma unroll
     for (int m = 0; m < K; ++m) {
       const int c = lane + kWarp * m;
-      raw[m] = row4[c < dim4 ? c : 0];
+      raw[m] = src4[c < dim4 ? c : 0];
       acc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     for (int j = s.begin; j < s.end; ++j) {
@@ -381,12 +541,12 @@ segment_update_warp(const UpdateArgs a) {
     }
   } else {
     constexpr int kE = 4 * K;
-    T raw[kE];
+    S raw[kE];
     float acc[kE];
 #pragma unroll
     for (int m = 0; m < kE; ++m) {
       const int c = lane + kWarp * m;
-      raw[m] = row[c < a.dim ? c : 0];
+      raw[m] = src[c < a.dim ? c : 0];
       acc[m] = 0.f;
     }
     for (int j = s.begin; j < s.end; ++j) {
@@ -418,15 +578,18 @@ segment_update_warp(const UpdateArgs a) {
 // for each occurrence, in fp64 across them, then the warps in order); pass
 // 2 sums g per column in ascending position order and writes each element
 // once.
-template <typename T, bool kAdagrad, bool kVec>
+template <typename T, bool kAdagrad, bool kVec, bool kScratch>
 __global__ void __launch_bounds__(kUpdateThreads)
 segment_update_block(const UpdateArgs a) {
+  using S = Source<T, kScratch>;
   __shared__ double warp_part[kUpdateThreads / kWarp];
   __shared__ float seg_std;
   Segment s;
-  if (!load_segment(a, blockIdx.x, &s)) return;
+  const int64_t k = blockIdx.x;
+  if (!load_segment(a, k, &s)) return;
   const int tid = threadIdx.x;
   T* row = static_cast<T*>(a.emb) + int64_t(s.u) * a.pitch;
+  const S* src = source_row<T, kScratch>(a, k, s, row);
   float row_std = 1.f;
   if constexpr (kAdagrad) {
     double part = 0.0;
@@ -453,8 +616,8 @@ segment_update_block(const UpdateArgs a) {
     if (tid == 0) {
       double total = 0.0;
       for (int w = 0; w < kUpdateThreads / kWarp; ++w) total += warp_part[w];
-      const float ss =
-          a.state_sum[s.u] + static_cast<float>(total / a.dim);
+      const float ss = start_state<kAdagrad, kScratch>(a, k, s.u) +
+                       static_cast<float>(total / a.dim);
       a.state_sum[s.u] = ss;
       seg_std = sqrtf(ss) + 1e-10f;
     }
@@ -463,9 +626,11 @@ segment_update_block(const UpdateArgs a) {
   }
   if constexpr (kVec) {
     using V = typename Vec4<T>::type;
+    using VS = typename Vec4<S>::type;
     V* row4 = reinterpret_cast<V*>(row);
+    const VS* src4 = reinterpret_cast<const VS*>(src);
     for (int c = tid; c < a.dim / 4; c += kUpdateThreads) {
-      const V raw = row4[c];
+      const VS raw = src4[c];
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int j = s.begin; j < s.end; ++j)
         add4(acc, __ldg(reinterpret_cast<const float4*>(
@@ -474,7 +639,7 @@ segment_update_block(const UpdateArgs a) {
     }
   } else {
     for (int c = tid; c < a.dim; c += kUpdateThreads) {
-      const T raw = row[c];
+      const S raw = src[c];
       float acc = 0.f;
       for (int j = s.begin; j < s.end; ++j)
         acc += __ldg(a.grads + occurrence(a, s, j) * a.dim + c);
@@ -483,11 +648,11 @@ segment_update_block(const UpdateArgs a) {
   }
 }
 
-template <typename T, bool kAdagrad, bool kVec>
+template <typename T, bool kAdagrad, bool kVec, bool kScratch>
 void launch_update(const UpdateArgs& a, int block_route, int lane_vecs,
                    cudaStream_t s) {
   if (block_route) {
-    segment_update_block<T, kAdagrad, kVec>
+    segment_update_block<T, kAdagrad, kVec, kScratch>
         <<<static_cast<unsigned>(a.n), kUpdateThreads, 0, s>>>(a);
     return;
   }
@@ -496,34 +661,55 @@ void launch_update(const UpdateArgs& a, int block_route, int lane_vecs,
       static_cast<unsigned>((a.n + kSegsPerBlock - 1) / kSegsPerBlock);
   switch (lane_vecs) {
     case 1:
-      segment_update_warp<T, kAdagrad, kVec, 1><<<blocks, kUpdateThreads, 0, s>>>(a);
+      segment_update_warp<T, kAdagrad, kVec, 1, kScratch>
+          <<<blocks, kUpdateThreads, 0, s>>>(a);
       break;
     case 2:
-      segment_update_warp<T, kAdagrad, kVec, 2><<<blocks, kUpdateThreads, 0, s>>>(a);
+      segment_update_warp<T, kAdagrad, kVec, 2, kScratch>
+          <<<blocks, kUpdateThreads, 0, s>>>(a);
       break;
     case 4:
-      segment_update_warp<T, kAdagrad, kVec, 4><<<blocks, kUpdateThreads, 0, s>>>(a);
+      segment_update_warp<T, kAdagrad, kVec, 4, kScratch>
+          <<<blocks, kUpdateThreads, 0, s>>>(a);
       break;
     default:
-      segment_update_warp<T, kAdagrad, kVec, 8><<<blocks, kUpdateThreads, 0, s>>>(a);
+      segment_update_warp<T, kAdagrad, kVec, 8, kScratch>
+          <<<blocks, kUpdateThreads, 0, s>>>(a);
   }
 }
 
-template <typename T>
+template <typename T, bool kScratch>
 void launch_update(const UpdateArgs& a, bool vec, int block_route,
                    int lane_vecs, cudaStream_t s) {
   if (a.state_sum != nullptr) {
-    if (vec) launch_update<T, true, true>(a, block_route, lane_vecs, s);
-    else launch_update<T, true, false>(a, block_route, lane_vecs, s);
+    if (vec) launch_update<T, true, true, kScratch>(a, block_route, lane_vecs, s);
+    else launch_update<T, true, false, kScratch>(a, block_route, lane_vecs, s);
   } else {
-    if (vec) launch_update<T, false, true>(a, block_route, lane_vecs, s);
-    else launch_update<T, false, false>(a, block_route, lane_vecs, s);
+    if (vec) launch_update<T, false, true, kScratch>(a, block_route, lane_vecs, s);
+    else launch_update<T, false, false, kScratch>(a, block_route, lane_vecs, s);
   }
 }
 
 }  // namespace
 
 extern "C" {
+
+// K1 on a table in mapped host memory (any dtype code, pitch and address):
+// gather_rows_mapped, windows of `chunk` elements (ops/rows.py:
+// mapped_chunk).  out: [n, dim] float32, contiguous.
+int dglke_gather_rows_mapped(const void* table, int dtype, int64_t n_rows,
+                             int64_t pitch, const int32_t* ids, int64_t n,
+                             float* out, int64_t dim, int64_t chunk,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_gather_mapped(static_cast<const float*>(table), n_rows,
+                                pitch, ids, nullptr, n, out, dim, chunk,
+                                nullptr, nullptr, s);
+  return launch_gather_mapped(static_cast<const __nv_bfloat16*>(table), n_rows,
+                              pitch, ids, nullptr, n, out, dim, chunk, nullptr,
+                              nullptr, s);
+}
 
 // dtype: 0 = float32 table, 1 = bfloat16 table.  pitch: table row stride in
 // elements.  out: [n, dim] float32, contiguous.  wide: 0 = one warp per
@@ -610,9 +796,64 @@ int dglke_segment_update(void* emb, int dtype, int64_t n_rows, int64_t pitch,
                    reinterpret_cast<uintptr_t>(grads) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(emb) % (dtype == 0 ? 16 : 8) == 0;
   if (dtype == 0) {
-    launch_update<float>(a, vec, block_route, lane_vecs, s);
+    launch_update<float, false>(a, vec, block_route, lane_vecs, s);
   } else {
-    launch_update<__nv_bfloat16>(a, vec, block_route, lane_vecs, s);
+    launch_update<__nv_bfloat16, false>(a, vec, block_route, lane_vecs, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same update on a table (and state_sum) in mapped host memory, from
+// rows on the card.  With rows ([n, dim] float32 at the ids' positions,
+// the table's rows at the ids, as the step's gather left them): one
+// launch that reads segment k's row at rows[seg_first[k]] and its state in
+// place, so only the results and the state cross the link.  Without:
+// first gather_rows_mapped copies segment k's row into scratch[k] ([n,
+// dim] float32) and its state_sum entry into scratch_ss[k] ([n], or null
+// for the plain row add), for k < count, then the update reads them there.
+// Either way the results are written to the table, with the same sums in
+// the same order as dglke_segment_update: the same bits.  chunk: elements
+// a window (ops/rows.py:mapped_chunk).
+int dglke_segment_update_mapped(
+    void* emb, int dtype, int64_t n_rows, int64_t pitch, int64_t dim,
+    float* state_sum, const int64_t* order, const int32_t* heads,
+    const int32_t* seg_ids, const int32_t* seg_first, const int32_t* count,
+    const float* grads, int64_t n, float lr, int block_route, int lane_vecs,
+    const float* rows, float* scratch, float* scratch_ss, int64_t chunk,
+    void* stream) {
+  if ((!block_route && (lane_vecs < 1 || lane_vecs > 8 ||
+                        (lane_vecs & (lane_vecs - 1)) != 0 ||
+                        dim > int64_t(4 * kWarp) * lane_vecs)) ||
+      (rows == nullptr &&
+       (scratch == nullptr || (state_sum != nullptr) != (scratch_ss != nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == nullptr) {
+    const int err =
+        dtype == 0
+            ? launch_gather_mapped(static_cast<const float*>(emb), n_rows,
+                                   pitch, seg_ids, count, n, scratch, dim,
+                                   chunk, state_sum, scratch_ss, s)
+            : launch_gather_mapped(static_cast<const __nv_bfloat16*>(emb),
+                                   n_rows, pitch, seg_ids, count, n, scratch,
+                                   dim, chunk, state_sum, scratch_ss, s);
+    if (err != 0) return err;
+  } else {
+    scratch = const_cast<float*>(rows);
+    scratch_ss = nullptr;
+  }
+  const UpdateArgs a{emb,   state_sum, n_rows,    pitch, static_cast<int>(dim),
+                     order, heads,     seg_ids,   seg_first, count,
+                     grads, n,         lr,        scratch,   scratch_ss,
+                     rows != nullptr};
+  const bool vec = pitch % 4 == 0 && dim % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(grads) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(scratch) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(emb) % (dtype == 0 ? 16 : 8) == 0;
+  if (dtype == 0) {
+    launch_update<float, true>(a, vec, block_route, lane_vecs, s);
+  } else {
+    launch_update<__nv_bfloat16, true>(a, vec, block_route, lane_vecs, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,12 +71,20 @@ def segment_dedup(ids: torch.Tensor, grads: torch.Tensor
 
 
 def sparse_adagrad_update(table: EmbeddingState, ids: torch.Tensor,
-                          grads: torch.Tensor, lr: float) -> EmbeddingState:
+                          grads: torch.Tensor, lr: float,
+                          gathered=None) -> EmbeddingState:
     """The reference's row-sparse Adagrad for one (ids, grads) batch, IN
     PLACE on ``table`` (returned for convenience; the JAX function returns
-    a new state).  ids: [N] (duplicates allowed); grads: [N, D] fp32."""
-    rows.sparse_adagrad_rows(table.emb, table.state_sum, ids,
-                             grads.to(torch.float32).contiguous(), lr)
+    a new state).  ids: [N] (duplicates allowed); grads: [N, D] fp32.
+    ``gathered``: the table's rows at ids as gather_rows returned them in
+    the same step, which K2 then reads in place of a mapped table's
+    (rows.sparse_adagrad_rows)."""
+    grads = grads.to(torch.float32).contiguous()
+    if gathered is None:
+        rows.sparse_adagrad_rows(table.emb, table.state_sum, ids, grads, lr)
+    else:
+        rows.sparse_adagrad_rows(table.emb, table.state_sum, ids, grads, lr,
+                                 rows=gathered)
     return table
 
 

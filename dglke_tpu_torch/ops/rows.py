@@ -14,15 +14,18 @@ CUDA tensor it launches its kernel or raises.  ``launches`` counts kernel
 launches per wrapper, so a run can show that it went through the kernels.
 
 Host-resident tables (--mix_cpu_gpu): ``map_host`` pins a numpy table in
-place and maps it into the card's address space.  K1 and K2 take that CPU
-table with ids (and gradient rows) on the card, and read and write it at
-its device-side address: only the batch's rows cross the host link.
+place and maps it into the card's address space (``host_zeros`` places
+one on 2 MB boundaries).  K1 and K2 take that CPU table with ids (and
+gradient rows) on the card, and read and write it at its device-side
+address, in a launch shape and route of their own (MAPPED_SHAPE,
+update_route): only the batch's rows cross the host link.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import mmap
 import os
 import shutil
 import subprocess
@@ -143,9 +146,15 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 SIGNATURES = {
     "dglke_gather_rows": ([_P, _INT, _I64, _I64, _P, _I64, _P, _I64, _INT,
                            _P], _INT),
+    "dglke_gather_rows_mapped": ([_P, _INT, _I64, _I64, _P, _I64, _P, _I64,
+                                  _I64, _P], _INT),
     "dglke_segment_update": ([_P, _INT, _I64, _I64, _I64, _P, _P, _P, _P, _P,
                               _P, _P, _I64, ctypes.c_float, _INT, _INT, _P],
                              _INT),
+    "dglke_segment_update_mapped": ([_P, _INT, _I64, _I64, _I64, _P, _P, _P,
+                                     _P, _P, _P, _P, _I64, ctypes.c_float,
+                                     _INT, _INT, _P, _P, _P, _I64, _P],
+                                    _INT),
     "dglke_host_register": ([_P, _I64, ctypes.POINTER(_P)], _INT),
     "dglke_host_unregister": ([_P], _INT),
 }
@@ -217,6 +226,61 @@ def map_host(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+HUGE_PAGE_BYTES = 2 << 20
+_THP_MODE = Path("/sys/kernel/mm/transparent_hugepage/enabled")
+
+
+def host_zeros(shape, dtype=np.float32) -> np.ndarray:
+    """A zeroed, C-contiguous, writable array in an anonymous mapping of its
+    own, its start aligned to 2 MB and advised MADV_HUGEPAGE before its
+    first touch.  Rows whose bytes are a multiple of 128 then start on a
+    128-byte line, so the mapped shape's windows read no line twice; where
+    the host's kernel offers transparent huge pages it backs the array with
+    2 MB pages, one translation where 4 KB pages need 512.  map_host takes
+    it as any array; the mapping is released with the array."""
+    dtype = np.dtype(dtype)
+    n_bytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+    m = mmap.mmap(-1, n_bytes + HUGE_PAGE_BYTES,
+                  flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS)
+    advice = getattr(mmap, "MADV_HUGEPAGE", None)
+    if advice is not None:
+        try:
+            m.madvise(advice)
+        except OSError:       # a kernel without transparent huge pages
+            pass
+    offset = -np.frombuffer(m, np.uint8, 1).ctypes.data % HUGE_PAGE_BYTES
+    return np.frombuffer(m, dtype, n_bytes // dtype.itemsize,
+                         offset).reshape(shape)
+
+
+def host_pages(arrays) -> str:
+    """What pages back ``arrays`` (host memory of this process): the share
+    /proc/self/smaps counts as AnonHugePages, and the host's transparent
+    huge page mode."""
+    try:
+        mode = _THP_MODE.read_text().split("[")[1].split("]")[0]
+    except (OSError, IndexError):
+        mode = None
+    spans = [(a.ctypes.data, a.ctypes.data + a.nbytes) for a in arrays]
+    total = sum(hi - lo for lo, hi in spans)
+    huge, inside = 0, False
+    try:
+        with open("/proc/self/smaps") as f:
+            for line in f:
+                head = line.split(maxsplit=1)[0] if line.strip() else ""
+                if "-" in head and not head.endswith(":"):
+                    lo, hi = (int(x, 16) for x in head.split("-"))
+                    inside = any(lo < b and a < hi for a, b in spans)
+                elif inside and head == "AnonHugePages:":
+                    huge += int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    share = f"{100 * min(huge, total) / max(total, 1):.1f}% in 2 MB pages"
+    if mode is None:
+        return share + " (this host offers no transparent huge pages)"
+    return share + f" (transparent huge pages: {mode})"
+
+
 def _unmap_host(lib, host: int) -> None:
     if _mapped.pop(host, None) is not None:
         lib.dglke_host_unregister(host)
@@ -268,26 +332,59 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor,
 
 
 # "wide_loads" is the wide shape with every row read by the threads' own
-# loads, where "wide" copies aligned fp32 rows with the TMA engine.
-GATHER_SHAPES = ("warp", "wide", "wide_loads")
+# loads, where "wide" copies aligned fp32 rows with the TMA engine;
+# "mapped" reads whole 128-byte lines into shared memory (gather_rows_mapped).
+GATHER_SHAPES = ("warp", "wide", "wide_loads", "mapped")
 # Rows of at least this many elements take the wide shape: measured on the
 # card by chip_smoke.py's sweep of both shapes (PERF.md, section 6).
 GATHER_WIDE_MIN = 2048
-# A table in mapped host memory takes the wide shape with the threads' own
-# loads at every width: over PCIe it beats one warp per row on the
-# flagship's 400-wide rows (0.117 against 0.147 ms), and the TMA bulk copy,
-# right but slow on host memory, on TransR's 160,000-wide ones (14.0
-# against 33.2 ms) (chip_smoke.py on an H100; PERF.md, kernel table).
-MAPPED_SHAPE = "wide_loads"
+# A table in mapped host memory takes the line-window shape at every
+# width.  chip_smoke.py (phase_host_kernels, capacity_routes) times it in
+# turns with the earlier mapped shape ("wide_loads") and one warp per row,
+# on fresh ids each call, on an NVIDIA H100 80GB HBM3 at 700.00 W: 3,000
+# ids x 400 fp32 in 0.1009 ms against 0.1016 and 0.1037 (14,951 rows),
+# 0.1120 against 0.1147 (55,000,000 rows, 88 GB); 1,000 of TransR's
+# 160,000-wide rows 12.73 against 12.63 ms (PERF.md, section 6, has the
+# runs on slower hosts).  The same table in numpy's own memory, its rows
+# off the 128-byte lines, took 0.1072 ms: host_zeros places tables on them.
+MAPPED_SHAPE = "mapped"
 _WIDE_CHUNK = 2048        # row elements per block of the wide shape, at least
 _MAX_ROWS = (1 << 31) - 1   # gridDim.x
 _MAX_CHUNKS = 65535        # gridDim.y of the wide shape
+
+# The mapped shape's windows (csrc/rows.cu: kLine, kMapSlot): the SMs reach
+# host memory in requests of whole 128-byte lines, and a window of up to
+# 16 lines fits a warp's slot of shared memory.
+LINE_BYTES = 128
+MAPPED_SLOT_BYTES = 2048
+
+
+def line_window(offset: int, width: int, elem_bytes: int = 4):
+    """The 128-byte lines that hold ``width`` elements of ``elem_bytes``
+    starting at byte ``offset``: (first line, line count, shift), the
+    shift being the first element's byte offset in the first line."""
+    first = offset // LINE_BYTES
+    end = -(-(offset + width * elem_bytes) // LINE_BYTES)
+    return first, end - first, offset - first * LINE_BYTES
+
+
+def mapped_chunk(dim: int, elem_bytes: int = 4) -> int:
+    """Row elements one window of the mapped shape covers: the row when it
+    fits, else the most whose window fits MAPPED_SLOT_BYTES at the worst
+    shift, a whole number of lines (so the chunks of a row on a line
+    share its shift)."""
+    chunk = min(dim, (MAPPED_SLOT_BYTES - LINE_BYTES) // elem_bytes)
+    worst = line_window(LINE_BYTES - elem_bytes, chunk, elem_bytes)[1]
+    if worst * LINE_BYTES > MAPPED_SLOT_BYTES:
+        raise ValueError(f"mapped_chunk: {chunk} elements need {worst} lines")
+    return chunk
 
 
 def gather_shape(dim: int, mapped: bool = False) -> str:
     """The K1 launch shape for rows of ``dim`` elements: one warp per row
     ("warp") below GATHER_WIDE_MIN, blocks over (row, chunk) ("wide") from
-    there; MAPPED_SHAPE for a table in mapped host memory."""
+    there; MAPPED_SHAPE (whole lines, mapped_chunk elements a window) for a
+    table in mapped host memory."""
     if mapped:
         return MAPPED_SHAPE
     return "wide" if dim >= GATHER_WIDE_MIN else "warp"
@@ -311,13 +408,17 @@ def launch_gather(table: torch.Tensor, ids: torch.Tensor, dim: int,
         raise ValueError(f"gather_rows: {n} rows of {dim} exceed the "
                          f"{shape} launch's grid")
     lib = load_library(SOURCE, SIGNATURES)
+    args = (table.data_ptr() if address is None else address,
+            _DTYPE_CODE[table.dtype], table.shape[0], table.stride(0),
+            ids32.data_ptr(), n, out.data_ptr(), dim)
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = lib.dglke_gather_rows(
-            table.data_ptr() if address is None else address,
-            _DTYPE_CODE[table.dtype], table.shape[0], table.stride(0),
-            ids32.data_ptr(), n, out.data_ptr(), dim,
-            GATHER_SHAPES.index(shape), stream)
+        if shape == "mapped":
+            err = lib.dglke_gather_rows_mapped(
+                *args, mapped_chunk(dim, table.element_size()), stream)
+        else:
+            err = lib.dglke_gather_rows(*args, GATHER_SHAPES.index(shape),
+                                        stream)
     check_launch(err, "gather_rows")
     launches["gather_rows"] += 1
     return out
@@ -587,6 +688,24 @@ def scatter_add_plain(table: torch.Tensor, ids: torch.Tensor,
     _add_rows(table, ids.long(), delta)
 
 
+def segment_update_mapped_plain(emb: torch.Tensor, state_sum, ids,
+                                grads: torch.Tensor, lr: float) -> None:
+    """The mapped route's steps in plain PyTorch, in place: each distinct
+    id's row (and state_sum entry) copied into scratch in ascending id
+    order, the segments' order; sparse_adagrad_plain (or, with no
+    state_sum, the plain row add) applied there by segment index; the rows
+    written back.  The same sums in the same order as on the table."""
+    uniq, seg = torch.unique(ids.long(), return_inverse=True)
+    scratch = emb[uniq]
+    if state_sum is None:
+        _add_rows(scratch, seg, grads)
+    else:
+        scratch_ss = state_sum[uniq]
+        sparse_adagrad_plain(scratch, scratch_ss, seg, grads, lr)
+        state_sum[uniq] = scratch_ss
+    emb[uniq] = scratch
+
+
 def _check_update(emb, state_sum, ids, grads, name) -> int:
     """Argument checks of K2.  The ids and rows lie on one device; on the
     CPU so do the table and state_sum, on a card each lies there or in
@@ -610,15 +729,56 @@ def _check_update(emb, state_sum, ids, grads, name) -> int:
     return code
 
 
-def _segment_update(code, emb, state_sum, ids, grads, lr, name) -> bool:
+# Where K2 reads the rows it updates (dglke_segment_update_mapped for the
+# last two): "table", at the table's own address (a table on the card; on
+# a mapped table the earlier route, each row read over the link);
+# "gather", each segment's row and state_sum entry first copied into
+# scratch on the card by the mapped shape's windows; "rows", from the rows
+# the caller gathered at the same ids (the host step's K1 output), so no
+# row is read over the link a second time.  A mapped table takes "rows"
+# when it is given them, else MAPPED_UPDATE.  chip_smoke.py
+# (phase_host_kernels, capacity_routes) times the three in turns on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: 3,000 ids x 400 fp32, table 0.1720,
+# gather 0.1966, rows 0.1040 ms (14,951 rows) and 0.2806 / 0.3242 /
+# 0.2015 (55,000,000 rows); 1,000 of TransR's 160,000-wide rows 11.91 /
+# 18.44 / 9.37 ms.  Gathering into scratch first serialises the link's
+# two directions, which the table route overlaps.
+UPDATE_ROUTES = ("table", "gather", "rows")
+MAPPED_UPDATE = "table"
+
+
+def update_route(mapped: bool, rows_given: bool = False) -> str:
+    """K2's route for a table on the card (``mapped`` False) or in mapped
+    host memory, with or without the rows already gathered at the ids."""
+    if not mapped:
+        return "table"
+    return "rows" if rows_given else MAPPED_UPDATE
+
+
+def _segment_update(code, emb, state_sum, ids, grads, lr, name,
+                    route=None, rows=None) -> bool:
     """Group the ids, then launch the segment update along plan_update's
-    route on the ids' card; False when there was nothing to launch (no
-    ids)."""
+    route on the ids' card, reading the rows along ``route`` (by default
+    update_route's for the table and ``rows``); False when there was
+    nothing to launch (no ids).  The gather route's scratch is [n, width]
+    fp32 and [n] on the card, from torch's allocator: sized from n alone,
+    as a graph needs."""
     n = ids.shape[0]
     dev = ids.device
     emb_addr = _reach(emb, dev, name, "table")
     ss_addr = None if state_sum is None else _reach(state_sum, dev, name,
                                                     "state_sum")
+    if route is None:
+        route = update_route(emb.device != dev, rows is not None)
+    if route not in UPDATE_ROUTES:
+        raise ValueError(f"{name}: route {route!r} not in {UPDATE_ROUTES}")
+    if route == "rows" and (
+            rows is None or rows.dtype != torch.float32
+            or rows.shape != (n, emb.shape[1]) or rows.device != dev
+            or not rows.is_contiguous()):
+        raise ValueError(f"{name}: the rows route needs the table's rows at "
+                         f"the ids, contiguous fp32 [{n}, {emb.shape[1]}] on "
+                         f"{dev}")
     if n == 0:
         return False
     if n > _MAX_INT32 or emb.shape[1] > _MAX_INT32:
@@ -628,20 +788,35 @@ def _segment_update(code, emb, state_sum, ids, grads, lr, name) -> bool:
     plan = plan_update(emb.shape[1])
     order, _, heads, seg_ids, seg_first, count = g.pointers()
     lib = load_library(SOURCE, SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dglke_segment_update(
-            emb_addr, code, emb.shape[0], emb.stride(0), emb.shape[1],
+    args = (emb_addr, code, emb.shape[0], emb.stride(0), emb.shape[1],
             ss_addr, order, heads, seg_ids, seg_first, count,
             grads.data_ptr(), n, float(lr), int(plan.route == "block"),
-            plan.lane_vecs, stream)
+            plan.lane_vecs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "gather":
+            scratch = torch.empty((n, emb.shape[1]), dtype=torch.float32,
+                                  device=dev)
+            scratch_ss = (None if state_sum is None else
+                          torch.empty((n,), dtype=torch.float32, device=dev))
+            err = lib.dglke_segment_update_mapped(
+                *args, None, scratch.data_ptr(),
+                None if scratch_ss is None else scratch_ss.data_ptr(),
+                mapped_chunk(emb.shape[1], emb.element_size()), stream)
+        elif route == "rows":
+            err = lib.dglke_segment_update_mapped(
+                *args, rows.data_ptr(), None, None,
+                mapped_chunk(emb.shape[1], emb.element_size()), stream)
+        else:
+            err = lib.dglke_segment_update(*args, stream)
     check_launch(err, name)
     return True
 
 
 def sparse_adagrad_rows(emb: torch.Tensor, state_sum: torch.Tensor,
                         ids: torch.Tensor, grads: torch.Tensor,
-                        lr: float) -> None:
+                        lr: float, route: str | None = None,
+                        rows: torch.Tensor | None = None) -> None:
     """Row-sparse Adagrad, IN PLACE on ``emb`` and ``state_sum`` (the JAX
     function returns new arrays).  emb: [E, D] fp32/bf16; state_sum: [E]
     fp32; ids: [N] with duplicates; grads: [N, D] contiguous fp32.
@@ -657,23 +832,27 @@ def sparse_adagrad_rows(emb: torch.Tensor, state_sum: torch.Tensor,
     mean(g^2); emb[u] += -lr * sum(g) / (sqrt(state_sum[u]) + 1e-10),
     rounded once to the table dtype.  A CPU table and state_sum mapped by
     map_host, with ids and rows on the card, are updated in place over the
-    host link."""
+    host link; given ``rows`` (the table's rows at the ids, fp32 on the
+    card, as gather_rows returned them), they are read from there and not
+    over the link (update_route; ``route`` picks one of UPDATE_ROUTES
+    instead).  On the CPU ``rows`` is not needed."""
     code = _check_update(emb, state_sum, ids, grads, "sparse_adagrad_rows")
     if ids.device.type == "cpu":
         sparse_adagrad_plain(emb, state_sum, ids, grads, lr)
     elif _segment_update(code, emb, state_sum, ids, grads, lr,
-                         "sparse_adagrad_rows"):
+                         "sparse_adagrad_rows", route, rows):
         launches["sparse_adagrad_rows"] += 1
 
 
 def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
-                     delta: torch.Tensor) -> None:
+                     delta: torch.Tensor, route: str | None = None,
+                     rows: torch.Tensor | None = None) -> None:
     """table[ids] += delta IN PLACE with duplicates summed exactly (delta:
     [N, D] contiguous fp32) — what the TPU kernel computes, on the same
-    core as sparse_adagrad_rows."""
+    core and routes as sparse_adagrad_rows."""
     code = _check_update(table, None, ids, delta, "scatter_add_rows")
     if ids.device.type == "cpu":
         scatter_add_plain(table, ids, delta)
     elif _segment_update(code, table, None, ids, delta, 0.0,
-                         "scatter_add_rows"):
+                         "scatter_add_rows", route, rows):
         launches["scatter_add_rows"] += 1

@@ -33,6 +33,7 @@ from dglke_tpu_torch.config import KGEConfig
 from dglke_tpu_torch.data.dataset import synthetic_dataset
 from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex
 from dglke_tpu_torch.models.ke_model import KEModel, TrainState
+from dglke_tpu_torch.ops import rows as prows
 from dglke_tpu_torch.ops.embedding import (EmbeddingState,
                                            sparse_adagrad_update)
 from dglke_tpu_torch.utils import io as pt_io
@@ -127,6 +128,49 @@ def test_host_adagrad_matches_jax_with_duplicate_ids():
                                rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(got.emb.numpy(), want.emb, rtol=1e-6,
                                atol=1e-7)
+
+
+@pytest.mark.parametrize("n, d, batch", [(50, 16, 120), (1000, 400, 3000)])
+def test_mapped_route_plain_matches_jax_host_adagrad_update(n, d, batch):
+    """K2's mapped route written plainly (ops/rows.py:
+    segment_update_mapped_plain: the distinct rows gathered into scratch,
+    updated by segment, written back) against the JAX package's
+    host_adagrad_update on the same numpy tables and duplicate ids, within
+    rtol 1e-5 / atol 1e-6 (np.add.at sums each occurrence in another order
+    than the segment sums)."""
+    rng = np.random.default_rng(n)
+    emb = rng.normal(size=(n, d)).astype(np.float32)
+    ss = rng.uniform(0.1, 2.0, (n,)).astype(np.float32)
+    ids = rng.integers(0, n, (batch,)).astype(np.int32)
+    grads = rng.normal(size=(batch, d)).astype(np.float32)
+    want = jht.HostEmbedding(emb.copy(), ss.copy())
+    jht.host_adagrad_update(want, ids, grads, lr=0.25)
+    got_emb, got_ss = torch.from_numpy(emb.copy()), torch.from_numpy(ss.copy())
+    prows.segment_update_mapped_plain(got_emb, got_ss, torch.from_numpy(ids),
+                                      torch.from_numpy(grads), 0.25)
+    np.testing.assert_allclose(got_ss.numpy(), want.state_sum, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_emb.numpy(), want.emb, rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["TransE_l2", "TransR"])
+def test_host_tables_lie_in_aligned_host_memory(name):
+    """init_host_state places every table and state_sum in host_zeros
+    memory (2 MB-aligned, advised for huge pages), and its log line says
+    what pages they got."""
+    cfg, _ = host_config(model_name=name, hidden_dim=12)
+    model = KEModel(cfg, 300, 7, device="cpu")
+    lines = []
+    state = pht.init_host_state(model, seed=11, log=lines.append)
+    for k in ("entity", "relation", "projection"):
+        t = getattr(state, k)
+        if t is None:
+            continue
+        for x in (t.emb, t.state_sum):
+            assert x.data_ptr() % prows.HUGE_PAGE_BYTES == 0
+            assert x.is_contiguous()
+    assert "wrapped on the CPU" in lines[0] and "in 2 MB pages" in lines[0]
 
 
 @pytest.mark.parametrize("name", ["TransE_l2", "TransR"])
