@@ -21,7 +21,10 @@ Phases (any failure exits non-zero and prints no result line):
      active clusters, and the stock route for the same update (the gradient
      materialized, then K2); K1 on the 1 MB relation rows, both shapes and
      dtypes exact at a width that is and one that is not a multiple of 4,
-     timed in three rounds beside torch.index_select; K3's routes away from
+     timed in three rounds beside torch.index_select, and K1 with the sum
+     of |x|^3 (RESCAL's relation regularization value: the wide shape's
+     rows, the sum against fp64, two calls bit-equal) timed beside them
+     and beside the wide shape then three PyTorch passes; K3's routes away from
      hidden 500: the cluster route at hidden 32 and at a ragged 7 x 13
      width, each with one segment longer than the staged factors hold, and
      the tiles route at hidden 1,000 (K3's outputs are bit-identical when
@@ -341,7 +344,8 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 # rows of h, t and r and the 14,951 candidate rows); K2 once per step for
 # each table it updates, and the id grouping once before each K2 and each
 # K3 call (never torch.sort).  RESCAL's relation update goes through K3 on
-# every step and never through K2.
+# every step and never through K2, and its relation gather is K1 with the
+# sum of |x|^3 (gather_rows_pow_sum, counted under both names).
 #
 # TransE_l2 with --async_update launches the same: each step's entity
 # update is applied once, one step late inside each group of 10 steps (the
@@ -356,16 +360,17 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 # padded): 20 calls a mode, each two K1 (the entity rows [h | t | neg], the
 # relation rows), so 80 K1 in the eval.
 EXPECTED_LAUNCHES = {
-    "TransE_l2": {"gather_rows": 2008, "group_ids": 2000,
-                  "group_ids_tiles": 0, "sparse_adagrad_rows": 2000,
-                  "outer_adagrad_update": 0},
+    "TransE_l2": {"gather_rows": 2008, "gather_rows_pow_sum": 0,
+                  "group_ids": 2000, "group_ids_tiles": 0,
+                  "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0},
     "TransE_l2 async": {"gather_rows": 2008, "group_ids": 2000,
                         "group_ids_tiles": 0, "sparse_adagrad_rows": 2000,
                         "outer_adagrad_update": 0},
     "TransE_l2 host-fed": {"gather_rows": 200, "group_ids": 200,
                            "group_ids_tiles": 0, "sparse_adagrad_rows": 200,
                            "outer_adagrad_update": 0},
-    "RESCAL": {"gather_rows": 2008, "group_ids": 2000, "group_ids_tiles": 0,
+    "RESCAL": {"gather_rows": 2008, "gather_rows_pow_sum": 1000,
+               "group_ids": 2000, "group_ids_tiles": 0,
                "sparse_adagrad_rows": 1000, "outer_adagrad_update": 1000},
     "wikikg2": {"gather_rows": 2080, "group_ids": 2000, "group_ids_tiles": 0,
                 "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0},
@@ -1216,7 +1221,8 @@ def phase_outer():
     tiles route, both cluster sizes that hold the row, and the stock route
     for the same update (the gradient materialized, then K2), which is also
     held to its plain version here.  K1 on the 1 MB relation rows in both
-    shapes and dtypes.  Returns K3's numbers for the JSON line and K1's
+    shapes and dtypes, and with the sum of |x|^p against the wide shape
+    then the three PyTorch passes.  Returns K3's numbers for the JSON line and K1's
     wide-row numbers."""
     import torch
     from dglke_tpu_torch.ops import outer_update, rows
@@ -1376,12 +1382,37 @@ def phase_outer():
               f"{RESCAL_WIDTH} and {RESCAL_WIDTH - 3}: both shapes exact")
     k1_bf = device_ms(lambda: rows.gather_rows(bf, ids), iters=20)
     del bf
+    # K1 with the sum of |x|^p (the relation rows' regularization value on
+    # RESCAL's factored route): the plain wide shape's rows, the sum within
+    # 1e-6 of fp64's, two calls bit-equal.
+    if not rows.fused_pow_sum(state.emb, ids, RESCAL_WIDTH, norm):
+        fail("K1 on RESCAL rows must take the fused sum")
+    (got, total), (_, total2) = (rows.gather_rows_pow_sum(state.emb, ids, norm)
+                                 for _ in range(2))
+    want = float(torch.sum(torch.abs(state.emb[ids.long()].double()) ** norm))
+    three = float(rows.pow_sum_plain(got, norm))
+    if (not torch.equal(got, rows.launch_gather(state.emb, ids, RESCAL_WIDTH,
+                                                "wide"))
+            or not torch.equal(total.view(torch.int32),
+                               total2.view(torch.int32))
+            or abs(float(total) - want) > 1e-6 * want):
+        fail(f"K1 with the sum: rows differ from the wide shape's, or sums "
+             f"{float(total)!r} / {float(total2)!r} against fp64 {want!r}")
+    print(f"K1 with the sum of |x|^{norm} on {BATCH} RESCAL rows: rows exact, "
+          f"two calls bit-equal; sum {float(total)!r}, fp64 {want!r} "
+          f"(rel {(float(total) - want) / want:.3e}), the three passes "
+          f"{three!r} (rel {(three - want) / want:.3e})")
+    del got, total, total2
     gather_fns = {
         "wide": lambda: rows.launch_gather(state.emb, ids, RESCAL_WIDTH,
                                            "wide"),
         "warp (one per row)": lambda: rows.launch_gather(
             state.emb, ids, RESCAL_WIDTH, "warp"),
-        "index_select": lambda: torch.index_select(state.emb, 0, ids)}
+        "index_select": lambda: torch.index_select(state.emb, 0, ids),
+        "wide with the sum": lambda: rows.gather_rows_pow_sum(
+            state.emb, ids, norm),
+        "wide, then three passes": lambda: rows.pow_sum_plain(
+            rows.launch_gather(state.emb, ids, RESCAL_WIDTH, "wide"), norm)}
     # Three rounds in turns, each on the profiler's device clock and on
     # CUDA events around back-to-back calls.
     gather_ms = {k: [] for k in gather_fns}
@@ -1390,8 +1421,9 @@ def phase_outer():
         for k in (gather_fns if r % 2 == 0 else reversed(gather_fns)):
             gather_ms[k].append(device_ms(gather_fns[k], iters=20))
             gather_ev[k].append(call_ms(gather_fns[k], iters=20, warmup=3))
-    k1_ms, _, k1_lib = (sum(v) / len(v) for v in gather_ms.values())
-    k1_ev, _, k1_lib_ev = (sum(v) / len(v) for v in gather_ev.values())
+    k1_ms, _, k1_lib, k1_sum, k1_three = (sum(v) / len(v)
+                                          for v in gather_ms.values())
+    k1_ev, _, k1_lib_ev, _, _ = (sum(v) / len(v) for v in gather_ev.values())
     k1_bytes = BATCH * 4 + (n_unique + BATCH) * RESCAL_WIDTH * 4
     k1_bound, k1_by = bound_ms(k1_bytes, 0)
     print(f"K1 gather_rows on {BATCH} RESCAL rows of {RESCAL_WIDTH} fp32, "
@@ -1406,6 +1438,10 @@ def phase_outer():
     print(f"K1 wide against index_select on RESCAL rows, mean of three: "
           f"device {k1_ms:.4f} vs {k1_lib:.4f} ms, CUDA events {k1_ev:.4f} vs "
           f"{k1_lib_ev:.4f} ms: {'not slower' if k1_ms <= k1_lib else 'SLOWER'}")
+    print(f"K1 with the sum on RESCAL rows, mean of three: device "
+          f"{k1_sum:.4f} ms against the plain wide shape's {k1_ms:.4f} "
+          f"({100 * k1_bound / k1_sum:.1f}% of K1's bound) and the wide "
+          f"shape then the three passes {k1_three:.4f}")
     del state, table
     torch.cuda.empty_cache()
     k3 = {"name": "outer_adagrad_update", "route": "cuda",
@@ -4663,9 +4699,9 @@ for _label, _steps in (("RESCAL dist vocab", DIST_RESCAL_STEPS),
                        ("RESCAL nccl", NCCL_STEPS),
                        ("RESCAL nccl baseline", NCCL_STEPS)):
     EXPECTED_LAUNCHES[_label] = {
-        "gather_rows": 2 * _steps, "group_ids": 2 * _steps,
-        "group_ids_tiles": 0, "sparse_adagrad_rows": _steps,
-        "outer_adagrad_update": _steps}
+        "gather_rows": 2 * _steps, "gather_rows_pow_sum": _steps,
+        "group_ids": 2 * _steps, "group_ids_tiles": 0,
+        "sparse_adagrad_rows": _steps, "outer_adagrad_update": _steps}
 # WN18's DistMult recipe under --dist (examples/wn18.sh:15-17: batch 2,048,
 # 128 negatives, hidden 512, gamma 20, -adv, -rc 1e-6, lr 0.14) at WN18's
 # published shape, 40,943 entities and 18 relations (its 141,442 train
@@ -5481,7 +5517,8 @@ TRANSR = dict(model_name="TransR", hidden_dim=200, gamma=8.0, lr=0.015,
 BF16_RESCAL_STEPS = 200
 EXPECTED_LAUNCHES["TransE_l2 bf16"] = dict(EXPECTED_LAUNCHES["TransE_l2"])
 EXPECTED_LAUNCHES["RESCAL bf16"] = {
-    "gather_rows": 2 * BF16_RESCAL_STEPS, "group_ids": 2 * BF16_RESCAL_STEPS,
+    "gather_rows": 2 * BF16_RESCAL_STEPS, "gather_rows_pow_sum": 0,
+    "group_ids": 2 * BF16_RESCAL_STEPS,
     "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * BF16_RESCAL_STEPS,
     "outer_adagrad_update": 0}
 # The CPU test's tolerances (tests/test_torch_compute_bf16.py), in bf16

@@ -40,6 +40,7 @@ from dglke_tpu_torch.models.score_functions import (
 from dglke_tpu_torch.ops.embedding import (
     EmbeddingState,
     gather_rows,
+    gather_rows_pow_sum,
     init_embedding,
     sparse_adagrad_update,
 )
@@ -183,13 +184,24 @@ class KEModel:
         # One entity gather for [h | t | neg]; the rows become leaves of
         # the autograd graph, so gradients stop at them.
         ent_rows, ent_ids = self._gather_entity(state, torch.cat([h, t, neg]))
-        rel_rows = gather_rows(state.relation, r, self.relation_dim)
         chunks = dict(b=b, num_chunks=num_chunks, chunk_size=chunk_size,
                       neg_sample_size=neg_sample_size, neg_head=neg_head)
         if self._rescal_factored():
+            # the relation rows' regularization value comes with them
+            # (summed by K1 as it copies them on the card); K3 applies its
+            # gradient
+            cfg = self.config
+            if cfg.regularization_coef > 0.0 and cfg.regularization_norm > 0:
+                rel_rows, rel_pow_sum = gather_rows_pow_sum(
+                    state.relation, r, cfg.regularization_norm,
+                    self.relation_dim)
+            else:
+                rel_rows = gather_rows(state.relation, r, self.relation_dim)
+                rel_pow_sum = None
             loss, log, grads = self._rescal_loss_and_grads_factored(
-                ent_rows, rel_rows, impts, **chunks)
+                ent_rows, rel_rows, rel_pow_sum, impts, **chunks)
         else:
+            rel_rows = gather_rows(state.relation, r, self.relation_dim)
             proj_rows = (gather_rows(state.projection, r, self.proj_dim)
                          if self.is_transr else None)
             loss, log, grads = self._rows_loss_and_grads(
@@ -269,7 +281,8 @@ class KEModel:
         log = {k: v.detach() for k, v in log.items()}
         return loss.detach(), log, grads
 
-    def _rescal_loss_and_grads_factored(self, ent_rows, rel_rows, impts, *,
+    def _rescal_loss_and_grads_factored(self, ent_rows, rel_rows,
+                                        rel_pow_sum, impts, *,
                                         b: int, num_chunks: int,
                                         chunk_size: int, neg_sample_size: int,
                                         neg_head: bool):
@@ -282,7 +295,9 @@ class KEModel:
         edge's relation gradient an outer product, which the outer-product
         Adagrad kernel applies without forming the [B, Dr*De] array.  It
         also applies the relation rows' regularization gradient; only the
-        value is computed here, for the loss and the log."""
+        value enters here, for the loss and the log: ``rel_pow_sum``, the
+        sum of |x|^p over the gathered relation rows (gather_rows_pow_sum),
+        None without regularization."""
         cfg = self.config
         sf = self.score_fn
         rmat = rel_rows.reshape(b, sf.relation_dim, sf.entity_dim)
@@ -293,7 +308,7 @@ class KEModel:
             tmp0 = torch.bmm(h0[:, None, :], rmat)[:, 0, :]
         ent_rows = ent_rows.detach().requires_grad_()
         tmp = tmp0.detach().requires_grad_()
-        reg_on = cfg.regularization_coef > 0.0 and cfg.regularization_norm > 0
+        reg_on = rel_pow_sum is not None
         with torch.enable_grad():
             side = ent_rows[:b] if neg_head else ent_rows[b:2 * b]
             pos = torch.sum(side * tmp, dim=-1)
@@ -319,8 +334,7 @@ class KEModel:
             g_ent[:b] += torch.bmm(rmat, g_tmp[:, :, None])[:, :, 0]
             factors = (h0, g_tmp)
         if reg_on:
-            reg_rel = regularization(cfg.regularization_coef,
-                                     cfg.regularization_norm, [rel_rows])
+            reg_rel = cfg.regularization_coef * rel_pow_sum
             log["regularization"] = log["regularization"] + reg_rel
             loss = loss + reg_rel
         log = {k: v.detach() for k, v in log.items()}

@@ -20,6 +20,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from dglke_tpu_torch.ops import rows
+
 
 def _criterion(genre: str, margin: float):
     if genre == "Hinge":
@@ -95,5 +97,5 @@ def regularization(coef: float, norm_ord: int, tensors):
     """coef * sum_i ||x_i||_p^p over the gathered rows."""
     total = 0.0
     for x in tensors:
-        total = total + torch.sum(torch.abs(x) ** norm_ord)
+        total = total + rows.pow_sum_plain(x, norm_ord)
     return coef * total

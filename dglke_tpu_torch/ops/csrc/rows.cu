@@ -36,6 +36,14 @@
 //       one after another.
 //     The threshold between the two is measured on the card (chip_smoke.py
 //     times both shapes across widths) and stated in ops/rows.py.
+//   * the wide bulk copy with a sum (dglke_gather_rows_pow_sum), a kernel of
+//     its own beside the plain one: RESCAL's step needs sum |x|^p over the
+//     relation rows it gathers (the regularization value), which three
+//     PyTorch passes over the 1 GB copy took (abs, pow, sum: 5 GB of
+//     traffic, ~1.7 ms a step).  Here the warp sums the chunk while it lies
+//     in shared memory between the bulk load and the bulk store, so the
+//     value costs no byte of device memory; it writes one partial in fp64
+//     per (row, chunk), which ops/rows.py adds up by rows.
 //   * host-resident tables (--mix_cpu_gpu): a table in host memory pinned
 //     in place and mapped into the device's address space
 //     (dglke_host_register) is read and written by kernels at its
@@ -353,6 +361,64 @@ __device__ __forceinline__ double warp_allsum(double x) {
   for (int off = kWarp / 2; off > 0; off /= 2)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// |x|^p for p = 1, 2 or 3, by repeated products of |x| as torch.pow takes
+// those exponents: the same fp32 term as torch.abs(x) ** p.
+template <int kPow>
+__device__ __forceinline__ float pow_abs(float x) {
+  const float a = fabsf(x);
+  if constexpr (kPow == 1) return a;
+  else if constexpr (kPow == 2) return a * a;
+  else return a * a * a;
+}
+
+// gather_rows_wide_bulk that also sums |x|^p over the chunk it copies (the
+// regularization value of RESCAL's relation rows, duplicates counted):
+// every lane waits for the bulk load, the first issues the bulk store, and
+// meanwhile the warp reads the chunk out of shared memory (lane l takes
+// vectors l, l + 32, ...: no bank conflict) and sums the terms, four in
+// fp32 and then in fp64.  Both only read the buffer, so the sum overlaps
+// the store and moves no byte of device memory; lane 0 writes the chunk's
+// sum to partials[row * chunks + chunk].
+template <int kPow>
+__global__ void __launch_bounds__(kWarp)
+gather_rows_wide_pow_sum(const float* __restrict__ table,
+                         const int32_t* __restrict__ ids,
+                         float* __restrict__ out, int64_t n_rows,
+                         int64_t pitch, int64_t dim,
+                         double* __restrict__ partials) {
+  __shared__ __align__(128) float buf[kCopyChunk];
+  __shared__ __align__(8) uint64_t bar;
+  const int lane = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const int64_t id = ids[row];
+  if (id < 0 || id >= n_rows) __trap();
+  const int64_t c0 = int64_t(blockIdx.y) * kCopyChunk;
+  const int width = static_cast<int>(dim - c0 < kCopyChunk ? dim - c0
+                                                           : kCopyChunk);
+  const uint32_t bytes = uint32_t(width) * 4u;
+  const uint32_t b = smem_u32(&bar);
+  if (lane == 0) {
+    mbar_init(b, 1);
+    mbar_expect_tx(b, bytes);
+    bulk_load(smem_u32(buf), table + id * pitch + c0, bytes, b);
+  }
+  __syncwarp();
+  mbar_wait(b, 0);
+  if (lane == 0) bulk_store(out + row * dim + c0, smem_u32(buf), bytes);
+  const float4* buf4 = reinterpret_cast<const float4*>(buf);
+  double part = 0.0;
+  for (int v = lane; v < width / 4; v += kWarp) {
+    const float4 x = buf4[v];
+    part += static_cast<double>(pow_abs<kPow>(x.x) + pow_abs<kPow>(x.y) +
+                                pow_abs<kPow>(x.z) + pow_abs<kPow>(x.w));
+  }
+  part = warp_allsum(part);
+  if (lane == 0) {
+    partials[row * gridDim.y + blockIdx.y] = part;
+    bulk_wait_read();
+  }
 }
 
 // A row's vector of four elements: float4 for fp32, uint2 (four bf16).
@@ -768,6 +834,34 @@ int dglke_gather_rows(const void* table, int dtype, int64_t n_rows,
         static_cast<const __nv_bfloat16*>(table), ids, out, n, n_rows, pitch,
         dim);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide bulk gather of dglke_gather_rows (an fp32 table; table, pitch,
+// dim and out on 16-byte boundaries), which also writes partials[row *
+// chunks + chunk] = the sum of |x|^p over that chunk of the row, p = 1, 2
+// or 3, chunks = ceil(dim / 2,048): gather_rows_wide_pow_sum.  Requires 0
+// < n < 2^31, at most 65,535 chunks and n * chunks fp64 slots of partials.
+int dglke_gather_rows_pow_sum(const float* table, int64_t n_rows,
+                              int64_t pitch, const int32_t* ids, int64_t n,
+                              float* out, int64_t dim, int p,
+                              double* partials, int64_t slots, void* stream) {
+  const int64_t chunks = (dim + kCopyChunk - 1) / kCopyChunk;
+  if (p < 1 || p > 3 || n <= 0 || pitch % 4 != 0 || dim % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 || slots < n * chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(chunks));
+  if (p == 1)
+    gather_rows_wide_pow_sum<1><<<grid, kWarp, 0, s>>>(table, ids, out, n_rows,
+                                                        pitch, dim, partials);
+  else if (p == 2)
+    gather_rows_wide_pow_sum<2><<<grid, kWarp, 0, s>>>(table, ids, out, n_rows,
+                                                        pitch, dim, partials);
+  else
+    gather_rows_wide_pow_sum<3><<<grid, kWarp, 0, s>>>(table, ids, out, n_rows,
+                                                        pitch, dim, partials);
   return static_cast<int>(cudaGetLastError());
 }
 

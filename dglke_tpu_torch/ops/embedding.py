@@ -93,3 +93,11 @@ def gather_rows(table: EmbeddingState, ids: torch.Tensor,
     """Minibatch gather (the reference's ExternalEmbedding.__call__): fp32
     rows of the first ``dim`` columns."""
     return rows.gather_rows(table.emb, ids, dim)
+
+
+def gather_rows_pow_sum(table: EmbeddingState, ids: torch.Tensor, p: int,
+                        dim: int | None = None):
+    """gather_rows and the 0-d fp32 sum of |x|^p over the rows it returns
+    (rows.gather_rows_pow_sum: summed by K1 as it copies wide fp32 rows on
+    the card, by PyTorch on every other route)."""
+    return rows.gather_rows_pow_sum(table.emb, ids, p, dim)

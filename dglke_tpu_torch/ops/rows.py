@@ -47,10 +47,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel launches per wrapper since the last reset_launches(); every kernel
 # wrapper of the package counts here.  The grouping counts one a batch:
 # "group_ids" on its one-block route, "group_ids_tiles" on its tiles route
-# (each such count is one call of 4 + passes kernels).
-launches = {"gather_rows": 0, "group_ids": 0, "group_ids_tiles": 0,
-            "sparse_adagrad_rows": 0, "scatter_add_rows": 0,
-            "outer_adagrad_update": 0}
+# (each such count is one call of 4 + passes kernels).  A K1 launch that
+# also sums |x|^p (gather_rows_pow_sum's fused route) counts under
+# gather_rows and under gather_rows_pow_sum.
+launches = {"gather_rows": 0, "gather_rows_pow_sum": 0, "group_ids": 0,
+            "group_ids_tiles": 0, "sparse_adagrad_rows": 0,
+            "scatter_add_rows": 0, "outer_adagrad_update": 0}
 
 _libs: dict = {}       # source path -> loaded library
 build_logs: dict = {}  # source file name -> nvcc's output of a build run here
@@ -148,6 +150,8 @@ SIGNATURES = {
                            _P], _INT),
     "dglke_gather_rows_mapped": ([_P, _INT, _I64, _I64, _P, _I64, _P, _I64,
                                   _I64, _P], _INT),
+    "dglke_gather_rows_pow_sum": ([_P, _I64, _I64, _P, _I64, _P, _I64, _INT,
+                                   _P, _I64, _P], _INT),
     "dglke_segment_update": ([_P, _INT, _I64, _I64, _I64, _P, _P, _P, _P, _P,
                               _P, _P, _I64, ctypes.c_float, _INT, _INT, _P],
                              _INT),
@@ -447,6 +451,74 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type == "cpu":
         return gather_rows_plain(table, ids, dim)
     return launch_gather(table, ids, dim, gather_shape(dim))
+
+
+# The exponents whose |x|^p K1's wide bulk copy sums as it copies.
+POW_SUM_EXPONENTS = (1, 2, 3)
+
+
+def pow_sum_plain(rows: torch.Tensor, p: int) -> torch.Tensor:
+    """sum |x|^p over ``rows``: the regularization value before its
+    coefficient (models/loss.py:regularization sums it over its tensors)."""
+    return torch.sum(torch.abs(rows) ** p)
+
+
+def fused_pow_sum(table: torch.Tensor, ids: torch.Tensor, dim: int,
+                  p: int) -> bool:
+    """Whether K1 sums |x|^p for gather_rows_pow_sum: an fp32 table on the
+    card whose rows take the wide shape and the bulk copy (its address and
+    pitch on 16-byte boundaries, ``dim`` a multiple of four), p in
+    POW_SUM_EXPONENTS and at least one id."""
+    return (table.device.type == "cuda" and table.dtype == torch.float32
+            and p in POW_SUM_EXPONENTS and gather_shape(dim) == "wide"
+            and dim % 4 == 0 and table.stride(0) % 4 == 0
+            and table.data_ptr() % 16 == 0 and ids.shape[0] > 0)
+
+
+def gather_rows_pow_sum(table: torch.Tensor, ids: torch.Tensor, p: int,
+                        dim: int | None = None):
+    """gather_rows(table, ids, dim) and the 0-d fp32 sum of |x|^p over the
+    rows it returns, duplicates counted: the regularization value of the
+    rows before its coefficient.
+
+    Where fused_pow_sum holds, K1's wide bulk copy sums the rows as it
+    copies them (csrc/rows.cu:dglke_gather_rows_pow_sum): each |x|^p in
+    fp32 as torch.pow takes it, added in fp64 into a partial a (row,
+    chunk); the partials are summed in fp64 a row, then over the rows,
+    and rounded to fp32 once.  Every order is fixed for a shape, so the
+    value is the same on every launch.  (Summed at once, the partials
+    take a single block: ~30 us on an H100 at 1,000 rows of 250,000.)
+    Every other table (on the CPU, in mapped host memory, bf16, narrow or
+    unaligned rows) takes gather_rows and pow_sum_plain on its rows.  A
+    fused launch counts one launch of gather_rows and one of
+    gather_rows_pow_sum."""
+    dim = table.shape[1] if dim is None else dim
+    if not fused_pow_sum(table, ids, dim, p):
+        rows = gather_rows(table, ids, dim)
+        return rows, pow_sum_plain(rows, p)
+    _check_table(table, "gather_rows_pow_sum")
+    check_ids(ids, table.device, "gather_rows_pow_sum")
+    ids32 = ids.to(torch.int32).contiguous()
+    n = ids32.shape[0]
+    if dim > table.shape[1] or n > _MAX_ROWS or (
+            -(-dim // _WIDE_CHUNK) > _MAX_CHUNKS):
+        raise ValueError(f"gather_rows_pow_sum: {n} rows of {dim} outside "
+                         f"the table's width {table.shape[1]} or the wide "
+                         f"launch's grid")
+    out = torch.empty((n, dim), dtype=torch.float32, device=ids.device)
+    partials = torch.empty((n, -(-dim // _WIDE_CHUNK)), dtype=torch.float64,
+                           device=ids.device)
+    lib = load_library(SOURCE, SIGNATURES)
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream(ids.device).cuda_stream
+        err = lib.dglke_gather_rows_pow_sum(
+            table.data_ptr(), table.shape[0], table.stride(0),
+            ids32.data_ptr(), n, out.data_ptr(), dim, p, partials.data_ptr(),
+            partials.numel(), stream)
+    check_launch(err, "gather_rows_pow_sum")
+    launches["gather_rows"] += 1
+    launches["gather_rows_pow_sum"] += 1
+    return out, partials.sum(dim=1).sum().float()
 
 
 # ---------------------------------------------------------------------------

@@ -345,14 +345,16 @@ def test_capture_counts_come_out_and_replays_add_them(monkeypatch):
     rows.launches["gather_rows"] = 5
     before = dict(rows.launches)
     # what a capture of a RESCAL group of 10 steps counts
-    for k, n in (("gather_rows", 20), ("group_ids", 20),
-                 ("sparse_adagrad_rows", 10), ("outer_adagrad_update", 10)):
+    for k, n in (("gather_rows", 20), ("gather_rows_pow_sum", 10),
+                 ("group_ids", 20), ("sparse_adagrad_rows", 10),
+                 ("outer_adagrad_update", 10)):
         rows.launches[k] += n
     counted = rows.take_launches(before)
     assert rows.launches == before
-    assert counted == {"gather_rows": 20, "group_ids": 20,
-                       "group_ids_tiles": 0, "sparse_adagrad_rows": 10,
-                       "scatter_add_rows": 0, "outer_adagrad_update": 10}
+    assert counted == {"gather_rows": 20, "gather_rows_pow_sum": 10,
+                       "group_ids": 20, "group_ids_tiles": 0,
+                       "sparse_adagrad_rows": 10, "scatter_add_rows": 0,
+                       "outer_adagrad_update": 10}
     for _ in range(99):           # a run of 100 groups: 99 replays
         rows.add_launches(counted)
     want = dict(before)
