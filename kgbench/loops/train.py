@@ -79,14 +79,15 @@ class Run:
         sync(self.device)
 
     def _keep(self, k: int) -> None:
-        """Host copies of the tables and their Adagrad states, if the check
-        reads them after ``k`` steps."""
+        """Host copies of every table the port's TrainState holds and of
+        their Adagrad states, in the reference's order (entity, relation,
+        TransR's projection), if the check reads them after ``k`` steps."""
         if k in self.marks and k not in self.snap:
-            self.snap[k] = {
-                "w": [to_host(self.state.entity.emb),
-                      to_host(self.state.relation.emb)],
-                "s": [to_host(self.state.entity.state_sum),
-                      to_host(self.state.relation.state_sum)]}
+            st = self.state
+            tables = [t for t in (st.entity, st.relation, st.projection)
+                      if t is not None]
+            self.snap[k] = {"w": [to_host(t.emb) for t in tables],
+                            "s": [to_host(t.state_sum) for t in tables]}
 
     def _snapshot(self, *steps):
         """The span the first (eager) call wraps each step in: the copies
@@ -138,6 +139,22 @@ class Run:
         return {"attempted": steps, "failed": self.failed,
                 "train_triples_per_s": steps * self.cfg.batch_size / elapsed}
 
+    def program_window(self) -> dict:
+        """``trace_groups`` group calls with the port's own spans on
+        (``dglke_tpu_torch.tracing``) and the harness's off, unprofiled;
+        their snapshot goes to ``ctx["program"]``."""
+        from dglke_tpu_torch import tracing
+        quiet_spans = Spans(False)
+        tracing.start()
+        try:
+            for _ in range(self.cell.traffic["trace_groups"]):
+                self._group(quiet_spans)
+            self._flush()
+            self.ctx["program"] = tracing.snapshot()
+        finally:
+            tracing.stop()
+        return self.ctx["program"]
+
     def traced(self):
         """A profiled sub-window of ``trace_groups`` groups, reduced in
         memory; also each traced step's kernel bytes and operations."""
@@ -184,16 +201,19 @@ class Run:
 
     # -- check ----------------------------------------------------------
     def check(self) -> dict:
-        """The training numbers of check.py against the reference."""
+        """The training numbers of check.py against the reference.  The
+        program's readings are taken first and its copies dropped, so that
+        the two sides' copies of a large table are never held at once."""
+        lr = self.flags["lr"]
+        self.prog_readings = check.train_readings(self.snap, lr, self.s,
+                                                  self.device)
+        self.snap = {}
         family = load_module(PACKAGE / "reference" / f"{self.cell.family}.py")
         trip = torch.as_tensor(np.stack(self.triples), device=self.device)
         ref = train_steps.run(family, self.cell.config, trip,
                               run_seed(self.seed), self.marks,
                               to_host=to_host)
         del trip
-        lr = self.flags["lr"]
         self.ref_readings = check.train_readings(ref, lr, self.s,
                                                  self.device)
-        self.prog_readings = check.train_readings(self.snap, lr, self.s,
-                                                  self.device)
         return check.train_numbers(self.prog_readings, self.ref_readings)

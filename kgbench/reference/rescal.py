@@ -8,8 +8,8 @@ from __future__ import annotations
 import torch
 
 
-def widths(hidden: int) -> tuple:
-    return hidden, hidden * hidden
+def tables(hidden: int, emb_init: float) -> list:
+    return [(hidden, emb_init), (hidden * hidden, emb_init)]
 
 
 def _mat(r, d):

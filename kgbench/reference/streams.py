@@ -2,13 +2,14 @@
 the initial tables, the epoch permutations and each step's negatives.
 
 The rules follow the program's documented streams (``DevicePipeline``):
-tables uniform in (-emb_init, emb_init), the entity table then the
-relation table, from one generator on the card seeded with the run's
-seed; epoch e's permutation is ``randperm`` under a generator seeded from
-(seed, 'perm', e); step i's negatives are one ``randint`` under a
-generator seeded from (seed, 'negS', i); step i corrupts heads when i is
-even; a step takes the next ``batch_size`` positions of the permutations
-laid end to end.
+tables uniform in (-range, range), each at the range its family declares
+(``emb_init``; TransR's projection 1.0), the entity table, the relation
+table, then any further table, from one generator on the card seeded
+with the run's seed; epoch e's permutation is ``randperm`` under a
+generator seeded from (seed, 'perm', e); step i's negatives are one
+``randint`` under a generator seeded from (seed, 'negS', i); step i
+corrupts heads when i is even; a step takes the next ``batch_size``
+positions of the permutations laid end to end.
 """
 
 from __future__ import annotations
@@ -26,15 +27,26 @@ def stream_seed(*words: int) -> int:
         1, np.uint64)[0])
 
 
-def init_tables(seed: int, shapes, emb_init: float, device):
-    """The initial tables of ``shapes`` [(rows, width), ...] in draw
-    order, fp32."""
+def table_shapes(family, config: dict) -> list:
+    """[(rows, width, init range)] of every table of ``family`` (its
+    module's ``tables(hidden, emb_init)``) in draw order: entity rows
+    first, ``n_relations`` rows for every further table."""
+    hidden = config["flags"]["hidden_dim"]
+    declared = family.tables(hidden, (config["flags"]["gamma"] + 2.0) / hidden)
+    rows = [config["n_entities"]] + [config["n_relations"]] * (
+        len(declared) - 1)
+    return [(n, width, init) for n, (width, init) in zip(rows, declared)]
+
+
+def init_tables(seed: int, shapes, device):
+    """The initial tables of ``shapes`` [(rows, width, init range), ...]
+    in draw order, fp32."""
     gen = torch.Generator(device)
     gen.manual_seed(seed)
     out = []
-    for rows, width in shapes:
+    for rows, width, init in shapes:
         emb = torch.empty((rows, width), dtype=torch.float32, device=device)
-        emb.uniform_(-emb_init, emb_init, generator=gen)
+        emb.uniform_(-init, init, generator=gen)
         out.append(emb)
     return out
 

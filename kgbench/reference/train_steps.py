@@ -1,21 +1,28 @@
 """The first training steps of a cell, in plain PyTorch, from the seed.
 
 Each step follows dgl-ke's recipe as the configuration states it: gather
-the rows of [h | t | negatives] and of the relations, score the positives
-and each chunk's shared negatives, take the self-adversarial Logsigmoid
-loss plus ``regularization_coef`` x the sum of |row|^p over the gathered
-rows, differentiate with respect to the gathered rows, and write both
-tables back through row-sparse Adagrad (state += mean(g^2) per
-occurrence, then row -= lr g / (sqrt(state) + 1e-10)).  Returns every
-step's loss and the tables with their Adagrad states after each step count
-the check reads."""
+the rows of [h | t | negatives] and, by the relations, the rows of every
+relation-keyed table (the relation table, then any further one the family
+declares, as TransR's projection), score the positives and each chunk's
+shared negatives, take the self-adversarial Logsigmoid loss plus
+``regularization_coef`` x the sum of |row|^p over the gathered entity and
+relation rows (dgl-ke regularizes those two tables only), differentiate
+with respect to the gathered rows, and write every table back through
+row-sparse Adagrad (state += mean(g^2) per occurrence, then row -= lr g /
+(sqrt(state) + 1e-10)).  Returns every step's loss and the tables with
+their Adagrad states after each step count the check reads.
+
+A family's module (``reference/<family>.py``) declares its tables,
+``tables(hidden, emb_init)``: [(width, init range)] in the port's draw
+order, the entity table first; its ``pos_score`` and ``neg_scores`` take
+the rows of the tables past the relation table as further arguments."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from kgbench.reference.streams import Batches, init_tables
+from kgbench.reference.streams import Batches, init_tables, table_shapes
 
 
 def loss_of(pos, neg, flags):
@@ -36,63 +43,62 @@ def adagrad(table, state, ids, grads, lr):
     table.index_add_(0, ids, -lr * grads / std[:, None])
 
 
-def step_loss_and_grads(family, flags, ent, rel, h, r, t, neg, neg_head):
-    """(loss, entity ids, entity row grads, relation row grads)."""
+def step_loss_and_grads(family, flags, tables, h, r, t, neg, neg_head):
+    """(loss, entity ids, the gradients of each table's gathered rows):
+    ``tables`` is [entity, relation, further relation-keyed tables]."""
     b = h.shape[0]
     chunks = max(1, b // min(flags["neg_sample_size"], b))
     ent_ids = torch.cat([h, t, neg.long()])
-    ent_rows = ent[ent_ids].detach().requires_grad_()
-    rel_rows = rel[r].detach().requires_grad_()
+    ent_rows = tables[0][ent_ids].detach().requires_grad_()
+    rel_rows = [table[r].detach().requires_grad_() for table in tables[1:]]
     with torch.enable_grad():
         h_rows, t_rows = ent_rows[:b], ent_rows[b:2 * b]
-        pos = family.pos_score(h_rows, rel_rows, t_rows, flags)
+        pos = family.pos_score(h_rows, rel_rows[0], t_rows, flags,
+                               *rel_rows[1:])
         side = t_rows if neg_head else h_rows
-        neg_s = family.neg_scores(side, rel_rows, ent_rows[2 * b:], neg_head,
-                                  chunks, flags)
+        neg_s = family.neg_scores(side, rel_rows[0], ent_rows[2 * b:],
+                                  neg_head, chunks, flags, *rel_rows[1:])
         loss = loss_of(pos, neg_s, flags)
         coef, p = flags["regularization_coef"], flags["regularization_norm"]
         if coef > 0 and p > 0:
             loss = loss + coef * (torch.sum(torch.abs(ent_rows) ** p)
-                                  + torch.sum(torch.abs(rel_rows) ** p))
-        g_ent, g_rel = torch.autograd.grad(loss, (ent_rows, rel_rows))
-    return loss.detach(), ent_ids, g_ent, g_rel
+                                  + torch.sum(torch.abs(rel_rows[0]) ** p))
+        grads = torch.autograd.grad(loss, [ent_rows] + rel_rows)
+    return loss.detach(), ent_ids, grads
 
 
 def run(family, config: dict, triples: torch.Tensor, seed: int,
         marks, to_host=lambda x: x.clone()) -> dict:
     """The reference's first max(``marks``) steps (``triples`` [3, n] on
-    the card): {"loss": [each step's], k: {"w": [entity, relation],
-    "s": [their Adagrad states]} after k steps for each k of ``marks``}.
-    ``to_host`` keeps a snapshot (a clone by default)."""
+    the card): {"loss": [each step's], k: {"w": the tables, "s": their
+    Adagrad states} after k steps for each k of ``marks``}, the tables in
+    the family's order.  ``to_host`` keeps a snapshot (a clone by
+    default)."""
     flags = config["flags"]
     dev = triples.device
-    hidden = flags["hidden_dim"]
-    ent_w, rel_w = family.widths(hidden)
-    emb_init = (flags["gamma"] + 2.0) / hidden
-    ent, rel = init_tables(seed, [(config["n_entities"], ent_w),
-                                  (config["n_relations"], rel_w)],
-                           emb_init, dev)
-    s_ent = torch.zeros(ent.shape[0], device=dev)
-    s_rel = torch.zeros(rel.shape[0], device=dev)
+    shapes = table_shapes(family, config)
+    tables = init_tables(seed, shapes, dev)
+    states = [torch.zeros(n, device=dev) for n, _, _ in shapes]
     b = flags["batch_size"]
     chunks = max(1, b // min(flags["neg_sample_size"], b))
     batches = Batches(seed, triples, b, chunks * flags["neg_sample_size"],
                       config["n_entities"])
 
     def snapshot():
-        return {"w": [to_host(ent), to_host(rel)],
-                "s": [to_host(s_ent), to_host(s_rel)]}
+        return {"w": [to_host(x) for x in tables],
+                "s": [to_host(x) for x in states]}
 
     out = {"loss": []}
     if 0 in marks:
         out[0] = snapshot()
     for i in range(max(marks)):
         h, r, t, neg, neg_head = batches(i)
-        loss, ent_ids, g_ent, g_rel = step_loss_and_grads(
-            family, flags, ent, rel, h, r, t, neg, neg_head)
-        adagrad(ent, s_ent, ent_ids, g_ent, flags["lr"])
-        adagrad(rel, s_rel, r, g_rel, flags["lr"])
-        del g_ent, g_rel
+        loss, ent_ids, grads = step_loss_and_grads(
+            family, flags, tables, h, r, t, neg, neg_head)
+        ids = [ent_ids] + [r] * (len(tables) - 1)
+        for table, state, at, g in zip(tables, states, ids, grads):
+            adagrad(table, state, at, g, flags["lr"])
+        del grads
         out["loss"].append(float(loss))
         if i + 1 in marks:
             out[i + 1] = snapshot()

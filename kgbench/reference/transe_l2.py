@@ -9,9 +9,9 @@ from __future__ import annotations
 import torch
 
 
-def widths(hidden: int) -> tuple:
-    """(entity width, relation width)."""
-    return hidden, hidden
+def tables(hidden: int, emb_init: float) -> list:
+    """[(width, init range)] of the entity and the relation table."""
+    return [(hidden, emb_init), (hidden, emb_init)]
 
 
 def _dist(a, b):

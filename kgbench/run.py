@@ -62,8 +62,9 @@ def forbidden_modules(modules=None) -> list:
 def run_cell(cell, seed: int, seconds: float, trace: bool, device,
              t_start: float) -> dict:
     """One run of ``cell`` on ``device``: set-up, the window, with
-    ``trace`` the profiled sub-window, then the check.  Returns the
-    result's fields, ``checks`` last."""
+    ``trace`` an unprofiled sub-window with the program's spans on and
+    then a profiled one, then the check.  Returns the result's fields,
+    ``checks`` last."""
     import importlib
 
     import torch
@@ -78,7 +79,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     run.setup()
     setup_s = time.perf_counter() - t_start
     measured = run.window(seconds)
-    summary = run.traced() if trace else None
+    summary = None
+    if trace:
+        run.program_window()
+        summary = run.traced()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev)

@@ -14,7 +14,7 @@ own under ``kgbench/``:
 - ``metrics/<metric>.py``: a per-layer metric's reader, or
   ``metrics/<quantity>.py``, the reader of every metric named
   ``<quantity>.<suffix>`` that has no file of its own;
-- ``reference/<family>.py``: the family's plain scoring.
+- ``reference/<family>.py``: the family's tables and plain scoring.
 """
 
 from __future__ import annotations

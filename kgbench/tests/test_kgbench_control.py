@@ -3,6 +3,7 @@ matrix products, put in the program's place, is not correct against the
 reference in fp32 (the configurations' precision), at a size a test run
 holds."""
 
+import copy
 import time
 
 import numpy as np
@@ -15,8 +16,14 @@ from kgbench.tests.tiny import tiny_cell
 
 
 def mid_cell(workload):
-    """FB15k's tables at a tenth of its edges, RESCAL at hidden 100, held
+    """FB15k's tables at a tenth of its edges, RESCAL at hidden 100;
+    wikikg2 at its own flags with a tenth of its entities and edges; held
     to the cell's own limits."""
+    if workload.startswith("wikikg2"):
+        cell = load_cell(workload)
+        cell.config = copy.deepcopy(cell.config)
+        cell.config.update(n_entities=250060, n_train=1610918)
+        return cell
     cell = tiny_cell(workload)
     cell.limits = load_cell(workload).limits
     cell.config.update(n_entities=14951, n_relations=1345, n_train=60000)
@@ -28,7 +35,8 @@ def mid_cell(workload):
 
 @pytest.mark.card
 @pytest.mark.parametrize("workload", ["fb15k-transe_l2.train",
-                                      "fb15k-rescal.train"])
+                                      "fb15k-rescal.train",
+                                      "wikikg2-transe_l2.train"])
 def test_control_is_not_correct(card, workload):
     cell = mid_cell(workload)
     for seed in (11, 12, 13):

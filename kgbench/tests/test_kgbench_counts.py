@@ -6,7 +6,7 @@ step."""
 import pytest
 
 from kgbench import peaks
-from kgbench.spec import load_cell
+from kgbench.spec import PACKAGE, load_cell, load_module
 from kgbench.trace import TraceSummary
 
 
@@ -71,3 +71,49 @@ def test_roofline_reader_is_bound_over_time():
     assert cell.readers["device_idle_pct.train"].read(ctx) == \
         pytest.approx(10.0)
     assert peaks.bound_s(0, 67e12) == pytest.approx(1.0)
+
+
+def transr_flags():
+    """dgl-ke's FB15k TransR recipe (examples/fb15k.sh): hidden 200, batch
+    1,000, 200 negatives a chunk."""
+    f = dict(flags("fb15k-transe_l2.train"))
+    f.update(model_name="TransR", hidden_dim=200, gamma=8.0)
+    return f
+
+
+def test_transr_step_flops():
+    c = load_module(PACKAGE / "counts" / "transr.py")
+    f = transr_flags()
+    # h M_r, t M_r: 2 x 2BD^2; every negative by every relation of its
+    # chunk: 2BKD^2 = 16 GFLOP; pos 4BD; neg BD + 3BKD + BK; loss 11BK +
+    # 4B; regularization of the entity and relation rows 4(Ne+Nr)D
+    fwd = (160_000_000 + 16_000_000_000 + 800_000
+           + (200_000 + 120_000_000 + 200_000) + 2_204_000 + 3_200_000)
+    assert c.forward_flops(f) == fwd == 16_286_604_000
+    # Adagrad 6 a gradient element: 3,000 entity, 1,000 relation and
+    # 1,000 projection rows
+    assert c.step_flops(f) == 3 * fwd + 6 * (3000 * 200 + 1000 * 200
+                                             + 1000 * 40_000)
+
+
+def test_transr_kernel_bytes_count_the_projection():
+    c = load_module(PACKAGE / "counts" / "transr.py")
+    got = c.kernel_bytes(transr_flags(), 2718, 703)
+    assert got["k1"][0] == (2718 * 800 + 3000 * 800 + 3000 * 4
+                            + 703 * 800 + 1000 * 800 + 1000 * 4
+                            + 703 * 160_000 + 1000 * 160_000 + 1000 * 4)
+    # three groupings, and three updates
+    want = (16 * 5000 + 12 * 3000 + 3000 * 800 + 2 * 2718 * 804
+            + 12 * 1000 + 1000 * 800 + 2 * 703 * 804
+            + 12 * 1000 + 1000 * 160_000 + 2 * 703 * 160_004)
+    assert got["k2"][0] == want
+    assert "k3" not in got
+
+
+def test_wikikg2_step_ids_and_bytes():
+    """batch 512, 128 negatives a chunk, 4 chunks: 1,536 entity ids and
+    512 relation ids a step, 2 KB rows."""
+    f = flags("wikikg2-transe_l2.train")
+    got = counts("wikikg2-transe_l2.train").kernel_bytes(f, 1530, 400)
+    assert got["k1"][0] == (1530 * 2000 + 1536 * 2000 + 1536 * 4
+                            + 400 * 2000 + 512 * 2000 + 512 * 4)

@@ -25,3 +25,17 @@ def tiny_cell(workload: str):
     cell.config, cell.traffic = conf, traffic
     cell.limits = dict(TINY_TRAIN_LIMITS)
     return cell
+
+
+def tiny_transr_cell():
+    """A TransR cell (a spec.Cell that no BENCHMARK.json entry names):
+    dgl-ke's FB15k TransR recipe (examples/fb15k.sh: gamma 8, lr 0.015,
+    -rc 5e-8, -adv) at the tiny size, under the train mix."""
+    cell = tiny_cell("fb15k-transe_l2.train")
+    cell.name = "tiny-transr.train"
+    cell.config.update(name="tiny-transr", family="transr")
+    cell.config["flags"].update(model_name="TransR", hidden_dim=8,
+                                gamma=8.0, lr=0.015,
+                                regularization_coef=5e-8)
+    cell.per_layer, cell.readers = [], {}
+    return cell
