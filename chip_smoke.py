@@ -354,6 +354,11 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 # eval) launches two K1, two groupings and two K2 a step (in 9 replays of
 # its group of 10 after the first).
 #
+# Every TransE_l2 run in fp32 (the Logsigmoid loss, no neg_deg_sample)
+# computes its loss and row gradients by the fused route's two kernels a
+# step (ops/transe_l2.py, counted under transe_l2_loss); RESCAL, bf16
+# compute and the other families never launch them.
+#
 # wikikg2: two K1, two groupings and two K2 a step over 1,000 steps; the
 # sampled test eval of 20,000 triples in batches of 32 is 625 batches a
 # mode, ranked in groups of 32 batches (trainer.EVAL_GROUP, the tail group
@@ -362,18 +367,21 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 EXPECTED_LAUNCHES = {
     "TransE_l2": {"gather_rows": 2008, "gather_rows_pow_sum": 0,
                   "group_ids": 2000, "group_ids_tiles": 0,
-                  "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0},
+                  "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0,
+                  "transe_l2_loss": 2000},
     "TransE_l2 async": {"gather_rows": 2008, "group_ids": 2000,
                         "group_ids_tiles": 0, "sparse_adagrad_rows": 2000,
-                        "outer_adagrad_update": 0},
+                        "outer_adagrad_update": 0, "transe_l2_loss": 2000},
     "TransE_l2 host-fed": {"gather_rows": 200, "group_ids": 200,
                            "group_ids_tiles": 0, "sparse_adagrad_rows": 200,
-                           "outer_adagrad_update": 0},
+                           "outer_adagrad_update": 0, "transe_l2_loss": 200},
     "RESCAL": {"gather_rows": 2008, "gather_rows_pow_sum": 1000,
                "group_ids": 2000, "group_ids_tiles": 0,
-               "sparse_adagrad_rows": 1000, "outer_adagrad_update": 1000},
+               "sparse_adagrad_rows": 1000, "outer_adagrad_update": 1000,
+               "transe_l2_loss": 0},
     "wikikg2": {"gather_rows": 2080, "group_ids": 2000, "group_ids_tiles": 0,
-                "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0},
+                "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0,
+                "transe_l2_loss": 2000},
 }
 # The eval's CUDA graphs a run captures and replays (phase 2c), summed over
 # its evals: each static call shape's first call runs eagerly, its second
@@ -391,7 +399,7 @@ S1_STEPS = 301
 EXPECTED_LAUNCHES["TransE_l2 s = 1"] = {
     "gather_rows": 2 * S1_STEPS, "group_ids": 2 * S1_STEPS,
     "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * S1_STEPS,
-    "outer_adagrad_update": 0}
+    "outer_adagrad_update": 0, "transe_l2_loss": 2 * S1_STEPS}
 # Host-resident tables (--mix_cpu_gpu): each step gathers the entity and
 # the relation rows from the mapped host tables (K1 x 2) and writes both
 # back (a grouping and K2 each), 1,000 steps: the first eagerly, the rest
@@ -406,7 +414,8 @@ for _label in ("TransE_l2 host", "Freebase host"):
     EXPECTED_LAUNCHES[_label] = {"gather_rows": 2004, "group_ids": 2000,
                                  "group_ids_tiles": 0,
                                  "sparse_adagrad_rows": 2000,
-                                 "outer_adagrad_update": 0}
+                                 "outer_adagrad_update": 0,
+                                 "transe_l2_loss": 2000}
 HOST_PATHS = ("TransE_l2 host", "Freebase host")
 # Their evals take the eval graphs too: the flagship's filtered test eval
 # makes one pos/side call a direction and one block call (its 14,951
@@ -450,7 +459,8 @@ for _label, _k1 in (("predict TransE_l2 batch_head", 3),
     EXPECTED_LAUNCHES[_label] = {"gather_rows": _k1, "group_ids": 0,
                                  "group_ids_tiles": 0,
                                  "sparse_adagrad_rows": 0,
-                                 "outer_adagrad_update": 0}
+                                 "outer_adagrad_update": 0,
+                                 "transe_l2_loss": 0}
 # The serving requests, at the width of the checkpoints the TransE_l2 and
 # RESCAL main paths write: 16 heads x 1,345 relations x 14,951 tails
 # (batch_head), 100,000 triples, RESCAL's 8 heads x 8 relations x 14,951
@@ -576,17 +586,18 @@ def bf16_ulps(got, want, atol: float = K2_ATOL) -> float:
 
 def phase_build():
     import torch
-    from dglke_tpu_torch.ops import outer_update, rows
+    from dglke_tpu_torch.ops import outer_update, rows, transe_l2
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
     rows.build_libraries(rows.SOURCE, rows.GROUP_SOURCE, outer_update.SOURCE,
-                         K3_STAMPED, GROUP_STAMPED)
+                         transe_l2.SOURCE, K3_STAMPED, GROUP_STAMPED)
     rows.load_library(rows.SOURCE, rows.SIGNATURES)
     rows.load_library(rows.GROUP_SOURCE, rows.GROUP_SIGNATURES)
     rows.load_library(outer_update.SOURCE, outer_update.SIGNATURES)
+    rows.load_library(transe_l2.SOURCE, transe_l2.SIGNATURES)
     print(f"kernel builds (in parallel) + load: {time.time() - t0:.2f} s")
     for src, log in rows.build_logs.items():
         for line in log.splitlines():
@@ -658,6 +669,105 @@ def phase_kernels():
          "plain_ms": k1["plain"][0], "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1["index_select"][0]},
     ]
+
+
+# The fused TransE_l2 loss route's shapes (b, chunks, K, D): the FB15k
+# recipe's 5 chunks of 200 x 200 negatives x 400 and ogbl-wikikg2's 4 of
+# 128 x 128 x 500, the benchmark's two TransE cells.
+TRANSE_L2_SHAPES = {"fb15k": (1000, 5, 200, 400),
+                    "wikikg2": (512, 4, 128, 500)}
+
+
+def phase_transe_l2_kernels():
+    """The fused TransE_l2 loss route (ops/transe_l2.py: its PyTorch sums
+    and its two kernels) at both shapes of TRANSE_L2_SHAPES, in both
+    orientations, against its plain version on the same rows: every log
+    value within rtol 1e-5, every row gradient within 1e-5 of its largest
+    element (the products add their fp32 terms in another order than
+    cuBLAS).  Timed in turns with the autograd route it replaces (the
+    library column), the plain version apart; returns the entry for the
+    JSON line, its launches summed from the main paths' transe_l2_loss
+    counts."""
+    import torch
+    from dglke_tpu_torch.config import KGEConfig
+    from dglke_tpu_torch.models.ke_model import KEModel
+    from dglke_tpu_torch.ops import rows, transe_l2
+    dev = torch.device("cuda")
+    shapes, errs = {}, []
+    for name, (b, c, k, d) in TRANSE_L2_SHAPES.items():
+        gen = torch.Generator(dev)
+        gen.manual_seed(0)
+        ent = (torch.rand((2 * b + c * k, d), generator=gen, device=dev)
+               - 0.5) * 0.12
+        rel = (torch.rand((b, d), generator=gen, device=dev) - 0.5) * 0.12
+        chunks = dict(b=b, num_chunks=c, chunk_size=b // c,
+                      neg_sample_size=k)
+        call = dict(gamma=19.9, adversarial=True, temperature=1.0,
+                    share=1.0, reg_coef=1e-9, reg_pow=3)
+        for neg_head in (False, True):
+            args = dict(chunks, **call, neg_head=neg_head)
+            before = rows.launches["transe_l2_loss"]
+            got = transe_l2.loss_and_grads(ent, rel, None, **args)
+            want = transe_l2.loss_and_grads_plain(ent, rel, None, **args)
+            torch.cuda.synchronize()
+            if rows.launches["transe_l2_loss"] != before + \
+                    transe_l2.LAUNCHES:
+                fail(f"transe_l2_loss {name}: the call counted "
+                     f"{rows.launches['transe_l2_loss'] - before} launches")
+            if list(got[1]) != list(want[1]):
+                fail(f"transe_l2_loss {name}: log keys {list(got[1])}")
+            for key in want[1]:
+                g, w = float(got[1][key]), float(want[1][key])
+                if abs(g - w) > 1e-5 * abs(w):
+                    fail(f"transe_l2_loss {name} neg_head={neg_head}: "
+                         f"{key} {g} against the plain version's {w}")
+            for part, g, w in zip(("entity", "relation"), got[2:], want[2:]):
+                err, scale = float((g - w).abs().max()), float(
+                    w.abs().max())
+                if err > 1e-5 * scale:
+                    fail(f"transe_l2_loss {name} neg_head={neg_head}: "
+                         f"{part} gradients off by {err}, above 1e-5 of "
+                         f"their largest element {scale}")
+                errs.append(err)
+            print(f"transe_l2_loss {name} [{c} x {b // c} x {k} x {d}] "
+                  f"neg_head={neg_head}: logs within rtol 1e-5, gradients "
+                  f"within 1e-5 of their largest element (largest gap "
+                  f"{max(errs[-2:]):.3e}) of the plain version")
+        args = dict(chunks, **call, neg_head=False)
+        cfg = KGEConfig(model_name="TransE_l2", hidden_dim=d, batch_size=b,
+                        neg_sample_size=k, gamma=19.9,
+                        neg_adversarial_sampling=True,
+                        adversarial_temperature=1.0,
+                        regularization_coef=1e-9, regularization_norm=3)
+        model = KEModel(cfg, 100, 10, device="cuda")
+        model._transe_l2_fused = lambda *a, **kw: False   # autograd
+        turns = _in_turns({
+            "route": lambda: transe_l2.loss_and_grads(ent, rel, None,
+                                                      **args),
+            "autograd": lambda: model._rows_loss_and_grads(
+                ent, rel, None, None, **chunks, neg_head=False)}, 50)
+        by_kernel = device_ms_by_kernel(
+            lambda: transe_l2.loss_and_grads(ent, rel, None, **args))
+        kernels_ms = sum(v for key, v in by_kernel.items()
+                         if "transe_l2_" in key)
+        plain = device_ms(lambda: transe_l2.loss_and_grads_plain(
+            ent, rel, None, **args), iters=10)
+        n_bytes = 4 * (2 * (3 * b + c * k) * d + 2 * b * d + 4 * b * k)
+        bound, by = bound_ms(n_bytes, 6 * b * k * d)
+        shapes[name] = {"ms": turns["route"], "kernels_ms": kernels_ms,
+                        "plain_ms": plain, "library_ms": turns["autograd"],
+                        "bound_ms": bound, "bound_by": by}
+        print(f"transe_l2_loss {name}, device ms: the route "
+              f"{turns['route']:.5f} (its two kernels {kernels_ms:.5f}), "
+              f"the autograd route {turns['autograd']:.5f} (in turns), "
+              f"plain {plain:.5f}; bound {bound:.5f} ({by}, "
+              f"{6 * b * k * d / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB), "
+              f"the kernels at {100 * bound / kernels_ms:.1f}% of it")
+    return {"name": "transe_l2_loss", "route": "cuda",
+            "source": "dglke_tpu_torch/ops/csrc/transe_l2.cu",
+            "replaces": None, "launches": None, "max_abs_err": max(errs),
+            **shapes["fb15k"], "wikikg2": shapes["wikikg2"],
+            "counter": "transe_l2_loss"}
 
 
 def _flagship_ids(seed: int):
@@ -2047,6 +2157,28 @@ def fed_graph_parity(label: str, recipe: dict, s: int, groups: int,
     torch.cuda.empty_cache()
 
 
+def _warm_cublas() -> None:
+    """A cuBLAS product and a batched product in fp32 and in bf16, each
+    forward on this thread and backward on autograd's, on the default
+    stream and on the fused calls' capture stream: the pairs of a thread's
+    handle and a stream the fused calls and their eager twins use (the
+    fused TransE_l2 loss runs no backward, so the fp32 flagship alone
+    leaves autograd's pairs unmade)."""
+    import torch
+    from dglke_tpu_torch.models.cuda_graphs import capture_stream
+    dev = torch.device("cuda")
+    main = torch.cuda.current_stream(dev)
+    for stream in (main, capture_stream(dev)):
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.ones((2, 64, 64), device=dev, dtype=dtype,
+                               requires_grad=True)
+                (torch.bmm(x, x).sum() + (x[0] @ x[1]).sum()).backward()
+        main.wait_stream(stream)
+    torch.cuda.synchronize()
+
+
 def phase_graph_parity() -> None:
     """The CUDA graph route against the eager group function, bit for
     bit: the flagship in fp32, with --compute_dtype bfloat16 and with
@@ -2061,9 +2193,12 @@ def phase_graph_parity() -> None:
     (fed_graph_parity: --async_update at s = 10, and s = 1).  The
     card's allocation after the first case and after the last must agree
     within GRAPH_MEM_SLACK: a fused call's graphs, pools and capture
-    stream hold nothing once it is gone (each capture stream of its own
-    kept a cuBLAS workspace, ~64 MB, for the rest of the process)."""
+    stream hold nothing once it is gone (torch keeps a cuBLAS workspace,
+    ~64 MB, for each pair of a thread's handle and a stream that runs a
+    cuBLAS call, for the rest of the process; _warm_cublas makes those of
+    every pair the cases use before the base is taken)."""
     import torch
+    _warm_cublas()
     graph_parity("graph parity TransE_l2", TRANSE, GROUP_S, 4)
     gc.collect()
     base = torch.cuda.memory_allocated()
@@ -2521,7 +2656,8 @@ EVAL_RECIPE = "TransE_l2 eval recipe"
 EXPECTED_LAUNCHES[EVAL_RECIPE] = {"gather_rows": 984, "group_ids": 0,
                                   "group_ids_tiles": 0,
                                   "sparse_adagrad_rows": 0,
-                                  "outer_adagrad_update": 0}
+                                  "outer_adagrad_update": 0,
+                                  "transe_l2_loss": 0}
 EXPECTED_EVAL_GRAPHS[EVAL_RECIPE] = (3, 240)
 
 
@@ -4694,14 +4830,16 @@ for _label, _k1, _steps in (("TransE_l2 dist vocab", 4, DIST_STEPS),
                                  "group_ids": 2 * _steps,
                                  "group_ids_tiles": 0,
                                  "sparse_adagrad_rows": 2 * _steps,
-                                 "outer_adagrad_update": 0}
+                                 "outer_adagrad_update": 0,
+                                 "transe_l2_loss": 2 * _steps}
 for _label, _steps in (("RESCAL dist vocab", DIST_RESCAL_STEPS),
                        ("RESCAL nccl", NCCL_STEPS),
                        ("RESCAL nccl baseline", NCCL_STEPS)):
     EXPECTED_LAUNCHES[_label] = {
         "gather_rows": 2 * _steps, "gather_rows_pow_sum": _steps,
         "group_ids": 2 * _steps, "group_ids_tiles": 0,
-        "sparse_adagrad_rows": _steps, "outer_adagrad_update": _steps}
+        "sparse_adagrad_rows": _steps, "outer_adagrad_update": _steps,
+        "transe_l2_loss": 0}
 # WN18's DistMult recipe under --dist (examples/wn18.sh:15-17: batch 2,048,
 # 128 negatives, hidden 512, gamma 20, -adv, -rc 1e-6, lr 0.14) at WN18's
 # published shape, 40,943 entities and 18 relations (its 141,442 train
@@ -4720,7 +4858,7 @@ for _ts, _steps in DIST_WN18_STEPS.items():
     EXPECTED_LAUNCHES[f"DistMult WN18 dist {_ts}"] = {
         "gather_rows": 2 * _steps, "group_ids": _steps,
         "group_ids_tiles": _steps, "sparse_adagrad_rows": 2 * _steps,
-        "outer_adagrad_update": 0}
+        "outer_adagrad_update": 0, "transe_l2_loss": 0}
 # The cases of the one-step parity (phase_dist_step_parity): recipe, its
 # table sizes, and the tiles-route groupings of a plan's first step on a
 # rank (the entity update's, above 8,192 ids) and of one device's.
@@ -5515,12 +5653,13 @@ TRANSR = dict(model_name="TransR", hidden_dim=200, gamma=8.0, lr=0.015,
 # no K3; the relation rows' gradient [1,000 x 250,000] goes through the
 # grouping and K2's block route.  BF16_RESCAL_STEPS steps, no eval.
 BF16_RESCAL_STEPS = 200
-EXPECTED_LAUNCHES["TransE_l2 bf16"] = dict(EXPECTED_LAUNCHES["TransE_l2"])
+EXPECTED_LAUNCHES["TransE_l2 bf16"] = dict(EXPECTED_LAUNCHES["TransE_l2"],
+                                          transe_l2_loss=0)
 EXPECTED_LAUNCHES["RESCAL bf16"] = {
     "gather_rows": 2 * BF16_RESCAL_STEPS, "gather_rows_pow_sum": 0,
     "group_ids": 2 * BF16_RESCAL_STEPS,
     "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * BF16_RESCAL_STEPS,
-    "outer_adagrad_update": 0}
+    "outer_adagrad_update": 0, "transe_l2_loss": 0}
 # The CPU test's tolerances (tests/test_torch_compute_bf16.py), in bf16
 # roundings (2^-8): each table's update within 8 of the largest update
 # (RotatE's 32 does not apply here), the Adagrad state's increment within
@@ -5659,7 +5798,8 @@ for _label in ("TransE_l2 profile", "TransE_l2 profile baseline"):
                                  "group_ids": 2 * PROFILE_STEPS,
                                  "group_ids_tiles": 0,
                                  "sparse_adagrad_rows": 2 * PROFILE_STEPS,
-                                 "outer_adagrad_update": 0}
+                                 "outer_adagrad_update": 0,
+                                 "transe_l2_loss": 2 * PROFILE_STEPS}
 # The same 200 steps with --valid every VALID_EVERY steps at
 # --batch_size_eval 16: each of the 4 filtered Valid evals (1,000 triples,
 # 63 batches a mode, all of filter width 8) makes 2 group calls a mode of
@@ -5669,7 +5809,7 @@ VALID_EVERY = 50
 EXPECTED_LAUNCHES["TransE_l2 valid"] = {
     "gather_rows": 2 * PROFILE_STEPS + 64, "group_ids": 2 * PROFILE_STEPS,
     "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * PROFILE_STEPS,
-    "outer_adagrad_update": 0}
+    "outer_adagrad_update": 0, "transe_l2_loss": 2 * PROFILE_STEPS}
 EXPECTED_EVAL_GRAPHS["TransE_l2 valid"] = (2, 14)
 # The same on host tables (--mix_cpu_gpu), with and without --valid: each
 # Valid eval (1,000 triples) makes one pos/side call a direction (two K1
@@ -5678,15 +5818,17 @@ EXPECTED_EVAL_GRAPHS["TransE_l2 valid"] = (2, 14)
 EXPECTED_LAUNCHES["TransE_l2 host valid"] = {
     "gather_rows": 2 * PROFILE_STEPS + 16, "group_ids": 2 * PROFILE_STEPS,
     "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * PROFILE_STEPS,
-    "outer_adagrad_update": 0}
+    "outer_adagrad_update": 0, "transe_l2_loss": 2 * PROFILE_STEPS}
 EXPECTED_EVAL_GRAPHS["TransE_l2 host valid"] = (3, 9)
 EXPECTED_LAUNCHES["TransE_l2 host valid baseline"] = dict(
     EXPECTED_LAUNCHES["TransE_l2 host valid"], gather_rows=2 * PROFILE_STEPS)
 HOST_PATHS += ("TransE_l2 host valid", "TransE_l2 host valid baseline")
 # The hand-written kernels a flagship step launches, by the name the trace
-# gives them, and how many times a step (entity and relation rows).
+# gives them, and how many times a step (K1, K2: entity and relation rows;
+# the fused loss route's two).
 PROFILE_KERNELS = {"gather_rows_vec4": 2, "group_ids": 2,
-                   "segment_update_warp": 2}
+                   "segment_update_warp": 2, "transe_l2_rows": 1,
+                   "transe_l2_grads": 1}
 
 
 def _profile_run(label: str, trace_dir=None):
@@ -5854,7 +5996,7 @@ DIST_PART_STEPS = 100
 EXPECTED_LAUNCHES["TransE_l2 dist partition"] = {
     "gather_rows": 2 * DIST_PART_STEPS, "group_ids": 2 * DIST_PART_STEPS,
     "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * DIST_PART_STEPS,
-    "outer_adagrad_update": 0}
+    "outer_adagrad_update": 0, "transe_l2_loss": 2 * DIST_PART_STEPS}
 
 
 def ldg_worker() -> int:
@@ -6071,6 +6213,7 @@ def main() -> int:
         k3, k1_wide = phase_outer()
         kernels[0].update(k1_wide)
         kernels += [k3, tiles]
+        kernels.append(phase_transe_l2_kernels())
         phase_outer_routes()
         lap("phase 2")
         phase_graph_parity()

@@ -34,9 +34,11 @@ from dglke_tpu_torch.device import resolve_device
 from dglke_tpu_torch.models.eval_step import EvalCalls
 from dglke_tpu_torch.models.loss import LossGenerator, regularization
 from dglke_tpu_torch.models.score_functions import (
+    TransEScore,
     TransRScore,
     make_score_function,
 )
+from dglke_tpu_torch.ops import transe_l2
 from dglke_tpu_torch.ops.embedding import (
     EmbeddingState,
     gather_rows,
@@ -46,6 +48,8 @@ from dglke_tpu_torch.ops.embedding import (
 )
 from dglke_tpu_torch.ops.outer_update import outer_adagrad_update
 
+# The loss the fused TransE_l2 route computes (KEModel._transe_l2_fused).
+_FUSED_TOTAL_LOSS = LossGenerator.get_total_loss
 
 class TrainState(nn.Module):
     """Entity and relation tables with their Adagrad state, TransR's
@@ -168,6 +172,29 @@ class KEModel:
                 and cfg.compute_dtype != "bfloat16"
                 and cfg.emb_dtype != "bfloat16")
 
+    def _transe_l2_fused(self, ent_rows=None, rel_rows=None,
+                         **chunks) -> bool:
+        """TransE_l2's fused loss route (ops/transe_l2.py) in place of
+        autograd: TransE with the L2 distance, fp32 compute and tables,
+        the pointwise Logsigmoid loss and no neg_deg_sample; given the
+        gathered rows and the chunk shape (b, num_chunks, chunk_size,
+        neg_sample_size), also rows of that layout (transe_l2.fits).
+
+        The route computes TransEScore's scores and LossGenerator's
+        get_total_loss itself, so a score function or a loss generator
+        whose class replaces them (a subclass, or a patch of the class)
+        keeps the autograd route, which calls what replaced them."""
+        cfg, sf, lg = self.config, self.score_fn, self.loss_gen
+        fused = (type(sf) is TransEScore and sf.dist_ord == 2
+                 and type(lg).get_total_loss is _FUSED_TOTAL_LOSS
+                 and cfg.compute_dtype != "bfloat16"
+                 and cfg.emb_dtype != "bfloat16"
+                 and lg.loss_genre == "Logsigmoid" and not lg.pairwise
+                 and not cfg.neg_deg_sample)
+        if fused and ent_rows is not None:
+            fused = transe_l2.fits(ent_rows, rel_rows, **chunks)
+        return fused
+
     def loss_and_grads(self, state: TrainState, h, r, t, neg, impts, *,
                        neg_head: bool):
         """Loss and gradients w.r.t. the gathered rows.  Returns (loss,
@@ -217,14 +244,20 @@ class KEModel:
                                            self.entity_dim)
         return gather_rows(state.entity, ids, self.entity_dim), ids
 
+    def _share(self) -> float:
+        """This rank's share of the global batch: 1/n under a plan of n
+        ranks, else 1."""
+        return 1.0 if self.plan is None or self.plan.n == 1 else \
+            1.0 / self.plan.n
+
     def _batch_share(self, loss, log):
         """Under a plan, this rank's part of the global batch's mean loss
         (and log values): each rank's mean scaled by 1/n, so that the
         gradients summed over the ranks are those of the global mean.  The
         regularization is a sum over rows and is not scaled."""
-        if self.plan is None or self.plan.n == 1:
+        share = self._share()
+        if share == 1.0:
             return loss, log
-        share = 1.0 / self.plan.n
         return loss * share, {k: v * share for k, v in log.items()}
 
     def _rows_loss_and_grads(self, ent_rows, rel_rows, proj_rows, impts, *,
@@ -234,11 +267,29 @@ class KEModel:
         (loss, log, (ent_grads, rel_grads, proj_grads or None)); log values
         are detached.
 
+        Where _transe_l2_fused holds, ops/transe_l2.py computes them in
+        one fused pass (two kernels on the card); every other case runs
+        autograd over the score function and the loss.
+
         --compute_dtype bfloat16 (the JAX package's cast, ke_model.py:
         289-325): the rows are cast to bf16 before scoring and the scores
         come back as fp32; the loss, the regularization (on the fp32 rows),
         the gradients w.r.t. the fp32 rows and the update stay fp32."""
         cfg = self.config
+        chunks = dict(b=b, num_chunks=num_chunks, chunk_size=chunk_size,
+                      neg_sample_size=neg_sample_size)
+        if self._transe_l2_fused(ent_rows, rel_rows, **chunks):
+            reg = cfg.regularization_coef > 0.0 and \
+                cfg.regularization_norm > 0
+            loss, log, g_ent, g_rel = transe_l2.loss_and_grads(
+                ent_rows, rel_rows, impts, **chunks, neg_head=neg_head,
+                gamma=self.score_fn.gamma,
+                adversarial=self.loss_gen.neg_adversarial_sampling,
+                temperature=self.loss_gen.adversarial_temperature,
+                share=self._share(),
+                reg_coef=cfg.regularization_coef if reg else 0.0,
+                reg_pow=cfg.regularization_norm if reg else 0)
+            return loss, log, (g_ent, g_rel, None)
         leaves = [x.detach().requires_grad_() for x in
                   ([ent_rows, rel_rows] if proj_rows is None
                    else [ent_rows, rel_rows, proj_rows])]

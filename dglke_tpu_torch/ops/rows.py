@@ -49,10 +49,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "group_ids" on its one-block route, "group_ids_tiles" on its tiles route
 # (each such count is one call of 4 + passes kernels).  A K1 launch that
 # also sums |x|^p (gather_rows_pow_sum's fused route) counts under
-# gather_rows and under gather_rows_pow_sum.
+# gather_rows and under gather_rows_pow_sum.  TransE_l2's fused loss
+# (ops/transe_l2.py) counts its two kernels a call under transe_l2_loss.
 launches = {"gather_rows": 0, "gather_rows_pow_sum": 0, "group_ids": 0,
             "group_ids_tiles": 0, "sparse_adagrad_rows": 0,
-            "scatter_add_rows": 0, "outer_adagrad_update": 0}
+            "scatter_add_rows": 0, "outer_adagrad_update": 0,
+            "transe_l2_loss": 0}
 
 _libs: dict = {}       # source path -> loaded library
 build_logs: dict = {}  # source file name -> nvcc's output of a build run here

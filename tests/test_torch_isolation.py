@@ -19,7 +19,7 @@ from dglke_tpu_torch.data.dataset import synthetic_dataset
 from dglke_tpu_torch.host_table import train_host
 from dglke_tpu_torch.models.infer import EmbSimInfer, InferModel
 from dglke_tpu_torch.models.ke_model import KEModel
-from dglke_tpu_torch.ops import outer_update, rows
+from dglke_tpu_torch.ops import outer_update, rows, transe_l2
 from dglke_tpu_torch.ops.embedding import EmbeddingState
 from dglke_tpu_torch.parallel.mesh import init_distributed
 from dglke_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
@@ -201,7 +201,7 @@ def test_kernel_module_runs_on_the_cpu_without_nvcc(monkeypatch):
 
 
 def test_kernel_sources_ship_with_the_package():
-    for source in (rows.SOURCE, outer_update.SOURCE):
+    for source in (rows.SOURCE, outer_update.SOURCE, transe_l2.SOURCE):
         assert os.path.isfile(source)
         assert source.suffix == ".cu"
         assert source.parent == rows.CSRC

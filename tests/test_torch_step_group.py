@@ -340,21 +340,31 @@ def test_group_reads_no_device_value(over, monkeypatch):
 # Launch counts under replay
 
 
-def test_capture_counts_come_out_and_replays_add_them(monkeypatch):
+# What a capture of a group of 10 steps counts: RESCAL's factored route;
+# TransE_l2 in fp32, whose fused loss route launches two kernels a step.
+CAPTURED = {
+    "RESCAL": {"gather_rows": 20, "gather_rows_pow_sum": 10,
+               "group_ids": 20, "group_ids_tiles": 0,
+               "sparse_adagrad_rows": 10, "scatter_add_rows": 0,
+               "outer_adagrad_update": 10, "transe_l2_loss": 0},
+    "TransE_l2": {"gather_rows": 20, "gather_rows_pow_sum": 0,
+                  "group_ids": 20, "group_ids_tiles": 0,
+                  "sparse_adagrad_rows": 20, "scatter_add_rows": 0,
+                  "outer_adagrad_update": 0, "transe_l2_loss": 20},
+}
+
+
+@pytest.mark.parametrize("model_name", list(CAPTURED))
+def test_capture_counts_come_out_and_replays_add_them(model_name,
+                                                      monkeypatch):
     monkeypatch.setattr(rows, "launches", dict.fromkeys(rows.launches, 0))
     rows.launches["gather_rows"] = 5
     before = dict(rows.launches)
-    # what a capture of a RESCAL group of 10 steps counts
-    for k, n in (("gather_rows", 20), ("gather_rows_pow_sum", 10),
-                 ("group_ids", 20), ("sparse_adagrad_rows", 10),
-                 ("outer_adagrad_update", 10)):
+    for k, n in CAPTURED[model_name].items():
         rows.launches[k] += n
     counted = rows.take_launches(before)
     assert rows.launches == before
-    assert counted == {"gather_rows": 20, "gather_rows_pow_sum": 10,
-                       "group_ids": 20, "group_ids_tiles": 0,
-                       "sparse_adagrad_rows": 10, "scatter_add_rows": 0,
-                       "outer_adagrad_update": 10}
+    assert counted == CAPTURED[model_name]
     for _ in range(99):           # a run of 100 groups: 99 replays
         rows.add_launches(counted)
     want = dict(before)
