@@ -189,7 +189,7 @@ Phases (any failure exits non-zero and prints no result line):
      their plain versions: K1 at the flagship's 3,000 ids x 400 and on
      1,000 of TransR's 160,000-wide projection rows (in the mapped shape
      and the one a table on the card takes), K2
-     on both routes, Adagrad and the plain row add; each timed beside its
+     from K1's rows, Adagrad and the plain row add; each timed beside its
      bound over the host link (the PCIe generation and width nvidia-smi
      reports), its plain version and the staging route (the JAX package's
      host design written in PyTorch).  The flagship through the CLI with
@@ -3626,24 +3626,22 @@ def host_ms(fn, iters: int = 20) -> float:
 
 
 def check_k2_mapped(label: str, table, ss0, ids, grads, adagrad: bool):
-    """K2 on a mapped host table (and its mapped state_sum) on each of
-    rows.UPDATE_ROUTES against its plain version on CPU copies of the same
-    inputs: the table route within K2_RTOL / K2_ATOL; the gather and rows
-    routes (the rows route given K1's rows at the ids, as the host step
-    gives them) bit-identical to it; the rows route twice bit-identical;
-    untouched rows unchanged.  table and ss0 are numpy arrays, ids and
-    grads on the card."""
+    """K2 on a mapped host table (and its mapped state_sum), given K1's
+    rows at the ids as the host step gives them, against its plain version
+    on CPU copies of the same inputs: within K2_RTOL / K2_ATOL; two runs
+    bit-identical; untouched rows unchanged.  table and ss0 are numpy
+    arrays, ids and grads on the card."""
     import torch
     from dglke_tpu_torch.ops import rows
 
-    def run(route):
+    def run(mapped):
         emb = rows.host_zeros(table.shape)
         emb[...] = table
         state = None
         if adagrad:
             state = rows.host_zeros(ss0.shape)
             state[...] = ss0
-        if route is None:
+        if not mapped:
             emb_t = torch.from_numpy(emb)
             ss_t = torch.from_numpy(state) if adagrad else None
             i, g = ids.cpu(), grads.cpu()
@@ -3654,36 +3652,29 @@ def check_k2_mapped(label: str, table, ss0, ids, grads, adagrad: bool):
         else:
             emb_t = rows.map_host(emb)
             ss_t = rows.map_host(state) if adagrad else None
-            got = (rows.gather_rows(emb_t, ids) if route == "rows"
-                   else None)
+            got = rows.gather_rows(emb_t, ids)
             if adagrad:
                 rows.sparse_adagrad_rows(emb_t, ss_t, ids, grads, LR,
-                                         route=route, rows=got)
+                                         rows=got)
             else:
-                rows.scatter_add_rows(emb_t, ids, grads, route=route,
-                                      rows=got)
+                rows.scatter_add_rows(emb_t, ids, grads, rows=got)
         torch.cuda.synchronize()
         # plain copies: the mapped ranges are released with the arrays
         return (emb_t.clone(), None if ss_t is None else ss_t.clone())
 
-    (ep, sp) = run(None)
-    out = {r: run(r) for r in rows.UPDATE_ROUTES}
+    (ep, sp) = run(False)
     name = "sparse_adagrad_rows" if adagrad else "scatter_add_rows"
     what = f"K2 {name} {label} on a mapped host table"
-    ek, sk = out["table"]
+    ek, sk = run(True)
     err = float((ek - ep).abs().max())
     if not torch.allclose(ek, ep, rtol=K2_RTOL, atol=K2_ATOL):
         fail(f"{what}: max |diff| {err} outside rtol {K2_RTOL} atol "
              f"{K2_ATOL}")
     if adagrad and not torch.allclose(sk, sp, rtol=K2_RTOL, atol=K2_ATOL):
         fail(f"{what} state_sum: max |diff| {float((sk - sp).abs().max())}")
-    for r, (e, st) in out.items():
-        if not (torch.equal(e, ek) and (not adagrad or torch.equal(st, sk))):
-            fail(f"{what}: the {r} route differs from the table route's "
-                 f"bits")
-    e2, s2 = run("rows")
+    e2, s2 = run(True)
     if not (torch.equal(e2, ek) and (not adagrad or torch.equal(s2, sk))):
-        fail(f"{what}: two runs of the rows route differ")
+        fail(f"{what}: two runs differ")
     untouched = torch.ones(table.shape[0], dtype=torch.bool)
     untouched[ids.long().cpu()] = False
     base = torch.from_numpy(table)
@@ -3691,10 +3682,9 @@ def check_k2_mapped(label: str, table, ss0, ids, grads, adagrad: bool):
                                                     base[untouched]):
         fail(f"{what}: no untouched row, or one changed")
     print(f"{what} [{ids.numel()} ids, {table.shape[0]} x {table.shape[1]}, "
-          f"{rows.plan_update(table.shape[1])}]: routes "
-          f"{rows.UPDATE_ROUTES} bit-identical, within rtol {K2_RTOL} / "
-          f"atol {K2_ATOL} of plain (max |diff| {err:.3g}); two runs "
-          f"bit-identical; untouched rows unchanged")
+          f"{rows.plan_update(table.shape[1])}], from K1's rows: within "
+          f"rtol {K2_RTOL} / atol {K2_ATOL} of plain (max |diff| "
+          f"{err:.3g}); two runs bit-identical; untouched rows unchanged")
     return err
 
 
@@ -3737,22 +3727,14 @@ def cycling(fn, args: list):
     return call
 
 
-def _time_k2_routes(table, ss_t, id_sets, grads, iters: int) -> dict:
-    """ms a call of each of K2's routes on a mapped table, in turns on
-    CUDA events, each call on the next of ``id_sets`` (each call updates the
-    table in place; the rows route is given K1's rows at the ids, gathered
-    once before)."""
+def _time_k2(table, ss_t, id_sets, grads, iters: int) -> float:
+    """ms a call of K2 on a mapped table on CUDA events, each call on the
+    next of ``id_sets`` and given K1's rows at those ids, gathered once
+    before (each call updates the table in place)."""
     from dglke_tpu_torch.ops import rows
     args = [(i, rows.gather_rows(table, i)) for i in id_sets]
-    routes = rows.UPDATE_ROUTES
-    ms = {r: [] for r in routes}
-    for r in (*routes, *reversed(routes)):
-        ms[r].append(call_ms(cycling(
-            lambda i, got, r=r: rows.sparse_adagrad_rows(
-                table, ss_t, i, grads, LR, route=r,
-                rows=got if r == "rows" else None), args),
-            iters=iters, warmup=2))
-    return {r: sum(v) / len(v) for r, v in ms.items()}
+    return call_ms(cycling(lambda i, got: rows.sparse_adagrad_rows(
+        table, ss_t, i, grads, LR, rows=got), args), iters=iters, warmup=2)
 
 
 MAPPED_SWEEP = (1, 3, 100, 384, 401, 2047, 5000)
@@ -3798,15 +3780,13 @@ def phase_host_kernels():
     rows.host_zeros arrays, as host mode places them), held to their plain
     versions on the same inputs: K1 at the flagship's 3,000 ids x 400 and
     on 1,000 of TransR's 160,000-wide projection rows, in the mapped shape
-    (whole lines through shared memory), the earlier mapped shape
-    (wide_loads) and the shape a table on the card takes, timed in turns
-    on CUDA events, at the flagship on fresh ids each call (fresh_ids); at
-    the flagship the mapped shape also on the same table in numpy's own
-    memory (16 bytes off a line), in turns.  K2 on
-    the scratch route against the earlier table route at the mapped
-    address (a warp per segment at the flagship; a block per segment on
-    the projection rows), Adagrad and the plain row add, bit-identical and
-    timed in turns.  Each is timed beside its bound over the host link, its
+    (whole lines through shared memory) and the shape a table on the card
+    takes, timed in turns on CUDA events, at the flagship on fresh ids each
+    call (fresh_ids); at the flagship the mapped shape also on the same
+    table in numpy's own memory (16 bytes off a line), in turns.  K2 from
+    K1's rows (a warp per segment at the flagship; a block per segment on
+    the projection rows), Adagrad and the plain row add, held to plain and
+    timed.  Each is timed beside its bound over the host link, its
     plain version on the CPU, the JAX package's design written in PyTorch
     (the staging route: index_select into a pinned buffer and one copy to
     the card; the gradients copied back and the plain update on the CPU),
@@ -3840,8 +3820,8 @@ def phase_host_kernels():
         ids_cpu = ids.cpu()
         want = rows.gather_rows_plain(table, ids_cpu, width)
         chosen = rows.gather_shape(width, mapped=True)
-        # the chosen shape, the earlier one and the one a card table takes
-        shapes = (chosen, "wide_loads", rows.gather_shape(width))
+        # the chosen shape and the one a card table takes
+        shapes = (chosen, rows.gather_shape(width))
         for shape in shapes:
             got = rows.launch_gather(table, ids, width, shape,
                                      rows.mapped_address(table))
@@ -3926,9 +3906,7 @@ def phase_host_kernels():
         grads = torch.randn((ids.numel(), width), device=dev) * 0.1
         err = max(check_k2_mapped(label, tab_np, ss, ids, grads, True),
                   check_k2_mapped(label, tab_np, None, ids, grads, False))
-        k2_routes = _time_k2_routes(table, ss_t, id_sets, grads, iters)
-        main = rows.update_route(True, rows_given=True)   # the host step's
-        k2 = k2_routes[main]
+        k2 = _time_k2(table, ss_t, id_sets, grads, iters)
         got = rows.gather_rows(table, ids)
         k2_split = device_ms_by_kernel(lambda: rows.sparse_adagrad_rows(
             table, ss_t, ids, grads, LR, rows=got),
@@ -3948,11 +3926,9 @@ def phase_host_kernels():
         k2_link = uniq * (width + 1) * 4        # each way
         k2_hbm = ids.numel() * (width + 1) * 4
         k2_bound = max(k2_link / link * 1e3, k2_hbm / HBM_BYTES_PER_S * 1e3)
-        print(f"K2 sparse_adagrad_rows on a mapped {label} table, "
-              f"{main} route: ms per call {k2:.5f} (CUDA "
-              f"events; routes in turns: "
-              + ", ".join(f"{r} {v:.5f}" for r, v in k2_routes.items())
-              + "; torch.profiler by kernel: "
+        print(f"K2 sparse_adagrad_rows on a mapped {label} table, from "
+              f"K1's rows: ms per call {k2:.5f} (CUDA events; "
+              f"torch.profiler by kernel: "
               + ", ".join(f"{k[:40]} {v:.5f}" for k, v in k2_split.items())
               + f"); bound {k2_bound:.5f} (bytes: {k2_link / 1e6:.3f} MB "
               f"each way over the link), {100 * k2_bound / k2:.1f}% of it; "
@@ -3962,7 +3938,7 @@ def phase_host_kernels():
         out[label] = dict(k1=k1, k1_plain=plain, k1_bound=bound,
                           k1_staged=staged_ms, k2=k2, k2_plain=k2_plain,
                           k2_bound=k2_bound, k2_staged=k2_staged, err=err,
-                          shapes=ms, k2_routes=k2_routes, copy=copy_rate)
+                          shapes=ms, copy=copy_rate)
         del table, ss_t, grads, host, ss_host
     gc.collect()
     if rows._mapped:
@@ -3972,11 +3948,10 @@ def phase_host_kernels():
               "launches": None, "bound_by": "bytes", "paths": HOST_PATHS}
     return [
         {"name": "gather_rows (mapped host table)",
-         "counter": "gather_rows", "shape": rows.MAPPED_SHAPE,
+         "counter": "gather_rows", "shape": rows.gather_shape(DIM, True),
          "replaces": "dglke_tpu/ops/pallas/rows.py:89", "max_abs_err": 0.0,
          "ms": f["k1"], "plain_ms": f["k1_plain"], "bound_ms": f["k1_bound"],
          "library_ms": f["k1_staged"],
-         "old_shape_ms": f["shapes"]["wide_loads"],
          "copy_engine_gb_s": f["copy"], "transr_projection_ms": p["k1"],
          "transr_projection_bound_ms": p["k1_bound"],
          "transr_projection_library_ms": p["k1_staged"],
@@ -3984,14 +3959,10 @@ def phase_host_kernels():
          **common},
         {"name": "sparse_adagrad_rows (mapped host table)",
          "counter": "sparse_adagrad_rows",
-         "update_route": rows.update_route(True, rows_given=True),
          "replaces": "dglke_tpu/ops/pallas/rows.py:227",
          "max_abs_err": max(f["err"], p["err"]), "ms": f["k2"],
          "plain_ms": f["k2_plain"], "bound_ms": f["k2_bound"],
-         "library_ms": f["k2_staged"],
-         "old_route_ms": f["k2_routes"]["table"],
-         "routes_ms": f["k2_routes"], "transr_projection_ms": p["k2"],
-         "transr_projection_routes_ms": p["k2_routes"],
+         "library_ms": f["k2_staged"], "transr_projection_ms": p["k2"],
          "transr_projection_bound_ms": p["k2_bound"],
          "transr_projection_library_ms": p["k2_staged"], **common},
     ]
@@ -4227,44 +4198,9 @@ def phase_host_profile(label: str, model, state, ds, steps: int = 50,
     return {k: (v[0], v[1] / v[0]) for k, v in out.items()}
 
 
-# A mapped table's K1 shape and K2 route in the host step: this slice's
-# (K2 reads K1's rows), and the earlier ones (the card's kernels at the
-# mapped address), for the step in turns.
-MAPPED_ROUTES = {"mapped / rows": ("mapped", "rows"),
-                 "wide_loads / table": ("wide_loads", "table")}
-
-
-def host_routes_in_turns(label: str, model, state, ds) -> dict:
-    """The host step on graphs (phase_host_profile's graph route, over 100
-    steps) with each of MAPPED_ROUTES in turn (a, b, b, a), each time in
-    fresh CUDA graphs: {routes: [(host ms a step, busy share), ...]}."""
-    from dglke_tpu_torch.ops import rows
-    kept = rows.MAPPED_SHAPE, rows.update_route
-    res = {k: [] for k in MAPPED_ROUTES}
-    try:
-        for k in (*MAPPED_ROUTES, *reversed(MAPPED_ROUTES)):
-            shape, route = MAPPED_ROUTES[k]
-            rows.MAPPED_SHAPE = shape
-            rows.update_route = (
-                lambda mapped, rows_given=False, route=route:
-                route if mapped else "table")
-            res[k].append(phase_host_profile(f"{label} ({k})", model, state,
-                                             ds, steps=100,
-                                             routes=("graph",))["graph"])
-    finally:
-        rows.MAPPED_SHAPE, rows.update_route = kept
-    print(f"{label} step on graphs, mapped K1 shape / K2 route in turns "
-          f"[{card_line()}]: " + "; ".join(
-              f"{k} " + ", ".join(f"{ms:.4f} ms at {100 * b:.1f}% busy"
-                                  for ms, b in v) for k, v in res.items()))
-    return res
-
-
 def phase_host_flagship_profile():
     """The host step profile at the flagship shape: fresh host tables of
-    14,951 x 400 and 1,345 x 400, mapped, on 100,000 train edges; then the
-    step on graphs with this slice's mapped routes and the earlier ones in
-    turns."""
+    14,951 x 400 and 1,345 x 400, mapped, on 100,000 train edges."""
     from dglke_tpu_torch import host_table
     from dglke_tpu_torch.config import KGEConfig
     from dglke_tpu_torch.data.dataset import synthetic_dataset
@@ -4274,7 +4210,6 @@ def phase_host_flagship_profile():
     state = host_table.init_host_state(model, seed=0)
     ds = synthetic_dataset(N_ENT, N_REL, n_train=100_000, seed=0)
     phase_host_profile("TransE_l2 host", model, state, ds)
-    host_routes_in_turns("TransE_l2 host", model, state, ds)
     del state
     gc.collect()
 
@@ -4332,8 +4267,8 @@ def phase_capacity_parity(model, state, ds):
     TrainSampler batch, whose entity ids run over the 26 bits of FB_ENT - 1
     that the grouping sorts: the touched entity and relation rows and
     their state_sum entries must match sparse_adagrad_plain applied, with
-    the step's row gradients (host_table.host_grads on the same tables and
-    batch), to CPU copies of only those rows, ids remapped to compact
+    the step's row gradients (KEModel.loss_and_grads on the same tables
+    and batch), to CPU copies of only those rows, ids remapped to compact
     indices, within K2_RTOL / K2_ATOL; 1,000 rows of each table that the
     step does not touch stay bit-equal."""
     import torch
@@ -4369,12 +4304,13 @@ def phase_capacity_parity(model, state, ds):
     batch = next(iter(TrainSampler(ds, cfg.batch_size, cfg.neg_sample_size,
                                    seed=3)))
     packed, _, neg_head, b = pack_batch(batch, pin=False)
-    _, updates = host_table.host_grads(
-        model, state, *unpack_batch(packed.cuda(), b), None,
-        neg_head=neg_head)
+    h, r, t, neg = unpack_batch(packed.cuda(), b)
+    _, _, (ent_ids, g_ent, g_rel, _) = model.loss_and_grads(
+        state, h, r, t, neg, None, neg_head=neg_head)
+    updates = [(state.entity, ent_ids, g_ent), (state.relation, r, g_rel)]
     torch.cuda.synchronize()
     held = []
-    for table, ids, grads, _ in updates:
+    for table, ids, grads in updates:
         uniq, inv = torch.unique(ids.long().cpu(), return_inverse=True)
         other = rng.integers(0, table.emb.shape[0], 1000)
         other = torch.from_numpy(other[~np.isin(other, uniq.numpy())])
@@ -4383,7 +4319,7 @@ def phase_capacity_parity(model, state, ds):
                      table.emb[other].clone()))
     host_table.host_step(model, state, batch)
     torch.cuda.synchronize()
-    for name, (table, ids, _, _), (uniq, inv, g, emb, ss, other, rest) in zip(
+    for name, (table, ids, _), (uniq, inv, g, emb, ss, other, rest) in zip(
             ("entity", "relation"), updates, held):
         rows.sparse_adagrad_plain(emb, ss, inv, g, cfg.lr)
         got_emb, got_ss = table.emb[uniq], table.state_sum[uniq]
@@ -4402,74 +4338,51 @@ def phase_capacity_parity(model, state, ds):
               f"/ atol {K2_ATOL} of sparse_adagrad_plain on CPU copies of "
               f"the touched rows (max |diff| {err:.3g}); {len(other)} "
               f"untouched rows unchanged")
-    capacity_routes(state.entity, cfg.lr, rng)
+    capacity_kernels(state.entity, cfg.lr, rng)
 
 
-def capacity_routes(ent, lr: float, rng) -> None:
-    """K1's shapes and K2's routes on the capacity run's entity table, in
-    turns on CUDA events, at N_ENT_IDS random ids over all FB_ENT rows: the
-    mapped shape against the earlier wide_loads, each bit-equal to the
-    host's rows; K2's routes (rows.UPDATE_ROUTES) bit-identical on the same
-    inputs (the touched rows restored after each), then timed with zero
-    gradients, which leave every bit of the table as it was."""
+def capacity_kernels(ent, lr: float, rng) -> None:
+    """K1 and K2 on the capacity run's entity table, on CUDA events, at
+    N_ENT_IDS random ids over all FB_ENT rows: K1 bit-equal to the host's
+    rows; K2 from K1's rows changes the touched rows (restored after), then
+    is timed with zero gradients, which leave every bit of the table as it
+    was."""
     import torch
     from dglke_tpu_torch.ops import rows
     print(host_facts([ent.emb.numpy(), ent.state_sum.numpy()]))
     ids = torch.from_numpy(rng.integers(0, FB_ENT, N_ENT_IDS).astype(
         np.int32)).cuda()
     width = ent.emb.shape[1]
-    addr = rows.mapped_address(ent.emb)
     ids_cpu = ids.long().cpu()
-    want = ent.emb[ids_cpu]
-    shapes = (rows.MAPPED_SHAPE, "wide_loads")
-    for shape in shapes:
-        got = rows.launch_gather(ent.emb, ids, width, shape, addr)
-        torch.cuda.synchronize()
-        if not torch.equal(got.cpu(), want):
-            fail(f"capacity run: K1 {shape} differs from the host's rows")
+    if not torch.equal(rows.gather_rows(ent.emb, ids).cpu(),
+                       ent.emb[ids_cpu]):
+        fail("capacity run: K1 differs from the host's rows")
     id_sets = fresh_ids(ids, FB_ENT)
-    k1 = {s: [] for s in shapes}
-    for s in (*shapes, *reversed(shapes)):
-        k1[s].append(call_ms(cycling(lambda i, s=s: rows.launch_gather(
-            ent.emb, i, width, s, addr), [(i,) for i in id_sets]),
-            iters=50, warmup=2))
-    k1 = {s: sum(v) / 2 for s, v in k1.items()}
+    k1 = call_ms(cycling(lambda i: rows.gather_rows(ent.emb, i),
+                         [(i,) for i in id_sets]), iters=50, warmup=2)
     grads = torch.randn((N_ENT_IDS, width), device="cuda") * 0.1
     uniq = torch.unique(ids_cpu)
     saved = (ent.emb[uniq].clone(), ent.state_sum[uniq].clone())
-    after = {}
-    for route in rows.UPDATE_ROUTES:
-        got = rows.gather_rows(ent.emb, ids) if route == "rows" else None
-        rows.sparse_adagrad_rows(ent.emb, ent.state_sum, ids, grads, lr,
-                                 route=route, rows=got)
-        torch.cuda.synchronize()
-        after[route] = (ent.emb[uniq].clone(), ent.state_sum[uniq].clone())
-        ent.emb[uniq], ent.state_sum[uniq] = saved
-        del got
-    e0, s0 = after["table"]
-    for route, (e1, s1) in after.items():
-        if not (torch.equal(e0, e1) and torch.equal(s0, s1)):
-            fail(f"capacity run: K2's {route} route differs from the table "
-                 f"route's bits")
-    if torch.equal(e0, saved[0]):
-        fail("capacity run: K2 changed no row")
-    before = ent.emb[torch.unique(torch.cat(id_sets).long().cpu())]
-    k2 = _time_k2_routes(ent.emb, ent.state_sum, id_sets,
-                         torch.zeros_like(grads), 50)
+    rows.sparse_adagrad_rows(ent.emb, ent.state_sum, ids, grads, lr,
+                             rows=rows.gather_rows(ent.emb, ids))
     torch.cuda.synchronize()
+    if torch.equal(ent.emb[uniq], saved[0]):
+        fail("capacity run: K2 changed no row")
+    ent.emb[uniq], ent.state_sum[uniq] = saved
     touched = torch.unique(torch.cat(id_sets).long().cpu())
+    before = ent.emb[touched]
+    k2 = _time_k2(ent.emb, ent.state_sum, id_sets, torch.zeros_like(grads),
+                  50)
+    torch.cuda.synchronize()
     if not (torch.equal(ent.emb[uniq], saved[0])
             and torch.equal(ent.state_sum[uniq], saved[1])
             and torch.equal(ent.emb[touched], before)):
         fail("capacity run: zero gradients changed the table")
-    print(f"capacity run: routes in turns on the {FB_ENT} x {width} mapped "
-          f"table, {N_ENT_IDS} random ids ({len(uniq)} distinct) over all "
-          f"rows, fresh ones each call from {len(id_sets)} sets, ms a call "
-          f"(CUDA events): K1 "
-          + ", ".join(f"{s} {v:.5f}" for s, v in k1.items())
-          + " (each bit-equal to the host's rows); K2 "
-          + ", ".join(f"{r} {v:.5f}" for r, v in k2.items())
-          + " (bit-identical on the same inputs)")
+    print(f"capacity run: on the {FB_ENT} x {width} mapped table, "
+          f"{N_ENT_IDS} random ids ({len(uniq)} distinct) over all rows, "
+          f"fresh ones each call from {len(id_sets)} sets, ms a call (CUDA "
+          f"events): K1 {rows.gather_shape(width, True)} {k1:.5f} "
+          f"(bit-equal to the host's rows); K2 from K1's rows {k2:.5f}")
 
 
 # The full eval's window of blocks traced for its copy / math / idle split
@@ -4693,7 +4606,6 @@ def phase_capacity():
     ds = trained["dataset"]
     phase_capacity_parity(model, state, ds)
     phase_host_profile("Freebase host", model, state, ds)
-    host_routes_in_turns("Freebase host", model, state, ds)
     cfg = dataclasses.replace(trained["config"], neg_sample_size_eval=-1,
                               eval_percent=FB_FULL_EVAL / FB_TEST)
     capacity_full_eval(cfg, ds, model, state, table)
@@ -5698,7 +5610,7 @@ def phase_bf16_main(fp32_metrics: dict):
             str(BF16_RESCAL_STEPS // 2), "--no_save_emb",
             "--save_path", os.path.join(WORK, "bf16_ckpts")]
     counts, text, model, state = run_cli("RESCAL bf16", argv)
-    if model._rescal_factored():
+    if model._rescal_factored(state):
         fail("RESCAL bf16: the factored route (K3) was taken")
     if {state.entity.emb.dtype, state.relation.emb.dtype} != {
             torch.float32}:

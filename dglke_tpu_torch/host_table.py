@@ -7,11 +7,12 @@ The semantics are the JAX package's:
   * the tables live in host memory (fp32, whatever emb_dtype says), drawn
     with numpy from the seed exactly as the JAX package draws them, so a
     run starts from the same tables bit for bit;
-  * only a batch's rows move: each step gathers the [h | t | neg] entity
-    rows and the relation rows (and TransR's projection rows), computes
-    the loss and the row gradients with KEModel._rows_loss_and_grads, and
-    writes each table back by row-sparse Adagrad with the JAX ordering
-    (every occurrence's mean(g^2) into state_sum first, then the std);
+  * only a batch's rows move: each step is KEModel.train_step on the
+    HostState, which gathers the [h | t | neg] entity rows and the
+    relation rows (and TransR's projection rows), computes the loss and
+    the row gradients (RESCAL by the plain row route), and writes each
+    table back by row-sparse Adagrad with the JAX ordering (every
+    occurrence's mean(g^2) into state_sum first, then the std);
   * full-entity eval streams the entity table through the device once, in
     contiguous blocks, each scored against both corruption directions;
   * checkpoints are the standard npy contract, so host-mode and device
@@ -30,9 +31,9 @@ the kernels' plain versions.
 Each training step is one fed call (models/fed_step.py, host_fed_step):
 a trainer.HostFeed samples and packs the batches ahead, the call copies a
 batch's ids into its static inputs on the model's device, and on a card
-replays a CUDA graph of the step (host_rows_step), whose K1 and K2 reach
-the mapped tables; on the CPU it runs the step eagerly.  host_step is the
-same step eagerly, with its batch uploaded.
+replays a CUDA graph of the step, whose K1 and K2 reach the mapped tables;
+on the CPU it runs the step eagerly.  host_step is the same step eagerly,
+with its batch uploaded.
 
 The eval makes the model's eval calls (models/eval_step.py), as the JAX
 package calls its three jits: the sampled groups through the device
@@ -63,7 +64,7 @@ from dglke_tpu_torch.data.sampler import EvalSampler, FilterIndex
 from dglke_tpu_torch.models.fed_step import FedStep, pack_batch, unpack_batch
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.ops import rows
-from dglke_tpu_torch.ops.embedding import gather_rows, sparse_adagrad_update
+from dglke_tpu_torch.ops.embedding import gather_rows
 from dglke_tpu_torch.trainer import HostFeed, ProfileWindow, steps_per_group
 
 
@@ -174,74 +175,22 @@ def load_host_state(config: KGEConfig, model: KEModel,
                      saved_step(config, path))
 
 
-def host_grads(model: KEModel, state: HostState, h, r, t, neg, impts, *,
-               neg_head: bool):
-    """The first half of a host step on a batch already on the model's
-    device (int32 ids, edge weights or None): K1 gathers of the [h | t |
-    neg] entity rows, the relation rows (and TransR's projection rows), and
-    the loss and row gradients of every family by the plain row route
-    (KEModel._rows_loss_and_grads, RESCAL included).  Nothing moves between
-    the host and the card here: ids elsewhere raise.  Returns the step's
-    log dict (detached tensors) and, per table, (table, ids, row gradients,
-    the rows gathered at the ids) for its write-back."""
-    cfg = model.config
-    for x in (h, r, t, neg, impts):
-        if x is not None and x.device.type != model.device.type:
-            raise ValueError(f"host_grads: a batch on {x.device} for a model "
-                             f"on {model.device} (the step moves nothing; "
-                             f"host_step uploads a batch)")
-    b = len(h)
-    ent_ids = torch.cat([h, t, neg])
-    ent_rows = gather_rows(state.entity, ent_ids, model.entity_dim)
-    rel_rows = gather_rows(state.relation, r, model.relation_dim)
-    proj_rows = (gather_rows(state.projection, r, model.proj_dim)
-                 if model.is_transr else None)
-    num_chunks = max(1, len(neg) // cfg.neg_sample_size)
-    _, log, (g_ent, g_rel, g_proj) = model._rows_loss_and_grads(
-        ent_rows, rel_rows, proj_rows, impts, b=b, num_chunks=num_chunks,
-        chunk_size=b // num_chunks, neg_sample_size=len(neg) // num_chunks,
-        neg_head=neg_head)
-    updates = [(state.entity, ent_ids, g_ent, ent_rows),
-               (state.relation, r, g_rel, rel_rows)]
-    if model.is_transr:
-        updates.append((state.projection, r, g_proj, proj_rows))
-    return log, updates
-
-
-def host_rows_step(model: KEModel, state: HostState, h, r, t, neg, impts, *,
-                   neg_head: bool):
-    """One training step on host tables, in place, on a batch on the
-    model's device (the group function's step, models/fed_step.py):
-    host_grads, then each table written back by row-sparse Adagrad with
-    the JAX ordering (the JAX package's host_adagrad_update): on the card
-    K2 (sparse_adagrad_rows) on the mapped table and state_sum, reading
-    the rows K1 gathered in this step rather than the host's a second time
-    (no table is written between the two), on the CPU its plain version.
-    Returns the step's log dict."""
-    log, updates = host_grads(model, state, h, r, t, neg, impts,
-                              neg_head=neg_head)
-    for table, ids, grads, gathered in updates:
-        sparse_adagrad_update(table, ids, grads, model.config.lr, gathered)
-    state.step += 1
-    return log
-
-
 def host_step(model: KEModel, state: HostState, batch: dict):
     """One eager training step on host tables of a TrainSampler batch: its
     ids packed (pack_batch) and moved to the model's device in one
-    transfer, its edge weights in another, then host_rows_step.  Returns
-    the step's log dict."""
+    transfer, its edge weights in another, then KEModel.train_step.
+    Returns the step's log dict."""
     packed, impts, neg_head, b = pack_batch(batch, pin=False)
     dev = model.device
-    return host_rows_step(
-        model, state, *unpack_batch(packed.to(dev), b),
-        None if impts is None else impts.to(dev), neg_head=neg_head)
+    return model.train_step(
+        state, *unpack_batch(packed.to(dev), b),
+        None if impts is None else impts.to(dev), neg_head=neg_head)[1]
 
 
 def host_fed_step(model: KEModel) -> FedStep:
     """The host-table step as a fed call, one step a call: on a card one
     CUDA graph a memo key, replayed (models/fed_step.py)."""
-    return FedStep(model, 1, step=partial(host_rows_step, model))
+    return FedStep(model, 1)
 
 
 def train_host(config: KGEConfig, dataset, model: Optional[KEModel] = None,

@@ -119,11 +119,11 @@ class _Graph:
 
 class GroupCall:
     """s steps a call, with the memo of their CUDA graphs.  A subclass
-    gives ``group(state, span)``, the group function (it sets ``keys``,
-    the log keys in the order of its logs' rows), and ``_key(state)``, the
-    memo key of the call it set up; ``_generators()`` lists the device
-    generators a graph reads.  ``plan``: the ShardingPlan whose
-    collectives the group function runs, or None."""
+    gives ``group(state, span)``, the group function (train_steps on its
+    batches), and ``_key(state)``, the memo key of the call it set up;
+    ``_generators()`` lists the device generators a graph reads.
+    ``plan``: the ShardingPlan whose collectives the group function runs,
+    or None."""
 
     def __init__(self, device, steps_per_call: int, plan=None):
         self.device, self.s, self.plan = device, steps_per_call, plan
@@ -145,6 +145,32 @@ class GroupCall:
 
     def _generators(self) -> list:
         return []
+
+    def train_steps(self, model, state, batches, first: int,
+                    span=no_span) -> torch.Tensor:
+        """The group function's loop, in place on ``state``: each of
+        ``batches`` ((h, r, t, neg, impts, neg_head) on the device) one
+        KEModel.train_step, or under --async_update with s > 1
+        train_step_async with the group's last entity update applied at its
+        end; each step one ``span``, numbered from ``first``.  Sets
+        ``keys`` (the log keys) and returns the logs [K, s] in their
+        order."""
+        use_async = model.config.async_update and self.s > 1
+        pending, logs = None, []
+        for i, (h, r, t, neg, impts, neg_head) in enumerate(batches):
+            with span(first + i):
+                if use_async:
+                    state, pending, log = model.train_step_async(
+                        state, pending, h, r, t, neg, impts,
+                        neg_head=neg_head)
+                else:
+                    state, log = model.train_step(state, h, r, t, neg, impts,
+                                                  neg_head=neg_head)
+            logs.append(log)
+        model.flush_async(state, pending)
+        self.keys = list(logs[0])
+        return torch.stack([torch.stack([log[k] for log in logs])
+                            for k in self.keys])
 
     def run(self, state, first: int, span=no_span) -> torch.Tensor:
         """One call on ``state``, its steps numbered from ``first``: the

@@ -11,13 +11,11 @@ each call, copies the group's buffers (and edge weights) into the call's
 static input tensors on the device, one slot a step, with non-blocking
 copies on the current stream.  The group function reads the batches from
 those slots only, so nothing in it moves or reads a value between the host
-and the card:
-  - the host-fed route: each step is KEModel's train_step, or under
-    --async_update train_step_async with the group's last entity update
-    applied at its end (the JAX superstep's semantics);
-  - host tables: each step is the given ``step`` (host_table.
-    host_rows_step: K1 gathers from the mapped tables, the row route's loss
-    and gradients, K2 write-backs), one step a call.
+and the card.  Each step is KEModel's train_step, or under --async_update
+train_step_async with the group's last entity update applied at its end
+(the JAX superstep's semantics): on tables on the device (the host-fed
+route), or on host tables one step a call (host_table.host_fed_step: K1
+gathers from the mapped tables, K2 writes them back).
 
 On a card the calls replay CUDA graphs (models/cuda_graphs.py:GroupCall),
 memoized on (the group's pattern of corruption sides, whether edge weights
@@ -59,16 +57,11 @@ class FedStep(GroupCall):
     """Runs ``steps_per_call`` steps of packed batches a call:
     ``step(state, batches, first, span)`` -> (state, {log key: [s]
     tensor}), ``batches`` s of pack_batch's tuples, ``first`` the number of
-    the call's first step.  ``step``: the step on batches on the device,
-    ``step(state, h, r, t, neg, impts, neg_head=...)`` -> log, in place
-    (it advances state.step); by default KEModel.train_step, with
-    --async_update deferring entity updates inside the call."""
+    the call's first step."""
 
-    def __init__(self, model, steps_per_call: int, step=None):
+    def __init__(self, model, steps_per_call: int):
         super().__init__(model.device, steps_per_call)
-        self.model, self.step = model, step
-        self.use_async = (step is None and model.config.async_update
-                          and steps_per_call > 1)
+        self.model = model
         self.packed = None      # [s, 3b + negatives] int32 on the device
         self.impts = None       # [s, b] fp32 on the device, once needed
         self.with_impts = False
@@ -102,27 +95,10 @@ class FedStep(GroupCall):
         """The group function, eagerly, on the staged batches: the s steps
         in place on ``state``.  Returns the logs [K, s] (K the log keys, in
         self.keys' order)."""
-        model = self.model
-        pending, logs = None, []
-        for i, neg_head in enumerate(self.neg_heads):
-            h, r, t, neg = unpack_batch(self.packed[i], self.b)
-            impts = self.impts[i] if self.with_impts else None
-            with span(self.first + i):
-                if self.step is not None:
-                    log = self.step(state, h, r, t, neg, impts,
-                                    neg_head=neg_head)
-                elif self.use_async:
-                    state, pending, log = model.train_step_async(
-                        state, pending, h, r, t, neg, impts,
-                        neg_head=neg_head)
-                else:
-                    state, log = model.train_step(state, h, r, t, neg, impts,
-                                                  neg_head=neg_head)
-            logs.append(log)
-        model.flush_async(state, pending)
-        self.keys = list(logs[0])
-        return torch.stack([torch.stack([log[k] for log in logs])
-                            for k in self.keys])
+        batches = ((*unpack_batch(self.packed[i], self.b),
+                    self.impts[i] if self.with_impts else None, neg_head)
+                   for i, neg_head in enumerate(self.neg_heads))
+        return self.train_steps(self.model, state, batches, self.first, span)
 
     def __call__(self, state, batches, first: int = 0, span=no_span):
         with tracing.span("group", self.device):

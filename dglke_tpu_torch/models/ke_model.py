@@ -13,6 +13,12 @@ instead of its relation rows, and writes the relation update through the
 outer-product Adagrad kernel.  Head-corrupt and tail-corrupt steps
 alternate (``neg_head``).
 
+The same step trains tables in host memory (host_table.HostState,
+--mix_cpu_gpu): on a card K1 reads them over the host link and each K2
+update starts from the rows K1 gathered in the step, which a mapped table
+needs; RESCAL takes the plain row route there, as the JAX package's host
+mode does.
+
 Under a parallel.mesh.ShardingPlan (--dist) each rank steps on its own
 slice of the global batch: its loss is scaled by its share of the global
 batch, entity rows come through the plan (K1 on the owner's shard under
@@ -163,14 +169,17 @@ class KEModel:
             neg = neg * (1.0 - eye)[None, :, :]
         return pos, neg.reshape(-1, k), k
 
-    def _rescal_factored(self) -> bool:
-        """RESCAL's factored route, the JAX package's fused one
+    def _rescal_factored(self, state) -> bool:
+        """RESCAL's factored route on ``state``, the JAX package's fused one
         (ke_model.py:253-260) without its environment switch: fp32 tables,
-        fp32 compute and no neg_deg_sample."""
+        fp32 compute, no neg_deg_sample, and tables in a TrainState (on the
+        card or the CPU).  Host tables take the plain row route on every
+        device, as the JAX package's host mode does."""
         cfg = self.config
         return (self.score_fn.name == "RESCAL" and not cfg.neg_deg_sample
                 and cfg.compute_dtype != "bfloat16"
-                and cfg.emb_dtype != "bfloat16")
+                and cfg.emb_dtype != "bfloat16"
+                and not getattr(state, "is_host", False))
 
     def _transe_l2_fused(self, ent_rows=None, rel_rows=None,
                          **chunks) -> bool:
@@ -202,6 +211,26 @@ class KEModel:
         proj_grads or None)); under vocab sharding ent_ids is the
         parallel.mesh.Route of the gather, which the update reuses.  rel_grads is [B, Dr], or for RESCAL's
         factored route the rank-1 factors ("outer", a [B, Dr], b [B, De])."""
+        return self._grads_and_rows(state, h, r, t, neg, impts,
+                                    neg_head=neg_head)[:3]
+
+    def _grads_and_rows(self, state, h, r, t, neg, impts, *,
+                        neg_head: bool):
+        """loss_and_grads, and the rows gathered for the updates: on host
+        tables (entity rows, relation rows, TransR's projection rows or
+        None), which their K2 updates start from; on a TrainState None, so
+        that no gathered copy outlives the step's loss.  A batch off the
+        model's device is refused on host tables, whose plain versions
+        would otherwise take ids on the CPU: the step moves nothing between
+        the host and the card."""
+        host = getattr(state, "is_host", False)
+        if host:
+            for x in (h, r, t, neg, impts):
+                if x is not None and x.device.type != self.device.type:
+                    raise ValueError(
+                        f"a host-table step on a batch on {x.device} for a "
+                        f"model on {self.device} (the step moves nothing; "
+                        f"host_table.host_step uploads a batch)")
         b = h.shape[0]
         # Chunk structure: the batch splits into C chunks of Bc positives,
         # each sharing K = neg_sample_size negatives.
@@ -213,7 +242,7 @@ class KEModel:
         ent_rows, ent_ids = self._gather_entity(state, torch.cat([h, t, neg]))
         chunks = dict(b=b, num_chunks=num_chunks, chunk_size=chunk_size,
                       neg_sample_size=neg_sample_size, neg_head=neg_head)
-        if self._rescal_factored():
+        if self._rescal_factored(state):
             # the relation rows' regularization value comes with them
             # (summed by K1 as it copies them on the card); K3 applies its
             # gradient
@@ -233,7 +262,8 @@ class KEModel:
                          if self.is_transr else None)
             loss, log, grads = self._rows_loss_and_grads(
                 ent_rows, rel_rows, proj_rows, impts, **chunks)
-        return loss, log, (ent_ids,) + grads
+        rows = (ent_rows, rel_rows, proj_rows) if host else None
+        return loss, log, (ent_ids,) + grads, rows
 
     def _gather_entity(self, state: TrainState, ids):
         """fp32 entity rows at ``ids`` and what the update of those rows
@@ -395,12 +425,15 @@ class KEModel:
 
     def train_step(self, state: TrainState, h, r, t, neg, impts, *,
                    neg_head: bool):
-        """One full step, IN PLACE on ``state``.  Returns (state, log)."""
-        _, log, (ent_ids, ent_grads, rel_grads, proj_grads) = \
-            self.loss_and_grads(state, h, r, t, neg, impts,
-                                neg_head=neg_head)
-        self._update_entity(state, ent_ids, ent_grads)
-        self._update_relation(state, r, rel_grads, proj_grads)
+        """One full step, IN PLACE on ``state`` (a TrainState or host
+        tables).  Returns (state, log)."""
+        _, log, (ent_ids, ent_grads, rel_grads, proj_grads), rows = \
+            self._grads_and_rows(state, h, r, t, neg, impts,
+                                 neg_head=neg_head)
+        ent_rows, rel_rows, proj_rows = rows or (None, None, None)
+        self._update_entity(state, ent_ids, ent_grads, rows=ent_rows)
+        self._update_relation(state, r, rel_grads, proj_grads,
+                              rows=(rel_rows, proj_rows))
         state.step += 1
         return state, log
 
@@ -412,7 +445,8 @@ class KEModel:
         rows it scores are one step stale; relations (and TransR's
         projections) update at once.  Returns (state, this step's entity
         update as the new pending, log); ``flush_async`` applies the last
-        one."""
+        one.  Not for host tables, whose updates start from the rows
+        gathered in their own step."""
         _, log, (ent_ids, ent_grads, rel_grads, proj_grads) = \
             self.loss_and_grads(state, h, r, t, neg, impts,
                                 neg_head=neg_head)
@@ -427,24 +461,28 @@ class KEModel:
             self._update_entity(state, pending[0], pending[1])
         return state
 
-    def _update_entity(self, state: TrainState, ids, grads) -> None:
-        """The entity update of a step: K2 on this device's table, or
-        through the plan (to the owners' shards along the gather's Route,
-        or all-gathered onto every replica)."""
+    def _update_entity(self, state: TrainState, ids, grads, *,
+                       rows=None) -> None:
+        """The entity update of a step: K2 on this device's table (from
+        ``rows``, the entity rows of the step, on host tables), or through
+        the plan (to the owners' shards along the gather's Route, or
+        all-gathered onto every replica)."""
         lr = self.config.lr
         if self.plan is None:
-            sparse_adagrad_update(state.entity, ids, grads, lr)
+            sparse_adagrad_update(state.entity, ids, grads, lr, rows)
         elif self.plan.vocab:
             self.plan.routed_update(state.entity, ids, grads, lr)
         else:
             self.plan.allgather_update(state.entity, ids, grads, lr)
 
     def _update_relation(self, state: TrainState, r, rel_grads,
-                         proj_grads) -> None:
+                         proj_grads, *, rows=(None, None)) -> None:
         """The relation update of a step (the outer-product kernel on
-        RESCAL's factored route) and TransR's projection update.  Under a
-        plan every rank's (ids, gradients) are all-gathered first, in rank
-        order, and each replica applies them all."""
+        RESCAL's factored route) and TransR's projection update; on host
+        tables each K2 starts from ``rows``, the step's relation and
+        projection rows.  Under a plan every rank's (ids, gradients) are
+        all-gathered first, in rank order, and each replica applies them
+        all."""
         cfg = self.config
         if self.plan is not None:
             gather = self.plan.allgather
@@ -460,9 +498,11 @@ class KEModel:
                                  reg_coef=cfg.regularization_coef,
                                  reg_norm=cfg.regularization_norm)
         else:
-            sparse_adagrad_update(state.relation, r, rel_grads, cfg.lr)
+            sparse_adagrad_update(state.relation, r, rel_grads, cfg.lr,
+                                  rows[0])
         if self.is_transr:
-            sparse_adagrad_update(state.projection, r, proj_grads, cfg.lr)
+            sparse_adagrad_update(state.projection, r, proj_grads, cfg.lr,
+                                  rows[1])
 
     # -- evaluation ----------------------------------------------------------
 

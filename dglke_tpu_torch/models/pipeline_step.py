@@ -47,29 +47,14 @@ class DevicePipelineStep(GroupCall):
                 f"fit one epoch of {pipeline.n_edges} edges")
         super().__init__(pipeline.device, steps_per_call, model.plan)
         self.model, self.pipeline = model, pipeline
-        self.use_async = model.config.async_update and steps_per_call > 1
 
     def group(self, state, span=no_span) -> torch.Tensor:
         """The group function, eagerly, on the group that
         pipeline.begin_group set up: the s steps in place on ``state``.
         Returns the logs [K, s] (K the log keys, in self.keys' order)."""
-        model, first = self.model, self.pipeline.step_idx
-        pending, logs = None, []
-        for i, (h, r, t, neg, impts, neg_head) in enumerate(
-                self.pipeline.group_batches(self.s)):
-            with span(first + i):
-                if self.use_async:
-                    state, pending, log = model.train_step_async(
-                        state, pending, h, r, t, neg, impts,
-                        neg_head=neg_head)
-                else:
-                    state, log = model.train_step(state, h, r, t, neg, impts,
-                                                  neg_head=neg_head)
-            logs.append(log)
-        model.flush_async(state, pending)
-        self.keys = list(logs[0])
-        return torch.stack([torch.stack([log[k] for log in logs])
-                            for k in self.keys])
+        pipe = self.pipeline
+        return self.train_steps(self.model, state, pipe.group_batches(self.s),
+                                pipe.step_idx, span)
 
     def __call__(self, state, span=no_span):
         pipe = self.pipeline

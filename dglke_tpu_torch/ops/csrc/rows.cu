@@ -58,14 +58,12 @@
 //     aligned 128-byte lines that cover it into shared memory with 16-byte
 //     cp.async copies, two rows a warp in flight before the first store,
 //     then shifts the row into place as it writes it out; the grid is
-//     sized from the SM count and strides over the rows.  The update
-//     (dglke_segment_update_mapped) reads the rows it starts from on the
-//     card: from the rows the step's gather already holds at the same ids
-//     (the host step), so each touched row crosses the link once each way
-//     a step and the update's link traffic is its writes; or, without them,
-//     gathered first into scratch by gather_rows_mapped.  The arithmetic is
-//     the update's below, unchanged (measured, ops/rows.py:MAPPED_SHAPE and
-//     MAPPED_UPDATE).
+//     sized from the SM count and strides over the rows.  The update of a
+//     mapped table (dglke_segment_update given rows) reads the rows it
+//     starts from on the card, from the rows the step's gather already
+//     holds at the same ids, so each touched row crosses the link once each
+//     way a step and the update's link traffic is its writes.  The
+//     arithmetic is the update's below, unchanged.
 //   * update: the TPU kernel serialised duplicate ids inside its DMA window
 //     with conflict flags; a GPU has no such window, and fp32 atomics would
 //     make the sum depend on the order in which blocks run.  The wrapper
@@ -186,20 +184,19 @@ gather_rows_wide_bulk(const float* __restrict__ table,
   bulk_wait_read();
 }
 
-// Wide vector gather: block (row, chunk), kWideVecs vectors per thread,
-// all loaded before the first store.
-template <typename V>
+// Wide bf16 vector gather: block (row, chunk), kWideVecs vectors of four
+// bf16 per thread, all loaded before the first store.
 __global__ void __launch_bounds__(kWideThreads)
-gather_rows_wide_vec4(const V* __restrict__ table,
+gather_rows_wide_vec4(const uint2* __restrict__ table,
                       const int32_t* __restrict__ ids, float4* __restrict__ out,
                       int64_t n_rows, int64_t pitch4, int64_t dim4) {
   const int64_t row = blockIdx.x;
   const int64_t id = ids[row];
   if (id < 0 || id >= n_rows) __trap();
-  const V* src = table + id * pitch4;
+  const uint2* src = table + id * pitch4;
   float4* dst = out + row * dim4;
   const int64_t c0 = int64_t(blockIdx.y) * (kWideChunk / 4) + threadIdx.x;
-  V v[kWideVecs] = {};
+  uint2 v[kWideVecs] = {};
 #pragma unroll
   for (int m = 0; m < kWideVecs; ++m) {
     const int64_t c = c0 + m * kWideThreads;
@@ -265,36 +262,27 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// out[k, :dim] = float32(table[ids[k], :dim]) for k < rows, where rows is
-// n, or *count when count is given (K2's segments: rows past the count are
-// not read).  With ss, also ss_out[k] = ss[ids[k]], read beside the row.
-// A lane skips the vectors of its window that hold no byte of the row, so
+// out[k, :dim] = float32(table[ids[k], :dim]) for k < n.  A lane skips the vectors of its window that hold no byte of the row, so
 // the link carries the row's own 32-byte sectors, while each warp
 // instruction still spans whole lines.
 template <typename T>
 __global__ void __launch_bounds__(kMapThreads)
 gather_rows_mapped(const T* __restrict__ table, int64_t n_rows, int64_t pitch,
-                   const int32_t* __restrict__ ids,
-                   const int32_t* __restrict__ count, int64_t n,
-                   float* __restrict__ out, int64_t dim, int64_t chunk,
-                   const float* __restrict__ ss, float* __restrict__ ss_out) {
+                   const int32_t* __restrict__ ids, int64_t n,
+                   float* __restrict__ out, int64_t dim, int64_t chunk) {
   __shared__ __align__(16) unsigned char slots[kMapWarps][kMapRows][kMapSlot];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
-  const int64_t segs = count != nullptr ? int64_t(*count) : n;
-  const int64_t rows = segs < n ? segs : n;
   const int64_t chunks = (dim + chunk - 1) / chunk;
-  const int64_t items = rows * chunks;
+  const int64_t items = n * chunks;
   const int64_t step = int64_t(gridDim.x) * kMapWarps * kMapRows;
   for (int64_t i0 = (int64_t(blockIdx.x) * kMapWarps + warp) * kMapRows;
        i0 < items; i0 += step) {
     int64_t row[kMapRows], c0[kMapRows];
     int width[kMapRows], shift[kMapRows];
-    float state[kMapRows];
 #pragma unroll
     for (int k = 0; k < kMapRows; ++k) {
       row[k] = -1;
-      state[k] = 0.f;
       if (i0 + k >= items) continue;
       row[k] = (i0 + k) / chunks;
       c0[k] = (i0 + k) % chunks * chunk;
@@ -311,7 +299,6 @@ gather_rows_mapped(const T* __restrict__ table, int64_t n_rows, int64_t pitch,
         if (v + 16 > a && v < a_end)
           cp_async16(slot + static_cast<uint32_t>(v - first),
                      reinterpret_cast<const void*>(v));
-      if (ss != nullptr && c0[k] == 0 && lane == 0) state[k] = __ldcg(ss + id);
     }
     cp_async_wait_all();
     __syncwarp();
@@ -329,7 +316,6 @@ gather_rows_mapped(const T* __restrict__ table, int64_t n_rows, int64_t pitch,
       } else {
         for (int e = lane; e < width[k]; e += kWarp) dst[e] = to_float(src[e]);
       }
-      if (ss != nullptr && c0[k] == 0 && lane == 0) ss_out[row[k]] = state[k];
     }
     __syncwarp();
   }
@@ -337,9 +323,8 @@ gather_rows_mapped(const T* __restrict__ table, int64_t n_rows, int64_t pitch,
 
 template <typename T>
 int launch_gather_mapped(const T* table, int64_t n_rows, int64_t pitch,
-                         const int32_t* ids, const int32_t* count, int64_t n,
-                         float* out, int64_t dim, int64_t chunk,
-                         const float* ss, float* ss_out, cudaStream_t s) {
+                         const int32_t* ids, int64_t n, float* out,
+                         int64_t dim, int64_t chunk, cudaStream_t s) {
   if (chunk <= 0 || chunk * int64_t(sizeof(T)) > kMapSlot - kLine)
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0, sms = 0;
@@ -350,7 +335,7 @@ int launch_gather_mapped(const T* table, int64_t n_rows, int64_t pitch,
   int64_t blocks = (items + per_block - 1) / per_block;
   if (blocks > int64_t(sms) * kMapBlocksPerSM) blocks = int64_t(sms) * kMapBlocksPerSM;
   gather_rows_mapped<T><<<static_cast<unsigned>(blocks), kMapThreads, 0, s>>>(
-      table, n_rows, pitch, ids, count, n, out, dim, chunk, ss, ss_out);
+      table, n_rows, pitch, ids, n, out, dim, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,12 +452,11 @@ __device__ __forceinline__ float4 update4(float4 x, float4 acc, float lr,
 // What both update routes are given.  Segment k of the grouping
 // (group_ids.cu) is the occurrences order[heads[k] .. heads[k + 1]) of row
 // seg_ids[k], for k < count[0]; seg_first[k] = order[heads[k]], so that a
-// segment of one occurrence reads no order at all.  On the mapped routes
-// (kScratch) the row segment k starts from is read on the card, at
-// scratch[k] where gather_rows_mapped copied it (and its state_sum entry
-// into scratch_ss[k]), or with scratch_by_first at scratch[seg_first[k]]
-// of rows the caller already gathered at the ids (state_sum then read at
-// the table's); the results are written to the table's row seg_ids[k].
+// segment of one occurrence reads no order at all.  With rows (kRows, a
+// mapped table) the row segment k starts from is read on the card, at
+// rows[seg_first[k]] of the rows the caller gathered at the ids, and its
+// state_sum entry at the table's; the results are written to the table's
+// row seg_ids[k].
 struct UpdateArgs {
   void* emb;
   float* state_sum;  // null: the plain row add
@@ -486,9 +470,7 @@ struct UpdateArgs {
   const float* grads;
   int64_t n;
   float lr;
-  const float* scratch;     // [n, dim] fp32, on the mapped routes
-  const float* scratch_ss;  // [n] fp32, or null: state_sum read in place
-  int scratch_by_first;     // scratch rows by position in ids, not segment
+  const float* rows;  // [n, dim] fp32 at the ids' positions, or null
 };
 
 struct Segment {
@@ -530,26 +512,18 @@ __device__ __forceinline__ float warp_std(const UpdateArgs& a, int u,
   return sqrtf(ss) + 1e-10f;
 }
 
-// Where segment k's row starts from: the table's row u, or on the mapped
-// routes an fp32 copy of it on the card.
-template <typename T, bool kScratch>
-using Source = typename std::conditional<kScratch, float, T>::type;
+// Where segment k's row starts from: the table's row u, or with kRows the
+// caller's fp32 copy of it on the card.
+template <typename T, bool kRows>
+using Source = typename std::conditional<kRows, float, T>::type;
 
-template <typename T, bool kScratch>
-__device__ __forceinline__ const Source<T, kScratch>* source_row(
-    const UpdateArgs& a, int64_t k, const Segment& s, const T* row) {
-  if constexpr (kScratch)
-    return a.scratch + (a.scratch_by_first ? int64_t(s.first) : k) * a.dim;
+template <typename T, bool kRows>
+__device__ __forceinline__ const Source<T, kRows>* source_row(
+    const UpdateArgs& a, const Segment& s, const T* row) {
+  if constexpr (kRows)
+    return a.rows + int64_t(s.first) * a.dim;
   else
     return row;
-}
-
-template <bool kAdagrad, bool kScratch>
-__device__ __forceinline__ float start_state(const UpdateArgs& a, int64_t k,
-                                             int u) {
-  if (!kAdagrad) return 0.f;
-  return kScratch && a.scratch_ss != nullptr ? a.scratch_ss[k]
-                                             : a.state_sum[u];
 }
 
 // The warp route: one warp per segment, rows of up to 128 * K elements.
@@ -557,17 +531,17 @@ __device__ __forceinline__ float start_state(const UpdateArgs& a, int64_t k,
 // rows; otherwise elements l, l + 32, ... (4K of them).  The row and its
 // state are loaded first and used last; each gradient row is loaded once,
 // in ascending position order, into both sums.
-template <typename T, bool kAdagrad, bool kVec, int K, bool kScratch>
+template <typename T, bool kAdagrad, bool kVec, int K, bool kRows>
 __global__ void __launch_bounds__(kUpdateThreads)
 segment_update_warp(const UpdateArgs a) {
-  using S = Source<T, kScratch>;
+  using S = Source<T, kRows>;
   const int lane = threadIdx.x % kWarp;
   const int64_t k = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
   Segment s;
   if (!load_segment(a, k, &s)) return;
   T* row = static_cast<T*>(a.emb) + int64_t(s.u) * a.pitch;
-  const S* src = source_row<T, kScratch>(a, k, s, row);
-  const float ss0 = start_state<kAdagrad, kScratch>(a, k, s.u);
+  const S* src = source_row<T, kRows>(a, s, row);
+  const float ss0 = kAdagrad ? a.state_sum[s.u] : 0.f;
   double sq = 0.0;
   if constexpr (kVec) {
     using V = typename Vec4<T>::type;
@@ -644,10 +618,10 @@ segment_update_warp(const UpdateArgs a) {
 // for each occurrence, in fp64 across them, then the warps in order); pass
 // 2 sums g per column in ascending position order and writes each element
 // once.
-template <typename T, bool kAdagrad, bool kVec, bool kScratch>
+template <typename T, bool kAdagrad, bool kVec, bool kRows>
 __global__ void __launch_bounds__(kUpdateThreads)
 segment_update_block(const UpdateArgs a) {
-  using S = Source<T, kScratch>;
+  using S = Source<T, kRows>;
   __shared__ double warp_part[kUpdateThreads / kWarp];
   __shared__ float seg_std;
   Segment s;
@@ -655,7 +629,7 @@ segment_update_block(const UpdateArgs a) {
   if (!load_segment(a, k, &s)) return;
   const int tid = threadIdx.x;
   T* row = static_cast<T*>(a.emb) + int64_t(s.u) * a.pitch;
-  const S* src = source_row<T, kScratch>(a, k, s, row);
+  const S* src = source_row<T, kRows>(a, s, row);
   float row_std = 1.f;
   if constexpr (kAdagrad) {
     double part = 0.0;
@@ -682,8 +656,7 @@ segment_update_block(const UpdateArgs a) {
     if (tid == 0) {
       double total = 0.0;
       for (int w = 0; w < kUpdateThreads / kWarp; ++w) total += warp_part[w];
-      const float ss = start_state<kAdagrad, kScratch>(a, k, s.u) +
-                       static_cast<float>(total / a.dim);
+      const float ss = a.state_sum[s.u] + static_cast<float>(total / a.dim);
       a.state_sum[s.u] = ss;
       seg_std = sqrtf(ss) + 1e-10f;
     }
@@ -714,11 +687,11 @@ segment_update_block(const UpdateArgs a) {
   }
 }
 
-template <typename T, bool kAdagrad, bool kVec, bool kScratch>
+template <typename T, bool kAdagrad, bool kVec, bool kRows>
 void launch_update(const UpdateArgs& a, int block_route, int lane_vecs,
                    cudaStream_t s) {
   if (block_route) {
-    segment_update_block<T, kAdagrad, kVec, kScratch>
+    segment_update_block<T, kAdagrad, kVec, kRows>
         <<<static_cast<unsigned>(a.n), kUpdateThreads, 0, s>>>(a);
     return;
   }
@@ -727,32 +700,32 @@ void launch_update(const UpdateArgs& a, int block_route, int lane_vecs,
       static_cast<unsigned>((a.n + kSegsPerBlock - 1) / kSegsPerBlock);
   switch (lane_vecs) {
     case 1:
-      segment_update_warp<T, kAdagrad, kVec, 1, kScratch>
+      segment_update_warp<T, kAdagrad, kVec, 1, kRows>
           <<<blocks, kUpdateThreads, 0, s>>>(a);
       break;
     case 2:
-      segment_update_warp<T, kAdagrad, kVec, 2, kScratch>
+      segment_update_warp<T, kAdagrad, kVec, 2, kRows>
           <<<blocks, kUpdateThreads, 0, s>>>(a);
       break;
     case 4:
-      segment_update_warp<T, kAdagrad, kVec, 4, kScratch>
+      segment_update_warp<T, kAdagrad, kVec, 4, kRows>
           <<<blocks, kUpdateThreads, 0, s>>>(a);
       break;
     default:
-      segment_update_warp<T, kAdagrad, kVec, 8, kScratch>
+      segment_update_warp<T, kAdagrad, kVec, 8, kRows>
           <<<blocks, kUpdateThreads, 0, s>>>(a);
   }
 }
 
-template <typename T, bool kScratch>
+template <typename T, bool kRows>
 void launch_update(const UpdateArgs& a, bool vec, int block_route,
                    int lane_vecs, cudaStream_t s) {
   if (a.state_sum != nullptr) {
-    if (vec) launch_update<T, true, true, kScratch>(a, block_route, lane_vecs, s);
-    else launch_update<T, true, false, kScratch>(a, block_route, lane_vecs, s);
+    if (vec) launch_update<T, true, true, kRows>(a, block_route, lane_vecs, s);
+    else launch_update<T, true, false, kRows>(a, block_route, lane_vecs, s);
   } else {
-    if (vec) launch_update<T, false, true, kScratch>(a, block_route, lane_vecs, s);
-    else launch_update<T, false, false, kScratch>(a, block_route, lane_vecs, s);
+    if (vec) launch_update<T, false, true, kRows>(a, block_route, lane_vecs, s);
+    else launch_update<T, false, false, kRows>(a, block_route, lane_vecs, s);
   }
 }
 
@@ -770,19 +743,16 @@ int dglke_gather_rows_mapped(const void* table, int dtype, int64_t n_rows,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_gather_mapped(static_cast<const float*>(table), n_rows,
-                                pitch, ids, nullptr, n, out, dim, chunk,
-                                nullptr, nullptr, s);
+                                pitch, ids, n, out, dim, chunk, s);
   return launch_gather_mapped(static_cast<const __nv_bfloat16*>(table), n_rows,
-                              pitch, ids, nullptr, n, out, dim, chunk, nullptr,
-                              nullptr, s);
+                              pitch, ids, n, out, dim, chunk, s);
 }
 
 // dtype: 0 = float32 table, 1 = bfloat16 table.  pitch: table row stride in
 // elements.  out: [n, dim] float32, contiguous.  wide: 0 = one warp per
 // row, 1 = blocks of (row, chunk of 2,048 or 4,096 elements), aligned fp32
-// rows copied by the TMA engine, 2 = the same blocks with every row read
-// by the threads' own loads (no bulk copy).  Requires 0 < n < 2^31, and
-// with wide, at most 65,535 chunks of 2,048.
+// rows copied by the TMA engine.  Requires 0 < n < 2^31, and with wide, at
+// most 65,535 chunks of 2,048.
 int dglke_gather_rows(const void* table, int dtype, int64_t n_rows,
                       int64_t pitch, const int32_t* ids, int64_t n,
                       float* out, int64_t dim, int wide, void* stream) {
@@ -794,7 +764,7 @@ int dglke_gather_rows(const void* table, int dtype, int64_t n_rows,
   const bool vec = pitch % 4 == 0 && dim % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                    addr % (dtype == 0 ? 16 : 8) == 0;
-  if (wide == 1 && dtype == 0 && vec) {
+  if (wide && dtype == 0 && vec) {
     const dim3 grid(static_cast<unsigned>(n),
                     static_cast<unsigned>((dim + kCopyChunk - 1) / kCopyChunk));
     gather_rows_wide_bulk<<<grid, kWarp, 0, s>>>(
@@ -802,12 +772,8 @@ int dglke_gather_rows(const void* table, int dtype, int64_t n_rows,
   } else if (wide) {
     const dim3 grid(static_cast<unsigned>(n),
                     static_cast<unsigned>((dim + kWideChunk - 1) / kWideChunk));
-    if (dtype == 0 && vec) {
-      gather_rows_wide_vec4<float4><<<grid, kWideThreads, 0, s>>>(
-          static_cast<const float4*>(table), ids,
-          reinterpret_cast<float4*>(out), n_rows, pitch / 4, dim / 4);
-    } else if (dtype == 1 && vec) {
-      gather_rows_wide_vec4<uint2><<<grid, kWideThreads, 0, s>>>(
+    if (dtype == 1 && vec) {
+      gather_rows_wide_vec4<<<grid, kWideThreads, 0, s>>>(
           static_cast<const uint2*>(table), ids,
           reinterpret_cast<float4*>(out), n_rows, pitch / 4, dim / 4);
     } else if (dtype == 0) {
@@ -866,88 +832,43 @@ int dglke_gather_rows_pow_sum(const float* table, int64_t n_rows,
 }
 
 // Segment update over the grouping of group_ids.cu: order [n] int64,
-// heads [n + 1], seg_ids [n], seg_first [n] and count [1] int32.  grads: [n, dim] float32,
-// contiguous.  state_sum: [n_rows] float32 for the Adagrad update, or null
-// for the plain row add.  block_route: 0 = one warp per segment, holding
-// lane_vecs (1, 2, 4 or 8) vectors of four elements a lane, which must
-// cover dim; 1 = one block per segment.  Requires 0 < n < 2^31 and
-// dim < 2^31.
+// heads [n + 1], seg_ids [n], seg_first [n] and count [1] int32.  grads:
+// [n, dim] float32, contiguous.  state_sum: [n_rows] float32 for the
+// Adagrad update, or null for the plain row add.  rows: null to start each
+// segment from the table's row; or [n, dim] float32 at the ids' positions,
+// the table's rows at the ids as the step's gather left them (a table and
+// state_sum in mapped host memory): segment k then starts from
+// rows[seg_first[k]] with its state read in place, so only the results
+// and the state cross the link, with the same sums in the same order: the
+// same bits.  block_route: 0 = one warp per segment, holding lane_vecs (1,
+// 2, 4 or 8) vectors of four elements a lane, which must cover dim; 1 =
+// one block per segment.  Requires 0 < n < 2^31 and dim < 2^31.
 int dglke_segment_update(void* emb, int dtype, int64_t n_rows, int64_t pitch,
                          int64_t dim, float* state_sum, const int64_t* order,
                          const int32_t* heads, const int32_t* seg_ids,
                          const int32_t* seg_first, const int32_t* count,
                          const float* grads, int64_t n, float lr,
-                         int block_route, int lane_vecs, void* stream) {
+                         int block_route, int lane_vecs, const float* rows,
+                         void* stream) {
   if (!block_route && (lane_vecs < 1 || lane_vecs > 8 ||
                        (lane_vecs & (lane_vecs - 1)) != 0 ||
                        dim > int64_t(4 * kWarp) * lane_vecs))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const UpdateArgs a{emb,     state_sum, n_rows, pitch, static_cast<int>(dim),
-                     order,   heads,     seg_ids, seg_first, count,
-                     grads,   n,         lr};
+  const UpdateArgs a{emb,   state_sum, n_rows,  pitch,     static_cast<int>(dim),
+                     order, heads,     seg_ids, seg_first, count,
+                     grads, n,         lr,      rows};
   const bool vec = pitch % 4 == 0 && dim % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(grads) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(emb) % (dtype == 0 ? 16 : 8) == 0;
   if (dtype == 0) {
-    launch_update<float, false>(a, vec, block_route, lane_vecs, s);
+    if (rows == nullptr) launch_update<float, false>(a, vec, block_route, lane_vecs, s);
+    else launch_update<float, true>(a, vec, block_route, lane_vecs, s);
   } else {
-    launch_update<__nv_bfloat16, false>(a, vec, block_route, lane_vecs, s);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same update on a table (and state_sum) in mapped host memory, from
-// rows on the card.  With rows ([n, dim] float32 at the ids' positions,
-// the table's rows at the ids, as the step's gather left them): one
-// launch that reads segment k's row at rows[seg_first[k]] and its state in
-// place, so only the results and the state cross the link.  Without:
-// first gather_rows_mapped copies segment k's row into scratch[k] ([n,
-// dim] float32) and its state_sum entry into scratch_ss[k] ([n], or null
-// for the plain row add), for k < count, then the update reads them there.
-// Either way the results are written to the table, with the same sums in
-// the same order as dglke_segment_update: the same bits.  chunk: elements
-// a window (ops/rows.py:mapped_chunk).
-int dglke_segment_update_mapped(
-    void* emb, int dtype, int64_t n_rows, int64_t pitch, int64_t dim,
-    float* state_sum, const int64_t* order, const int32_t* heads,
-    const int32_t* seg_ids, const int32_t* seg_first, const int32_t* count,
-    const float* grads, int64_t n, float lr, int block_route, int lane_vecs,
-    const float* rows, float* scratch, float* scratch_ss, int64_t chunk,
-    void* stream) {
-  if ((!block_route && (lane_vecs < 1 || lane_vecs > 8 ||
-                        (lane_vecs & (lane_vecs - 1)) != 0 ||
-                        dim > int64_t(4 * kWarp) * lane_vecs)) ||
-      (rows == nullptr &&
-       (scratch == nullptr || (state_sum != nullptr) != (scratch_ss != nullptr))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows == nullptr) {
-    const int err =
-        dtype == 0
-            ? launch_gather_mapped(static_cast<const float*>(emb), n_rows,
-                                   pitch, seg_ids, count, n, scratch, dim,
-                                   chunk, state_sum, scratch_ss, s)
-            : launch_gather_mapped(static_cast<const __nv_bfloat16*>(emb),
-                                   n_rows, pitch, seg_ids, count, n, scratch,
-                                   dim, chunk, state_sum, scratch_ss, s);
-    if (err != 0) return err;
-  } else {
-    scratch = const_cast<float*>(rows);
-    scratch_ss = nullptr;
-  }
-  const UpdateArgs a{emb,   state_sum, n_rows,    pitch, static_cast<int>(dim),
-                     order, heads,     seg_ids,   seg_first, count,
-                     grads, n,         lr,        scratch,   scratch_ss,
-                     rows != nullptr};
-  const bool vec = pitch % 4 == 0 && dim % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(grads) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(scratch) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(emb) % (dtype == 0 ? 16 : 8) == 0;
-  if (dtype == 0) {
-    launch_update<float, true>(a, vec, block_route, lane_vecs, s);
-  } else {
-    launch_update<__nv_bfloat16, true>(a, vec, block_route, lane_vecs, s);
+    if (rows == nullptr)
+      launch_update<__nv_bfloat16, false>(a, vec, block_route, lane_vecs, s);
+    else launch_update<__nv_bfloat16, true>(a, vec, block_route, lane_vecs, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -77,8 +77,8 @@ def sparse_adagrad_update(table: EmbeddingState, ids: torch.Tensor,
     PLACE on ``table`` (returned for convenience; the JAX function returns
     a new state).  ids: [N] (duplicates allowed); grads: [N, D] fp32.
     ``gathered``: the table's rows at ids as gather_rows returned them in
-    the same step, which K2 then reads in place of a mapped table's
-    (rows.sparse_adagrad_rows)."""
+    the same step, which K2 reads in place of a mapped table's and a mapped
+    table needs (rows.sparse_adagrad_rows)."""
     grads = grads.to(torch.float32).contiguous()
     if gathered is None:
         rows.sparse_adagrad_rows(table.emb, table.state_sum, ids, grads, lr)

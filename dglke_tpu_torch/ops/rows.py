@@ -17,8 +17,8 @@ Host-resident tables (--mix_cpu_gpu): ``map_host`` pins a numpy table in
 place and maps it into the card's address space (``host_zeros`` places
 one on 2 MB boundaries).  K1 and K2 take that CPU table with ids (and
 gradient rows) on the card, and read and write it at its device-side
-address, in a launch shape and route of their own (MAPPED_SHAPE,
-update_route): only the batch's rows cross the host link.
+address: K1 in a launch shape of its own (gather_shape), K2 from the rows
+K1 gathered at the same ids, so only the batch's rows cross the host link.
 """
 
 from __future__ import annotations
@@ -155,12 +155,8 @@ SIGNATURES = {
     "dglke_gather_rows_pow_sum": ([_P, _I64, _I64, _P, _I64, _P, _I64, _INT,
                                    _P, _I64, _P], _INT),
     "dglke_segment_update": ([_P, _INT, _I64, _I64, _I64, _P, _P, _P, _P, _P,
-                              _P, _P, _I64, ctypes.c_float, _INT, _INT, _P],
-                             _INT),
-    "dglke_segment_update_mapped": ([_P, _INT, _I64, _I64, _I64, _P, _P, _P,
-                                     _P, _P, _P, _P, _I64, ctypes.c_float,
-                                     _INT, _INT, _P, _P, _P, _I64, _P],
-                                    _INT),
+                              _P, _P, _I64, ctypes.c_float, _INT, _INT, _P,
+                              _P], _INT),
     "dglke_host_register": ([_P, _I64, ctypes.POINTER(_P)], _INT),
     "dglke_host_unregister": ([_P], _INT),
 }
@@ -337,23 +333,12 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor,
     return table[ids.long(), :dim].to(torch.float32)
 
 
-# "wide_loads" is the wide shape with every row read by the threads' own
-# loads, where "wide" copies aligned fp32 rows with the TMA engine;
-# "mapped" reads whole 128-byte lines into shared memory (gather_rows_mapped).
-GATHER_SHAPES = ("warp", "wide", "wide_loads", "mapped")
+# "wide" copies aligned fp32 rows with the TMA engine; "mapped" reads whole
+# 128-byte lines into shared memory (gather_rows_mapped).
+GATHER_SHAPES = ("warp", "wide", "mapped")
 # Rows of at least this many elements take the wide shape: measured on the
 # card by chip_smoke.py's sweep of both shapes (PERF.md, section 6).
 GATHER_WIDE_MIN = 2048
-# A table in mapped host memory takes the line-window shape at every
-# width.  chip_smoke.py (phase_host_kernels, capacity_routes) times it in
-# turns with the earlier mapped shape ("wide_loads") and one warp per row,
-# on fresh ids each call, on an NVIDIA H100 80GB HBM3 at 700.00 W: 3,000
-# ids x 400 fp32 in 0.1009 ms against 0.1016 and 0.1037 (14,951 rows),
-# 0.1120 against 0.1147 (55,000,000 rows, 88 GB); 1,000 of TransR's
-# 160,000-wide rows 12.73 against 12.63 ms (PERF.md, section 6, has the
-# runs on slower hosts).  The same table in numpy's own memory, its rows
-# off the 128-byte lines, took 0.1072 ms: host_zeros places tables on them.
-MAPPED_SHAPE = "mapped"
 _WIDE_CHUNK = 2048        # row elements per block of the wide shape, at least
 _MAX_ROWS = (1 << 31) - 1   # gridDim.x
 _MAX_CHUNKS = 65535        # gridDim.y of the wide shape
@@ -389,10 +374,16 @@ def mapped_chunk(dim: int, elem_bytes: int = 4) -> int:
 def gather_shape(dim: int, mapped: bool = False) -> str:
     """The K1 launch shape for rows of ``dim`` elements: one warp per row
     ("warp") below GATHER_WIDE_MIN, blocks over (row, chunk) ("wide") from
-    there; MAPPED_SHAPE (whole lines, mapped_chunk elements a window) for a
-    table in mapped host memory."""
+    there; "mapped" (whole lines, mapped_chunk elements a window) for a
+    table in mapped host memory, at every width.  On an NVIDIA H100 80GB
+    HBM3 at 700 W, on fresh ids each call, it took 0.1834 ms for 3,000 ids
+    x 400 fp32 (blocks over (row, chunk) with the threads' own loads
+    0.1929, the card's shape 0.2154) and 23.92 ms for 1,000 of TransR's
+    160,000-wide rows (24.83 and 24.86); PERF.md, section 6.  The same
+    table in numpy's own memory, its rows off the 128-byte lines, took
+    0.2175 ms: host_zeros places tables on them."""
     if mapped:
-        return MAPPED_SHAPE
+        return "mapped"
     return "wide" if dim >= GATHER_WIDE_MIN else "warp"
 
 
@@ -764,11 +755,12 @@ def scatter_add_plain(table: torch.Tensor, ids: torch.Tensor,
 
 def segment_update_mapped_plain(emb: torch.Tensor, state_sum, ids,
                                 grads: torch.Tensor, lr: float) -> None:
-    """The mapped route's steps in plain PyTorch, in place: each distinct
-    id's row (and state_sum entry) copied into scratch in ascending id
-    order, the segments' order; sparse_adagrad_plain (or, with no
-    state_sum, the plain row add) applied there by segment index; the rows
-    written back.  The same sums in the same order as on the table."""
+    """A mapped table's update (K2 from the rows K1 gathered) in plain
+    PyTorch, in place: each distinct id's row (and state_sum entry) copied
+    out in ascending id order, the segments' order; sparse_adagrad_plain
+    (or, with no state_sum, the plain row add) applied there by segment
+    index; the rows written back.  The same sums in the same order as on
+    the table."""
     uniq, seg = torch.unique(ids.long(), return_inverse=True)
     scratch = emb[uniq]
     if state_sum is None:
@@ -803,56 +795,29 @@ def _check_update(emb, state_sum, ids, grads, name) -> int:
     return code
 
 
-# Where K2 reads the rows it updates (dglke_segment_update_mapped for the
-# last two): "table", at the table's own address (a table on the card; on
-# a mapped table the earlier route, each row read over the link);
-# "gather", each segment's row and state_sum entry first copied into
-# scratch on the card by the mapped shape's windows; "rows", from the rows
-# the caller gathered at the same ids (the host step's K1 output), so no
-# row is read over the link a second time.  A mapped table takes "rows"
-# when it is given them, else MAPPED_UPDATE.  chip_smoke.py
-# (phase_host_kernels, capacity_routes) times the three in turns on an
-# NVIDIA H100 80GB HBM3 at 700.00 W: 3,000 ids x 400 fp32, table 0.1720,
-# gather 0.1966, rows 0.1040 ms (14,951 rows) and 0.2806 / 0.3242 /
-# 0.2015 (55,000,000 rows); 1,000 of TransR's 160,000-wide rows 11.91 /
-# 18.44 / 9.37 ms.  Gathering into scratch first serialises the link's
-# two directions, which the table route overlaps.
-UPDATE_ROUTES = ("table", "gather", "rows")
-MAPPED_UPDATE = "table"
-
-
-def update_route(mapped: bool, rows_given: bool = False) -> str:
-    """K2's route for a table on the card (``mapped`` False) or in mapped
-    host memory, with or without the rows already gathered at the ids."""
-    if not mapped:
-        return "table"
-    return "rows" if rows_given else MAPPED_UPDATE
-
-
 def _segment_update(code, emb, state_sum, ids, grads, lr, name,
-                    route=None, rows=None) -> bool:
+                    rows=None) -> bool:
     """Group the ids, then launch the segment update along plan_update's
-    route on the ids' card, reading the rows along ``route`` (by default
-    update_route's for the table and ``rows``); False when there was
-    nothing to launch (no ids).  The gather route's scratch is [n, width]
-    fp32 and [n] on the card, from torch's allocator: sized from n alone,
-    as a graph needs."""
+    route on the ids' card; False when there was nothing to launch (no
+    ids).  Each segment starts from the table's row for a table on the
+    card, and from ``rows`` (the table's rows at the ids, as K1 gathered
+    them) for a table in mapped host memory, which then must be given:
+    each touched row crosses the link once each way.  On an NVIDIA H100
+    80GB HBM3 at 700 W that took 0.1395 ms for 3,000 ids x 400 fp32 where
+    the row read over the link took 0.2751, and 10.30 ms for 1,000 of
+    TransR's 160,000-wide rows where it took 23.36 (PERF.md, section 6)."""
     n = ids.shape[0]
     dev = ids.device
     emb_addr = _reach(emb, dev, name, "table")
     ss_addr = None if state_sum is None else _reach(state_sum, dev, name,
                                                     "state_sum")
-    if route is None:
-        route = update_route(emb.device != dev, rows is not None)
-    if route not in UPDATE_ROUTES:
-        raise ValueError(f"{name}: route {route!r} not in {UPDATE_ROUTES}")
-    if route == "rows" and (
-            rows is None or rows.dtype != torch.float32
-            or rows.shape != (n, emb.shape[1]) or rows.device != dev
-            or not rows.is_contiguous()):
-        raise ValueError(f"{name}: the rows route needs the table's rows at "
-                         f"the ids, contiguous fp32 [{n}, {emb.shape[1]}] on "
-                         f"{dev}")
+    if emb.device == dev:
+        rows = None
+    elif (rows is None or rows.dtype != torch.float32
+          or rows.shape != (n, emb.shape[1]) or rows.device != dev
+          or not rows.is_contiguous()):
+        raise ValueError(f"{name}: a mapped table needs its rows at the ids, "
+                         f"contiguous fp32 [{n}, {emb.shape[1]}] on {dev}")
     if n == 0:
         return False
     if n > _MAX_INT32 or emb.shape[1] > _MAX_INT32:
@@ -862,35 +827,20 @@ def _segment_update(code, emb, state_sum, ids, grads, lr, name,
     plan = plan_update(emb.shape[1])
     order, _, heads, seg_ids, seg_first, count = g.pointers()
     lib = load_library(SOURCE, SIGNATURES)
-    args = (emb_addr, code, emb.shape[0], emb.stride(0), emb.shape[1],
+    with torch.cuda.device(dev):
+        err = lib.dglke_segment_update(
+            emb_addr, code, emb.shape[0], emb.stride(0), emb.shape[1],
             ss_addr, order, heads, seg_ids, seg_first, count,
             grads.data_ptr(), n, float(lr), int(plan.route == "block"),
-            plan.lane_vecs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if route == "gather":
-            scratch = torch.empty((n, emb.shape[1]), dtype=torch.float32,
-                                  device=dev)
-            scratch_ss = (None if state_sum is None else
-                          torch.empty((n,), dtype=torch.float32, device=dev))
-            err = lib.dglke_segment_update_mapped(
-                *args, None, scratch.data_ptr(),
-                None if scratch_ss is None else scratch_ss.data_ptr(),
-                mapped_chunk(emb.shape[1], emb.element_size()), stream)
-        elif route == "rows":
-            err = lib.dglke_segment_update_mapped(
-                *args, rows.data_ptr(), None, None,
-                mapped_chunk(emb.shape[1], emb.element_size()), stream)
-        else:
-            err = lib.dglke_segment_update(*args, stream)
+            plan.lane_vecs, None if rows is None else rows.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, name)
     return True
 
 
 def sparse_adagrad_rows(emb: torch.Tensor, state_sum: torch.Tensor,
                         ids: torch.Tensor, grads: torch.Tensor,
-                        lr: float, route: str | None = None,
-                        rows: torch.Tensor | None = None) -> None:
+                        lr: float, rows: torch.Tensor | None = None) -> None:
     """Row-sparse Adagrad, IN PLACE on ``emb`` and ``state_sum`` (the JAX
     function returns new arrays).  emb: [E, D] fp32/bf16; state_sum: [E]
     fp32; ids: [N] with duplicates; grads: [N, D] contiguous fp32.
@@ -906,20 +856,19 @@ def sparse_adagrad_rows(emb: torch.Tensor, state_sum: torch.Tensor,
     mean(g^2); emb[u] += -lr * sum(g) / (sqrt(state_sum[u]) + 1e-10),
     rounded once to the table dtype.  A CPU table and state_sum mapped by
     map_host, with ids and rows on the card, are updated in place over the
-    host link; given ``rows`` (the table's rows at the ids, fp32 on the
-    card, as gather_rows returned them), they are read from there and not
-    over the link (update_route; ``route`` picks one of UPDATE_ROUTES
-    instead).  On the CPU ``rows`` is not needed."""
+    host link, starting from ``rows`` (the table's rows at the ids, fp32 on
+    the card, as gather_rows returned them), which such a call must give.
+    A table on the card or on the CPU does not read ``rows``."""
     code = _check_update(emb, state_sum, ids, grads, "sparse_adagrad_rows")
     if ids.device.type == "cpu":
         sparse_adagrad_plain(emb, state_sum, ids, grads, lr)
     elif _segment_update(code, emb, state_sum, ids, grads, lr,
-                         "sparse_adagrad_rows", route, rows):
+                         "sparse_adagrad_rows", rows):
         launches["sparse_adagrad_rows"] += 1
 
 
 def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
-                     delta: torch.Tensor, route: str | None = None,
+                     delta: torch.Tensor,
                      rows: torch.Tensor | None = None) -> None:
     """table[ids] += delta IN PLACE with duplicates summed exactly (delta:
     [N, D] contiguous fp32) — what the TPU kernel computes, on the same
@@ -928,5 +877,5 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
     if ids.device.type == "cpu":
         scatter_add_plain(table, ids, delta)
     elif _segment_update(code, table, None, ids, delta, 0.0,
-                         "scatter_add_rows", route, rows):
+                         "scatter_add_rows", rows):
         launches["scatter_add_rows"] += 1

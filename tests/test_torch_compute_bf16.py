@@ -243,10 +243,11 @@ def test_rescal_takes_the_stock_route_under_bf16(monkeypatch):
     [B, Dr*De] rows and K2 applies it; the outer-product update (K3) never
     runs."""
     _, pm = _models("RESCAL")
-    assert not pm._rescal_factored()
-    assert KEModel(KGEConfig(**_kw("RESCAL", "float32")), N_ENT, N_REL,
-                   device="cpu")._rescal_factored()
     state = pm.init_state()
+    assert not pm._rescal_factored(state)
+    fp32 = KEModel(KGEConfig(**_kw("RESCAL", "float32")), N_ENT, N_REL,
+                   device="cpu")
+    assert fp32._rescal_factored(fp32.init_state())
     ids = [torch.from_numpy(x) for x in _batch()]
     _, _, grads = pm.loss_and_grads(state, *ids, None, neg_head=True)
     assert not isinstance(grads[2], tuple)

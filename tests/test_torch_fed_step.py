@@ -17,8 +17,8 @@ step) on the CPU, where every call runs eagerly:
     true, a graph whose replay re-runs the group function) the graph lines,
     graphs and replays, with the tables still bit-equal;
   * nothing in a step moves or reads a value between the host and the
-    device: host_grads refuses a batch off the model's device, and the
-    group function converts no numpy array and reads no device value.
+    device: the group function converts no numpy array and reads no
+    device value.
 
 Tolerances: against the JAX package rtol 1e-5 / atol 1e-6 on tables and
 Adagrad state (fp32 on both sides, sums in another order), as in
@@ -435,20 +435,9 @@ def test_host_fed_route_on_the_stand_in_card(n_train, max_step, over, want,
 
 
 # ---------------------------------------------------------------------------
-# Nothing moves between the host and the device inside a step
-
-
-def test_host_grads_refuses_a_batch_off_the_models_device():
-    cfg = KGEConfig(**_kw(mix_cpu_gpu=True))
-    model = KEModel(cfg, N_ENT, N_REL, device="cpu")
-    state = pht.init_host_state(model, cfg.seed)
-    ds, _ = _datasets(100)
-    packed, _, neg_head, b = pack_batch(
-        next(TrainSampler(ds, B, NEG, seed=1)), False)
-    model.device = torch.device("meta")   # ids built on the CPU
-    with pytest.raises(ValueError, match="moves nothing"):
-        pht.host_grads(model, state, *unpack_batch(packed, b), None,
-                       neg_head=neg_head)
+# Nothing moves between the host and the device inside a step (the
+# refusal of a batch off the model's device on host tables:
+# tests/test_torch_train_step.py)
 
 
 @pytest.mark.parametrize("route", ["host tables", "host-fed",

@@ -73,21 +73,32 @@ def test_sync_mapped_waits_only_when_a_table_is_mapped(fake_mapped,
 
 
 @pytest.mark.parametrize("dim", [1, 400, 2047, 2048, 160_000])
-def test_mapped_tables_take_the_mapped_shape(dim):
+def test_mapped_tables_take_the_mapped_shape(fake_mapped, dim, monkeypatch):
     """A mapped table: the line-window shape at every width (whole 128-byte
     lines into shared memory, no TMA copy from host memory); a table on the
-    card keeps the width's shape.  K2 on a mapped table reads the rows the
-    caller gathered when it has them (the host step), else takes the
-    measured MAPPED_UPDATE; on the card the table route."""
-    assert rows.gather_shape(dim, mapped=True) == rows.MAPPED_SHAPE \
-        == "mapped"
+    card keeps the width's shape.  K2 on a mapped table starts from the
+    rows the caller gathered at the ids, and refuses a call without them
+    (or with rows of another shape) before it launches anything; the
+    grouping is stubbed out, so no card is touched."""
+    assert rows.gather_shape(dim, mapped=True) == "mapped"
     assert rows.gather_shape(dim) == (
         "wide" if dim >= rows.GATHER_WIDE_MIN else "warp")
-    assert rows.update_route(True, rows_given=True) == "rows"
-    assert rows.update_route(True) == rows.MAPPED_UPDATE
-    assert rows.MAPPED_UPDATE in rows.UPDATE_ROUTES
-    assert rows.update_route(False) == rows.update_route(False, True) \
-        == "table"
+    table, _ = fake_mapped
+    ss = torch.zeros(10)
+    monkeypatch.setitem(rows._mapped, ss.data_ptr(), (ss.nbytes, 1 << 41))
+    monkeypatch.setattr(rows, "group_ids", lambda *a: pytest.fail(
+        "K2 launched on a mapped table without its rows"))
+    ids = torch.zeros(3, dtype=torch.int32)
+    grads = torch.zeros((3, 6))
+    monkeypatch.setattr(torch.Tensor, "device", property(
+        lambda t: CUDA if t is ids or t is grads else torch.device("cpu")))
+    with pytest.raises(ValueError, match="needs its rows"):
+        rows.sparse_adagrad_rows(table, ss, ids, grads, 0.5)
+    with pytest.raises(ValueError, match="needs its rows"):
+        rows.scatter_add_rows(table, ids, grads)
+    with pytest.raises(ValueError, match="needs its rows"):
+        rows.sparse_adagrad_rows(table, ss, ids, grads, 0.5,
+                                 rows=torch.zeros((3, dim + 6)))
 
 
 def test_cpu_tables_with_cpu_ids_take_the_plain_versions(fake_mapped):

@@ -126,11 +126,15 @@ def test_gather_shape_by_width(dim):
         assert shape == "wide"
 
 
-def test_gather_rows_refuses_an_unknown_shape():
+@pytest.mark.parametrize("shape", ["tile", "wide_loads"])
+def test_gather_rows_refuses_an_unknown_shape(shape):
+    """A shape K1 does not have, among them the mapped tables' earlier one
+    (blocks over (row, chunk) with the threads' own loads), which lost to
+    the line-window shape on the card and was taken out."""
     table = torch.zeros((10, 8))
     with pytest.raises(ValueError, match="shape"):
         pt_rows.launch_gather(table, torch.zeros(3, dtype=torch.int32), 8,
-                              "tile")
+                              shape)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -287,8 +287,8 @@ def test_factored_rescal_step_on_the_card(card, neg_head):
     cfg = _cfg(hidden_dim=500, gamma=24.0, lr=0.03, batch_size=b,
                neg_sample_size=k, regularization_coef=2e-6)
     gpu, cpu = (KEModel(cfg, n_ent, n_rel, device=d) for d in (card, "cpu"))
-    assert gpu._rescal_factored()
     state = gpu.init_state()
+    assert gpu._rescal_factored(state)
     host = _cpu_state(state)
     ids = _batch(n_ent, n_rel, b, cfg.num_chunks * k, seed=7)
     h, r, t, neg = (x.to(card) for x in ids)

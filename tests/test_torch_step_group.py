@@ -173,7 +173,7 @@ def test_train_through_the_fused_call_is_the_step_loop(model_name,
     model, got, _ = train(cfg, ds, log=lines.append, device="cpu")
     assert "[proc 0]device-resident pipeline: 6 steps a group, each group " \
            "eagerly on the CPU" in lines
-    assert model._rescal_factored() == (model_name == "RESCAL")
+    assert model._rescal_factored(got) == (model_name == "RESCAL")
     want, want_logs = _step_loop(cfg, ds)
     assert len(seen) == 4 and got.step == want.step == 24
     for table in ("entity", "relation", "projection"):

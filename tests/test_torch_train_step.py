@@ -17,6 +17,8 @@ from dglke_tpu.models.ke_model import KEModel as JaxModel
 from dglke_tpu.models.ke_model import TrainState as JaxState
 from dglke_tpu.ops.embedding import EmbeddingState as JaxTable
 from dglke_tpu_torch.config import KGEConfig
+from dglke_tpu_torch.host_table import init_host_state
+from dglke_tpu_torch.models import ke_model
 from dglke_tpu_torch.models.ke_model import KEModel
 from dglke_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
@@ -99,6 +101,43 @@ def test_train_step_matches_jax(neg_head, n_ent, weighted):
         g, w = getattr(got, name), getattr(want, name)
         _close(g.emb, w.emb)
         _close(g.state_sum, w.state_sum)
+
+
+def test_train_step_refuses_a_batch_off_the_models_device_on_host_tables():
+    """The step moves nothing between the host and the device: on host
+    tables, whose kernels' plain versions would take ids on the CPU, a
+    batch on another device than the model's is refused before any gather
+    or update."""
+    cfg = KGEConfig(**CFG, mix_cpu_gpu=True)
+    model = KEModel(cfg, 60, N_REL, device="cpu")
+    state = init_host_state(model, cfg.seed)
+    before = state.entity.emb.clone()
+    h, r, t, neg, _ = (torch.from_numpy(x) for x in _batch(60))
+    model.device = torch.device("meta")   # ids built on the CPU
+    with pytest.raises(ValueError, match="moves nothing"):
+        model.train_step(state, h, r, t, neg, None, neg_head=True)
+    assert state.step == 0 and torch.equal(state.entity.emb, before)
+
+
+@pytest.mark.parametrize("host", [True, False],
+                         ids=["host tables", "TrainState"])
+def test_rescal_takes_the_row_route_on_host_tables_only(host, monkeypatch):
+    """RESCAL on host tables takes the plain row route on every device, the
+    CPU included, as the JAX package's host mode does: the outer-product
+    update (K3) is never called and K2 writes the relation rows.  On a
+    TrainState on the CPU the same step keeps the factored route."""
+    cfg = KGEConfig(**dict(CFG, model_name="RESCAL"), mix_cpu_gpu=host)
+    model = KEModel(cfg, 60, N_REL, device="cpu")
+    state = init_host_state(model, cfg.seed) if host else model.init_state()
+    calls = []
+    monkeypatch.setattr(ke_model, "outer_adagrad_update",
+                        lambda *a, **k: calls.append(a))
+    before = state.relation.emb.clone()
+    h, r, t, neg, _ = (torch.from_numpy(x) for x in _batch(60))
+    model.train_step(state, h, r, t, neg, None, neg_head=False)
+    assert model._rescal_factored(state) is not host
+    assert len(calls) == (0 if host else 1)
+    assert torch.equal(state.relation.emb, before) is not host
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16],
