@@ -345,7 +345,8 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 # each table it updates, and the id grouping once before each K2 and each
 # K3 call (never torch.sort).  RESCAL's relation update goes through K3 on
 # every step and never through K2, and its relation gather is K1 with the
-# sum of |x|^3 (gather_rows_pow_sum, counted under both names).
+# sum of |x|^3 and the product R t or h^T R (gather_rows_matvec, counted
+# under gather_rows, gather_rows_pow_sum and gather_rows_matvec).
 #
 # TransE_l2 with --async_update launches the same: each step's entity
 # update is applied once, one step late inside each group of 10 steps (the
@@ -366,7 +367,8 @@ RESCAL_MRR, MRR_TOL = 0.7841296576120397, 0.01
 # relation rows), so 80 K1 in the eval.
 EXPECTED_LAUNCHES = {
     "TransE_l2": {"gather_rows": 2008, "gather_rows_pow_sum": 0,
-                  "group_ids": 2000, "group_ids_tiles": 0,
+                  "gather_rows_matvec": 0, "group_ids": 2000,
+                  "group_ids_tiles": 0,
                   "sparse_adagrad_rows": 2000, "outer_adagrad_update": 0,
                   "transe_l2_loss": 2000},
     "TransE_l2 async": {"gather_rows": 2008, "group_ids": 2000,
@@ -376,7 +378,8 @@ EXPECTED_LAUNCHES = {
                            "group_ids_tiles": 0, "sparse_adagrad_rows": 200,
                            "outer_adagrad_update": 0, "transe_l2_loss": 200},
     "RESCAL": {"gather_rows": 2008, "gather_rows_pow_sum": 1000,
-               "group_ids": 2000, "group_ids_tiles": 0,
+               "gather_rows_matvec": 1000, "group_ids": 2000,
+               "group_ids_tiles": 0,
                "sparse_adagrad_rows": 1000, "outer_adagrad_update": 1000,
                "transe_l2_loss": 0},
     "wikikg2": {"gather_rows": 2080, "group_ids": 2000, "group_ids_tiles": 0,
@@ -1331,9 +1334,10 @@ def phase_outer():
     tiles route, both cluster sizes that hold the row, and the stock route
     for the same update (the gradient materialized, then K2), which is also
     held to its plain version here.  K1 on the 1 MB relation rows in both
-    shapes and dtypes, and with the sum of |x|^p against the wide shape
-    then the three PyTorch passes.  Returns K3's numbers for the JSON line and K1's
-    wide-row numbers."""
+    shapes and dtypes, with the sum of |x|^p against the wide shape then
+    the three PyTorch passes, and with the sum and RESCAL's product against
+    the sum then torch.bmm.  Returns K3's numbers for the JSON line and
+    K1's wide-row numbers."""
     import torch
     from dglke_tpu_torch.ops import outer_update, rows
     from dglke_tpu_torch.ops.embedding import EmbeddingState
@@ -1499,7 +1503,8 @@ def phase_outer():
         fail("K1 on RESCAL rows must take the fused sum")
     (got, total), (_, total2) = (rows.gather_rows_pow_sum(state.emb, ids, norm)
                                  for _ in range(2))
-    want = float(torch.sum(torch.abs(state.emb[ids.long()].double()) ** norm))
+    want = want_sum = float(torch.sum(torch.abs(
+        state.emb[ids.long()].double()) ** norm))
     three = float(rows.pow_sum_plain(got, norm))
     if (not torch.equal(got, rows.launch_gather(state.emb, ids, RESCAL_WIDTH,
                                                 "wide"))
@@ -1513,6 +1518,36 @@ def phase_outer():
           f"(rel {(float(total) - want) / want:.3e}), the three passes "
           f"{three!r} (rel {(three - want) / want:.3e})")
     del got, total, total2
+    # K1 with the sum and RESCAL's product (gather_rows_matvec): R v and
+    # v^T R of each 500 x 500 row with a vector of the factors, within 1e-6
+    # of fp64 (relative to the sum of its terms' magnitudes), the plain wide
+    # shape's rows, the sum within 1e-6 of fp64's, two calls bit-equal.
+    if not rows.fused_matvec(state.emb, ids, a, RESCAL_WIDTH, norm):
+        fail("K1 on RESCAL rows must take the fused product")
+    mats = state.emb[ids.long()].double().reshape(BATCH, d, d)
+    for head in (True, False):
+        (got, total, tmp), (_, _, tmp2) = (rows.gather_rows_matvec(
+            state.emb, ids, a, head, norm) for _ in range(2))
+        want = rows.matvec_plain(mats.reshape(BATCH, -1), a.double(), head)
+        scale = rows.matvec_plain(mats.abs().reshape(BATCH, -1),
+                                  a.double().abs(), head)
+        gap = float(((tmp.double() - want).abs() / scale).max())
+        if (not torch.equal(got, rows.launch_gather(state.emb, ids,
+                                                    RESCAL_WIDTH, "wide"))
+                or not torch.equal(tmp.view(torch.int32),
+                                   tmp2.view(torch.int32))
+                or gap > 1e-6
+                or abs(float(total) - want_sum) > 1e-6 * want_sum):
+            fail(f"K1 with the product ({'R v' if head else 'v^T R'}): rows "
+                 f"differ from the wide shape's, two calls differ, or the "
+                 f"product is {gap:.3e} from fp64 (relative to its terms), "
+                 f"the sum {float(total)!r} against fp64 {want_sum!r}")
+        rel = (float(total) - want_sum) / want_sum
+        print(f"K1 with the sum and {'R v' if head else 'v^T R'} on {BATCH} "
+              f"RESCAL rows: rows exact, two calls bit-equal; product within "
+              f"{gap:.3e} of fp64 (relative to its terms), sum "
+              f"{float(total)!r} (rel {rel:.3e})")
+    del mats, got, total, tmp, tmp2, want, scale
     gather_fns = {
         "wide": lambda: rows.launch_gather(state.emb, ids, RESCAL_WIDTH,
                                            "wide"),
@@ -1522,7 +1557,11 @@ def phase_outer():
         "wide with the sum": lambda: rows.gather_rows_pow_sum(
             state.emb, ids, norm),
         "wide, then three passes": lambda: rows.pow_sum_plain(
-            rows.launch_gather(state.emb, ids, RESCAL_WIDTH, "wide"), norm)}
+            rows.launch_gather(state.emb, ids, RESCAL_WIDTH, "wide"), norm),
+        "wide with the sum and R v": lambda: rows.gather_rows_matvec(
+            state.emb, ids, a, True, norm),
+        "wide with the sum, then torch.bmm": lambda: rows.matvec_plain(
+            rows.gather_rows_pow_sum(state.emb, ids, norm)[0], a, True)}
     # Three rounds in turns, each on the profiler's device clock and on
     # CUDA events around back-to-back calls.
     gather_ms = {k: [] for k in gather_fns}
@@ -1531,9 +1570,9 @@ def phase_outer():
         for k in (gather_fns if r % 2 == 0 else reversed(gather_fns)):
             gather_ms[k].append(device_ms(gather_fns[k], iters=20))
             gather_ev[k].append(call_ms(gather_fns[k], iters=20, warmup=3))
-    k1_ms, _, k1_lib, k1_sum, k1_three = (sum(v) / len(v)
-                                          for v in gather_ms.values())
-    k1_ev, _, k1_lib_ev, _, _ = (sum(v) / len(v) for v in gather_ev.values())
+    k1_ms, _, k1_lib, k1_sum, k1_three, k1_mv, k1_bmm = (
+        sum(v) / len(v) for v in gather_ms.values())
+    k1_ev, _, k1_lib_ev, *_ = (sum(v) / len(v) for v in gather_ev.values())
     k1_bytes = BATCH * 4 + (n_unique + BATCH) * RESCAL_WIDTH * 4
     k1_bound, k1_by = bound_ms(k1_bytes, 0)
     print(f"K1 gather_rows on {BATCH} RESCAL rows of {RESCAL_WIDTH} fp32, "
@@ -1552,6 +1591,9 @@ def phase_outer():
           f"{k1_sum:.4f} ms against the plain wide shape's {k1_ms:.4f} "
           f"({100 * k1_bound / k1_sum:.1f}% of K1's bound) and the wide "
           f"shape then the three passes {k1_three:.4f}")
+    print(f"K1 with the sum and R v on RESCAL rows, mean of three: device "
+          f"{k1_mv:.4f} ms ({100 * k1_bound / k1_mv:.1f}% of K1's bound) "
+          f"against the sum then torch.bmm's {k1_bmm:.4f}")
     del state, table
     torch.cuda.empty_cache()
     k3 = {"name": "outer_adagrad_update", "route": "cuda",
@@ -4749,7 +4791,8 @@ for _label, _steps in (("RESCAL dist vocab", DIST_RESCAL_STEPS),
                        ("RESCAL nccl baseline", NCCL_STEPS)):
     EXPECTED_LAUNCHES[_label] = {
         "gather_rows": 2 * _steps, "gather_rows_pow_sum": _steps,
-        "group_ids": 2 * _steps, "group_ids_tiles": 0,
+        "gather_rows_matvec": _steps, "group_ids": 2 * _steps,
+        "group_ids_tiles": 0,
         "sparse_adagrad_rows": _steps, "outer_adagrad_update": _steps,
         "transe_l2_loss": 0}
 # WN18's DistMult recipe under --dist (examples/wn18.sh:15-17: batch 2,048,
@@ -5569,7 +5612,7 @@ EXPECTED_LAUNCHES["TransE_l2 bf16"] = dict(EXPECTED_LAUNCHES["TransE_l2"],
                                           transe_l2_loss=0)
 EXPECTED_LAUNCHES["RESCAL bf16"] = {
     "gather_rows": 2 * BF16_RESCAL_STEPS, "gather_rows_pow_sum": 0,
-    "group_ids": 2 * BF16_RESCAL_STEPS,
+    "gather_rows_matvec": 0, "group_ids": 2 * BF16_RESCAL_STEPS,
     "group_ids_tiles": 0, "sparse_adagrad_rows": 2 * BF16_RESCAL_STEPS,
     "outer_adagrad_update": 0, "transe_l2_loss": 0}
 # The CPU test's tolerances (tests/test_torch_compute_bf16.py), in bf16

@@ -48,7 +48,7 @@ from dglke_tpu_torch.ops import transe_l2
 from dglke_tpu_torch.ops.embedding import (
     EmbeddingState,
     gather_rows,
-    gather_rows_pow_sum,
+    gather_rows_matvec,
     init_embedding,
     sparse_adagrad_update,
 )
@@ -243,19 +243,19 @@ class KEModel:
         chunks = dict(b=b, num_chunks=num_chunks, chunk_size=chunk_size,
                       neg_sample_size=neg_sample_size, neg_head=neg_head)
         if self._rescal_factored(state):
-            # the relation rows' regularization value comes with them
-            # (summed by K1 as it copies them on the card); K3 applies its
+            # the relation rows come with their regularization value and
+            # their product with the edges' entity vectors (both formed by
+            # K1 as it copies them on the card); K3 applies the value's
             # gradient
             cfg = self.config
-            if cfg.regularization_coef > 0.0 and cfg.regularization_norm > 0:
-                rel_rows, rel_pow_sum = gather_rows_pow_sum(
-                    state.relation, r, cfg.regularization_norm,
-                    self.relation_dim)
-            else:
-                rel_rows = gather_rows(state.relation, r, self.relation_dim)
-                rel_pow_sum = None
+            reg_on = (cfg.regularization_coef > 0.0
+                      and cfg.regularization_norm > 0)
+            vecs = ent_rows[b:2 * b] if neg_head else ent_rows[:b]
+            rel_rows, rel_pow_sum, tmp0 = gather_rows_matvec(
+                state.relation, r, vecs, neg_head,
+                cfg.regularization_norm if reg_on else 0, self.relation_dim)
             loss, log, grads = self._rescal_loss_and_grads_factored(
-                ent_rows, rel_rows, rel_pow_sum, impts, **chunks)
+                ent_rows, rel_rows, rel_pow_sum, tmp0, impts, **chunks)
         else:
             rel_rows = gather_rows(state.relation, r, self.relation_dim)
             proj_rows = (gather_rows(state.projection, r, self.proj_dim)
@@ -363,7 +363,7 @@ class KEModel:
         return loss.detach(), log, grads
 
     def _rescal_loss_and_grads_factored(self, ent_rows, rel_rows,
-                                        rel_pow_sum, impts, *,
+                                        rel_pow_sum, tmp0, impts, *,
                                         b: int, num_chunks: int,
                                         chunk_size: int, neg_sample_size: int,
                                         neg_head: bool):
@@ -372,21 +372,19 @@ class KEModel:
 
         Tail-corrupt: tmp = R^T h gives pos = tmp.t and negs = tmp.n;
         head-corrupt: tmp = R t gives pos = h.tmp and negs = n.tmp.
+        ``tmp0``, that tmp, comes with the relation rows
+        (gather_rows_matvec).
         Differentiating w.r.t. tmp instead of the relation rows makes each
         edge's relation gradient an outer product, which the outer-product
         Adagrad kernel applies without forming the [B, Dr*De] array.  It
         also applies the relation rows' regularization gradient; only the
         value enters here, for the loss and the log: ``rel_pow_sum``, the
-        sum of |x|^p over the gathered relation rows (gather_rows_pow_sum),
+        sum of |x|^p over the gathered relation rows (gather_rows_matvec),
         None without regularization."""
         cfg = self.config
         sf = self.score_fn
         rmat = rel_rows.reshape(b, sf.relation_dim, sf.entity_dim)
         h0, t0 = ent_rows[:b], ent_rows[b:2 * b]
-        if neg_head:
-            tmp0 = torch.bmm(rmat, t0[:, :, None])[:, :, 0]
-        else:
-            tmp0 = torch.bmm(h0[:, None, :], rmat)[:, 0, :]
         ent_rows = ent_rows.detach().requires_grad_()
         tmp = tmp0.detach().requires_grad_()
         reg_on = rel_pow_sum is not None

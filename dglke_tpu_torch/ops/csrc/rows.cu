@@ -44,6 +44,25 @@
 //     in shared memory between the bulk load and the bulk store, so the
 //     value costs no byte of device memory; it writes one partial in fp64
 //     per (row, chunk), which ops/rows.py adds up by rows.
+//   * the wide bulk copy with RESCAL's matrix-vector product
+//     (dglke_gather_rows_matvec): RESCAL's step views each gathered
+//     relation row as a [hidden, hidden] matrix R and needs R t (head-
+//     corrupt steps) or h^T R (tail-corrupt), one entity vector an edge,
+//     which a cuBLAS matvec computed by reading the whole 1 GB copy again.
+//     Here a block owns a band of whole matrix rows of one gathered row,
+//     streamed through two shared-memory stages by bulk loads (the next
+//     stage loads while the threads read this one), each stage stored out
+//     by a bulk store as the plain copy stores it.  While a stage lies in
+//     shared memory the threads form the product from it, and |x|^p with
+//     it: R t's dot of a matrix row with t (a warp a matrix row) ends in the
+//     block; h^T R leaves an fp64 partial a (row, band) and column, which
+//     ops/rows.py sums over the bands (so R t takes narrow bands, which
+//     keep a row's repeats in the batch closer together in L2, and h^T R
+//     wide ones, which keep its partials few).  Products of two fp32
+//     values are exact in fp64 and every sum runs in fp64 in a fixed
+//     order, rounded to fp32 once.  The product costs two flops an element
+//     and no byte of device memory besides its [hidden] result (or
+//     partials).
 //   * host-resident tables (--mix_cpu_gpu): a table in host memory pinned
 //     in place and mapped into the device's address space
 //     (dglke_host_register) is read and written by kernels at its
@@ -404,6 +423,143 @@ gather_rows_wide_pow_sum(const float* __restrict__ table,
     partials[row * gridDim.y + blockIdx.y] = part;
     bulk_wait_read();
   }
+}
+
+// The wide bulk copy with RESCAL's product (dglke_gather_rows_matvec).
+// Block (row, band): the band's matrix rows [r0, r1) of gathered row `row`,
+// in stages of stage_rows matrix rows (stage_rows * hidden a multiple of
+// four, so every stage starts on 16 bytes) through kMatvecBufs buffers, each
+// stage's bulk load issued kMatvecBufs stages ahead.  kHead: tmp[row, i] =
+// sum_j R[i, j] v[j] for i in the band, a warp a matrix row; else
+// tmp_partials[row, band, j] = sum over the band's i of v[i] R[i, j], thread
+// tid holding columns tid + k * kMatvecThreads.  With kPow,
+// pow_partials[row, band] = the band's sum of |x|^p.
+constexpr int kMatvecThreads = 128;
+constexpr int kMatvecWarps = kMatvecThreads / kWarp;
+constexpr int kMatvecStage = 2048;       // fp32 elements a stage buffer holds
+constexpr int kMatvecBufs = 2;
+constexpr int kMatvecMaxHidden = 1024;
+constexpr int kMatvecCols = kMatvecMaxHidden / kMatvecThreads;
+
+template <int kPow, bool kHead>
+__global__ void __launch_bounds__(kMatvecThreads)
+gather_rows_matvec(const float* __restrict__ table,
+                   const int32_t* __restrict__ ids, float* __restrict__ out,
+                   int64_t n_rows, int64_t pitch, int hidden,
+                   const float* __restrict__ vecs, int64_t vec_pitch,
+                   int stage_rows, int band_rows, float* __restrict__ tmp,
+                   double* __restrict__ tmp_partials,
+                   double* __restrict__ pow_partials) {
+  __shared__ __align__(128) float buf[kMatvecBufs][kMatvecStage];
+  __shared__ float v[kMatvecMaxHidden];
+  __shared__ __align__(8) uint64_t bar[kMatvecBufs];
+  __shared__ double warp_part[kMatvecWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int64_t row = blockIdx.x;
+  const int64_t id = ids[row];
+  if (id < 0 || id >= n_rows) __trap();
+  const int r0 = static_cast<int>(blockIdx.y) * band_rows;
+  const int r1 = min(r0 + band_rows, hidden);
+  const int stages = (r1 - r0 + stage_rows - 1) / stage_rows;
+  const float* src = table + id * pitch;
+  float* dst = out + row * int64_t(hidden) * hidden;
+  // Stage s: matrix rows [r0 + s * stage_rows, +rows), into buffer s %
+  // kMatvecBufs, whose (s / kMatvecBufs)-th phase its bulk load completes.
+  auto stage_size = [&](int s) {
+    return min(stage_rows, r1 - r0 - s * stage_rows);
+  };
+  auto issue = [&](int s) {
+    const uint32_t b = smem_u32(&bar[s % kMatvecBufs]);
+    const uint32_t bytes = uint32_t(stage_size(s)) * uint32_t(hidden) * 4u;
+    mbar_expect_tx(b, bytes);
+    bulk_load(smem_u32(buf[s % kMatvecBufs]),
+              src + int64_t(r0 + s * stage_rows) * hidden, bytes, b);
+  };
+  if (tid == 0) {
+    for (int k = 0; k < kMatvecBufs; ++k) mbar_init(smem_u32(&bar[k]), 1);
+    for (int k = 0; k < kMatvecBufs && k < stages; ++k) issue(k);
+  }
+  for (int j = tid; j < hidden; j += kMatvecThreads)
+    v[j] = vecs[row * vec_pitch + j];
+  __syncthreads();
+  double acc[kMatvecCols] = {};
+  double part = 0.0;
+  for (int s = 0; s < stages; ++s) {
+    const int a = r0 + s * stage_rows;
+    const int rows = stage_size(s);
+    mbar_wait(smem_u32(&bar[s % kMatvecBufs]), (s / kMatvecBufs) & 1);
+    const float* x = buf[s % kMatvecBufs];
+    if (tid == 0)
+      bulk_store(dst + int64_t(a) * hidden, smem_u32(x),
+                 uint32_t(rows) * uint32_t(hidden) * 4u);
+    if constexpr (kHead) {
+      for (int i = warp; i < rows; i += kMatvecWarps) {
+        double dot = 0.0;
+        for (int j = lane; j < hidden; j += kWarp) {
+          const float e = x[i * hidden + j];
+          dot += static_cast<double>(e) * static_cast<double>(v[j]);
+          if constexpr (kPow > 0) part += double(pow_abs<kPow>(e));
+        }
+        dot = warp_allsum(dot);
+        if (lane == 0) tmp[row * hidden + a + i] = static_cast<float>(dot);
+      }
+    } else {
+      for (int i = 0; i < rows; ++i) {
+        const double h = static_cast<double>(v[a + i]);
+#pragma unroll
+        for (int k = 0; k < kMatvecCols; ++k) {
+          const int j = tid + k * kMatvecThreads;
+          if (j < hidden) {
+            const float e = x[i * hidden + j];
+            acc[k] += h * static_cast<double>(e);
+            if constexpr (kPow > 0) part += double(pow_abs<kPow>(e));
+          }
+        }
+      }
+    }
+    __syncthreads();   // every thread is done with stage s's buffer
+    if (tid == 0 && s + kMatvecBufs < stages) {
+      bulk_wait_read();  // and so is the bulk store of stage s
+      issue(s + kMatvecBufs);
+    }
+  }
+  const int64_t slot = row * gridDim.y + blockIdx.y;
+  if constexpr (!kHead) {
+#pragma unroll
+    for (int k = 0; k < kMatvecCols; ++k) {
+      const int j = tid + k * kMatvecThreads;
+      if (j < hidden) tmp_partials[slot * hidden + j] = acc[k];
+    }
+  }
+  if constexpr (kPow > 0) {
+    part = warp_allsum(part);
+    if (lane == 0) warp_part[warp] = part;
+    __syncthreads();
+    if (tid == 0) {
+      double total = 0.0;
+      for (int w = 0; w < kMatvecWarps; ++w) total += warp_part[w];
+      pow_partials[slot] = total;
+    }
+  }
+  if (tid == 0) bulk_wait_read();
+}
+
+template <int kPow>
+void launch_matvec(bool head, dim3 grid, cudaStream_t s, const float* table,
+                   const int32_t* ids, float* out, int64_t n_rows,
+                   int64_t pitch, int hidden, const float* vecs,
+                   int64_t vec_pitch, int stage_rows, int band_rows,
+                   float* tmp, double* tmp_partials, double* pow_partials) {
+  if (head)
+    gather_rows_matvec<kPow, true><<<grid, kMatvecThreads, 0, s>>>(
+        table, ids, out, n_rows, pitch, hidden, vecs, vec_pitch, stage_rows,
+        band_rows, tmp, tmp_partials, pow_partials);
+  else
+    gather_rows_matvec<kPow, false><<<grid, kMatvecThreads, 0, s>>>(
+        table, ids, out, n_rows, pitch, hidden, vecs, vec_pitch, stage_rows,
+        band_rows, tmp, tmp_partials, pow_partials);
 }
 
 // A row's vector of four elements: float4 for fp32, uint2 (four bf16).
@@ -828,6 +984,51 @@ int dglke_gather_rows_pow_sum(const float* table, int64_t n_rows,
   else
     gather_rows_wide_pow_sum<3><<<grid, kWarp, 0, s>>>(table, ids, out, n_rows,
                                                         pitch, dim, partials);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide bulk copy of [hidden, hidden] fp32 rows (table, pitch and out on
+// 16-byte boundaries, hidden * hidden a multiple of four) that also forms
+// each gathered matrix R's product with its edge's vector vecs[row] (fp32,
+// rows vec_pitch apart): head != 0, tmp[row] = R v ([n, hidden] fp32);
+// head == 0, tmp_partials[row, band] = the band's part of v^T R ([n, bands,
+// hidden] fp64).  p = 1, 2 or 3 also writes pow_partials[row, band], the
+// band's sum of |x|^p; p = 0 sums nothing.  Bands of band_rows matrix
+// rows, stages of stage_rows (stage_rows * hidden a multiple of four and at
+// most 2,048; band_rows a multiple of stage_rows): gather_rows_matvec.
+// Requires 0 < n < 2^31, 0 < hidden <= 1,024 and at most 65,535 bands.
+int dglke_gather_rows_matvec(const float* table, int64_t n_rows,
+                             int64_t pitch, const int32_t* ids, int64_t n,
+                             float* out, int64_t hidden, const float* vecs,
+                             int64_t vec_pitch, int head, int p,
+                             int64_t stage_rows, int64_t band_rows,
+                             float* tmp, double* tmp_partials,
+                             double* pow_partials, void* stream) {
+  if (p < 0 || p > 3 || n <= 0 || hidden <= 0 || hidden > kMatvecMaxHidden ||
+      (hidden * hidden) % 4 != 0 || pitch % 4 != 0 || stage_rows <= 0 ||
+      (stage_rows * hidden) % 4 != 0 || stage_rows * hidden > kMatvecStage ||
+      band_rows <= 0 || band_rows % stage_rows != 0 ||
+      (hidden + band_rows - 1) / band_rows > 65535 ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n),
+                  static_cast<unsigned>((hidden + band_rows - 1) / band_rows));
+  const int h = static_cast<int>(hidden), sr = static_cast<int>(stage_rows),
+            br = static_cast<int>(band_rows);
+  if (p == 0)
+    launch_matvec<0>(head != 0, grid, s, table, ids, out, n_rows, pitch, h,
+                     vecs, vec_pitch, sr, br, tmp, tmp_partials, pow_partials);
+  else if (p == 1)
+    launch_matvec<1>(head != 0, grid, s, table, ids, out, n_rows, pitch, h,
+                     vecs, vec_pitch, sr, br, tmp, tmp_partials, pow_partials);
+  else if (p == 2)
+    launch_matvec<2>(head != 0, grid, s, table, ids, out, n_rows, pitch, h,
+                     vecs, vec_pitch, sr, br, tmp, tmp_partials, pow_partials);
+  else
+    launch_matvec<3>(head != 0, grid, s, table, ids, out, n_rows, pitch, h,
+                     vecs, vec_pitch, sr, br, tmp, tmp_partials, pow_partials);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -95,9 +95,11 @@ def gather_rows(table: EmbeddingState, ids: torch.Tensor,
     return rows.gather_rows(table.emb, ids, dim)
 
 
-def gather_rows_pow_sum(table: EmbeddingState, ids: torch.Tensor, p: int,
-                        dim: int | None = None):
-    """gather_rows and the 0-d fp32 sum of |x|^p over the rows it returns
-    (rows.gather_rows_pow_sum: summed by K1 as it copies wide fp32 rows on
+def gather_rows_matvec(table: EmbeddingState, ids: torch.Tensor,
+                       vecs: torch.Tensor, head: bool, p: int,
+                       dim: int | None = None):
+    """RESCAL's relation gather: the rows, their sum of |x|^p (None for p =
+    0) and each row's [hidden, hidden] matrix times its vector of ``vecs``
+    (rows.gather_rows_matvec: formed by K1 as it copies wide fp32 rows on
     the card, by PyTorch on every other route)."""
-    return rows.gather_rows_pow_sum(table.emb, ids, p, dim)
+    return rows.gather_rows_matvec(table.emb, ids, vecs, head, p, dim)

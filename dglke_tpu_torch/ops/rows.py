@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import mmap
 import os
 import shutil
@@ -49,9 +50,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "group_ids" on its one-block route, "group_ids_tiles" on its tiles route
 # (each such count is one call of 4 + passes kernels).  A K1 launch that
 # also sums |x|^p (gather_rows_pow_sum's fused route) counts under
-# gather_rows and under gather_rows_pow_sum.  TransE_l2's fused loss
-# (ops/transe_l2.py) counts its two kernels a call under transe_l2_loss.
-launches = {"gather_rows": 0, "gather_rows_pow_sum": 0, "group_ids": 0,
+# gather_rows and under gather_rows_pow_sum; one that also forms RESCAL's
+# matrix-vector product (gather_rows_matvec's fused route) under
+# gather_rows_matvec and gather_rows, and under gather_rows_pow_sum when it
+# sums.  TransE_l2's fused loss (ops/transe_l2.py) counts its two kernels a
+# call under transe_l2_loss.
+launches = {"gather_rows": 0, "gather_rows_pow_sum": 0,
+            "gather_rows_matvec": 0, "group_ids": 0,
             "group_ids_tiles": 0, "sparse_adagrad_rows": 0,
             "scatter_add_rows": 0, "outer_adagrad_update": 0,
             "transe_l2_loss": 0}
@@ -154,6 +159,9 @@ SIGNATURES = {
                                   _I64, _P], _INT),
     "dglke_gather_rows_pow_sum": ([_P, _I64, _I64, _P, _I64, _P, _I64, _INT,
                                    _P, _I64, _P], _INT),
+    "dglke_gather_rows_matvec": ([_P, _I64, _I64, _P, _I64, _P, _I64, _P,
+                                  _I64, _INT, _INT, _I64, _I64, _P, _P, _P,
+                                  _P], _INT),
     "dglke_segment_update": ([_P, _INT, _I64, _I64, _I64, _P, _P, _P, _P, _P,
                               _P, _P, _I64, ctypes.c_float, _INT, _INT, _P,
                               _P], _INT),
@@ -456,16 +464,21 @@ def pow_sum_plain(rows: torch.Tensor, p: int) -> torch.Tensor:
     return torch.sum(torch.abs(rows) ** p)
 
 
+def _bulk_wide(table: torch.Tensor, ids: torch.Tensor, dim: int) -> bool:
+    """An fp32 table on the card whose rows take the wide shape and the bulk
+    copy (its address and pitch on 16-byte boundaries, ``dim`` a multiple
+    of four), and at least one id."""
+    return (table.device.type == "cuda" and table.dtype == torch.float32
+            and gather_shape(dim) == "wide" and dim % 4 == 0
+            and table.stride(0) % 4 == 0 and table.data_ptr() % 16 == 0
+            and ids.shape[0] > 0)
+
+
 def fused_pow_sum(table: torch.Tensor, ids: torch.Tensor, dim: int,
                   p: int) -> bool:
-    """Whether K1 sums |x|^p for gather_rows_pow_sum: an fp32 table on the
-    card whose rows take the wide shape and the bulk copy (its address and
-    pitch on 16-byte boundaries, ``dim`` a multiple of four), p in
-    POW_SUM_EXPONENTS and at least one id."""
-    return (table.device.type == "cuda" and table.dtype == torch.float32
-            and p in POW_SUM_EXPONENTS and gather_shape(dim) == "wide"
-            and dim % 4 == 0 and table.stride(0) % 4 == 0
-            and table.data_ptr() % 16 == 0 and ids.shape[0] > 0)
+    """Whether K1 sums |x|^p for gather_rows_pow_sum: _bulk_wide rows and p
+    in POW_SUM_EXPONENTS."""
+    return p in POW_SUM_EXPONENTS and _bulk_wide(table, ids, dim)
 
 
 def gather_rows_pow_sum(table: torch.Tensor, ids: torch.Tensor, p: int,
@@ -512,6 +525,127 @@ def gather_rows_pow_sum(table: torch.Tensor, ids: torch.Tensor, p: int,
     launches["gather_rows"] += 1
     launches["gather_rows_pow_sum"] += 1
     return out, partials.sum(dim=1).sum().float()
+
+
+# K1's wide pass with RESCAL's product (csrc/rows.cu: kMatvecStage,
+# kMatvecMaxHidden): a stage buffer holds MATVEC_STAGE fp32 elements, a
+# thread at most MATVEC_MAX_HIDDEN / 128 columns.  A block takes a band of
+# about MATVEC_BAND_ROWS[head] matrix rows: R t (head) narrow bands, whose
+# blocks read each row's repeats in the batch closer together, so more of
+# them in L2; v^T R wide ones, each of which writes a [hidden] fp64 partial.
+# The band sizes are the fastest of a sweep on an NVIDIA H100 80GB HBM3
+# at 700 W (1,000 ids, 687 distinct, x 500 x 500 fp32 with the sum of
+# |x|^3): R t in bands of 8 rows 0.5923 ms and v^T R in bands of 96 0.6707,
+# partials' sum included, where the sum alone took about 0.60; v^T R in
+# bands of 8 took ~0.82 (PERF.md, section 6).
+MATVEC_STAGE = 2048
+MATVEC_MAX_HIDDEN = 1024
+MATVEC_BAND_ROWS = {True: 8, False: 96}
+
+
+def matvec_rows(hidden: int, head: bool) -> tuple:
+    """(stage rows, band rows) of gather_rows_matvec's launch at ``hidden``:
+    the most matrix rows that fit a stage and hold a multiple of four
+    elements (so that every stage starts on 16 bytes), and the band of the
+    whole stages nearest MATVEC_BAND_ROWS[head] (at least one)."""
+    align = 4 // math.gcd(hidden, 4)
+    stage = MATVEC_STAGE // hidden // align * align
+    return stage, stage * max(1, round(MATVEC_BAND_ROWS[head] / stage))
+
+
+def matvec_plain(rows: torch.Tensor, vecs: torch.Tensor,
+                 head: bool) -> torch.Tensor:
+    """Each row of ``rows`` [N, hidden * hidden] viewed as a matrix R
+    [hidden, hidden], times its vector of ``vecs`` [N, hidden]: R v when
+    ``head`` (R t, RESCAL's head-corrupt steps), else v^T R (h^T R)."""
+    hidden = vecs.shape[1]
+    rmat = rows.reshape(rows.shape[0], hidden, hidden)
+    if head:
+        return torch.bmm(rmat, vecs[:, :, None])[:, :, 0]
+    return torch.bmm(vecs[:, None, :], rmat)[:, 0, :]
+
+
+def fused_matvec(table: torch.Tensor, ids: torch.Tensor, vecs: torch.Tensor,
+                 dim: int, p: int) -> bool:
+    """Whether K1 forms RESCAL's product for gather_rows_matvec: _bulk_wide
+    rows of hidden x hidden elements, hidden at most MATVEC_MAX_HIDDEN,
+    fp32 vectors [N, hidden] with unit column stride on the table's card,
+    and p 0 (no sum) or in POW_SUM_EXPONENTS."""
+    hidden = vecs.shape[-1]
+    return (p in (0,) + POW_SUM_EXPONENTS and hidden * hidden == dim
+            and hidden <= MATVEC_MAX_HIDDEN and vecs.dim() == 2
+            and vecs.shape[0] == ids.shape[0]
+            and vecs.dtype == torch.float32 and vecs.stride(1) == 1
+            and vecs.device == table.device and _bulk_wide(table, ids, dim))
+
+
+def gather_rows_matvec(table: torch.Tensor, ids: torch.Tensor,
+                       vecs: torch.Tensor, head: bool, p: int,
+                       dim: int | None = None):
+    """RESCAL's relation gather: (rows, pow_sum, tmp) where rows is
+    gather_rows(table, ids, dim); pow_sum the 0-d fp32 sum of |x|^p over
+    them as gather_rows_pow_sum gives it, or None for p = 0; and tmp
+    matvec_plain(rows, vecs, head), each row a [hidden, hidden] matrix
+    times its edge's entity vector.
+
+    Where fused_matvec holds, one K1 launch copies the rows and forms tmp
+    (and the sum) from the bytes it holds in shared memory
+    (csrc/rows.cu:dglke_gather_rows_matvec), in place of a second read of
+    the [N, dim] copy: each product of two fp32 values exact in fp64,
+    summed in fp64 in a fixed order and rounded to fp32 once (v^T R: an
+    fp64 partial a band, summed over the bands here); the sum's partials
+    a band, summed as gather_rows_pow_sum sums its chunks'.  The same bits
+    on every launch.  Every other table (on the CPU, in mapped host
+    memory, bf16, unaligned or other rows) takes gather_rows_pow_sum (p >
+    0) or gather_rows, then matvec_plain.  A fused launch counts one
+    launch of gather_rows_matvec and of gather_rows, and of
+    gather_rows_pow_sum for p > 0."""
+    dim = table.shape[1] if dim is None else dim
+    if not fused_matvec(table, ids, vecs, dim, p):
+        if p > 0:
+            rows, pow_sum = gather_rows_pow_sum(table, ids, p, dim)
+        else:
+            rows, pow_sum = gather_rows(table, ids, dim), None
+        return rows, pow_sum, matvec_plain(rows, vecs, head)
+    _check_table(table, "gather_rows_matvec")
+    check_ids(ids, table.device, "gather_rows_matvec")
+    ids32 = ids.to(torch.int32).contiguous()
+    n, hidden = ids32.shape[0], vecs.shape[1]
+    if dim > table.shape[1] or n > _MAX_ROWS:
+        raise ValueError(f"gather_rows_matvec: {n} rows of {dim} outside "
+                         f"the table's width {table.shape[1]} or the "
+                         f"launch's grid")
+    stage, band = matvec_rows(hidden, head)
+    bands = -(-hidden // band)
+    dev = ids.device
+    out = torch.empty((n, dim), dtype=torch.float32, device=dev)
+    tmp, partials = (
+        (torch.empty((n, hidden), dtype=torch.float32, device=dev), None)
+        if head else
+        (None, torch.empty((n, bands, hidden), dtype=torch.float64,
+                           device=dev)))
+    pow_partials = (torch.empty((n, bands), dtype=torch.float64, device=dev)
+                    if p > 0 else None)
+    lib = load_library(SOURCE, SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.dglke_gather_rows_matvec(
+            table.data_ptr(), table.shape[0], table.stride(0),
+            ids32.data_ptr(), n, out.data_ptr(), hidden, vecs.data_ptr(),
+            vecs.stride(0), int(head), p, stage, band,
+            None if tmp is None else tmp.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            None if pow_partials is None else pow_partials.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "gather_rows_matvec")
+    launches["gather_rows"] += 1
+    launches["gather_rows_matvec"] += 1
+    if tmp is None:
+        tmp = partials.sum(dim=1).float()
+    pow_sum = None
+    if pow_partials is not None:
+        launches["gather_rows_pow_sum"] += 1
+        pow_sum = pow_partials.sum(dim=1).sum().float()
+    return out, pow_sum, tmp
 
 
 # ---------------------------------------------------------------------------

@@ -7,14 +7,16 @@ regularization value of RESCAL's relation rows:
   * on the CPU (a CPU table, rows under GATHER_WIDE_MIN among them) the
     rows are gather_rows' and the sum is models/loss.py:regularization's
     to the bit, and no launch is counted;
-  * RESCAL's factored step takes the relation rows' value from it (and
-    none without regularization); TransE never calls it;
+  * RESCAL's factored step takes the relation rows' value from its
+    relation gather (gather_rows_matvec, which sums through it, and with
+    p = 0 without regularization); TransE never calls it;
   * on a card (the ``card`` marker; skipped without one): the fused sum
     within 1e-6 of an fp64 sum over table[ids] at widths 2,048, 4,100 and
     250,000 (122 chunks and a tail of 144), repeated ids, p = 1, 2, 3; the
     rows byte-identical to the plain K1 launch; two calls and two replays
     of a captured CUDA graph bit-identical; one count a launch; RESCAL's
-    factored step's regularization within 1e-6 of the three-pass value and
+    factored step's regularization within 1e-6 of the three-pass value, one
+    fused launch (with the product, tests/test_torch_rows_matvec.py) and
     its tables within the step parity's tolerance of the CPU's.
 
 This file imports nothing of JAX, so that its card tests run on a machine
@@ -157,14 +159,16 @@ def _batch(n_ent, n_rel, b, n_neg, seed=4, device="cpu"):
 
 
 def _spy(monkeypatch):
+    """Calls of the relation gather (gather_rows_matvec, which sums the
+    value for p > 0): (table, p, dim) each."""
     calls = []
-    real = ke_model.gather_rows_pow_sum
+    real = ke_model.gather_rows_matvec
 
-    def spy(table, ids, p, dim=None):
+    def spy(table, ids, vecs, head, p, dim=None):
         calls.append((table, p, dim))
-        return real(table, ids, p, dim)
+        return real(table, ids, vecs, head, p, dim)
 
-    monkeypatch.setattr(ke_model, "gather_rows_pow_sum", spy)
+    monkeypatch.setattr(ke_model, "gather_rows_matvec", spy)
     return calls
 
 
@@ -195,9 +199,11 @@ def test_factored_step_without_regularization_sums_nothing(monkeypatch,
                                                            over):
     calls = _spy(monkeypatch)
     model = KEModel(_cfg(**over), 40, 5, device="cpu")
-    _, log, _ = model.loss_and_grads(model.init_state(), *_batch(40, 5, 16, 16),
+    state = model.init_state()
+    _, log, _ = model.loss_and_grads(state, *_batch(40, 5, 16, 16),
                                      None, neg_head=True)
-    assert calls == [] and "regularization" not in log
+    assert calls == [(state.relation, 0, model.relation_dim)]
+    assert "regularization" not in log
 
 
 @pytest.mark.parametrize("model_name", ["TransE_l2", "DistMult"])
@@ -301,8 +307,8 @@ def test_factored_rescal_step_on_the_card(card, neg_head):
     _, log = gpu.train_step(state, h, r, t, neg, None, neg_head=neg_head)
     _, clog = cpu.train_step(host, *ids, None, neg_head=neg_head)
     torch.cuda.synchronize(card)
-    assert rows.launches["gather_rows_pow_sum"] == (
-        before["gather_rows_pow_sum"] + 1)
+    for key in ("gather_rows_pow_sum", "gather_rows_matvec"):
+        assert rows.launches[key] == before[key] + 1, key
     got, want = float(log["regularization"]), float(three_pass)
     assert abs(got - want) <= 1e-6 * want
     pairs = [("loss", log["loss"], clog["loss"])]

@@ -340,15 +340,18 @@ def test_group_reads_no_device_value(over, monkeypatch):
 # Launch counts under replay
 
 
-# What a capture of a group of 10 steps counts: RESCAL's factored route;
+# What a capture of a group of 10 steps counts: RESCAL's factored route
+# (its relation gather with the sum and the product, one launch a step);
 # TransE_l2 in fp32, whose fused loss route launches two kernels a step.
 CAPTURED = {
     "RESCAL": {"gather_rows": 20, "gather_rows_pow_sum": 10,
-               "group_ids": 20, "group_ids_tiles": 0,
+               "gather_rows_matvec": 10, "group_ids": 20,
+               "group_ids_tiles": 0,
                "sparse_adagrad_rows": 10, "scatter_add_rows": 0,
                "outer_adagrad_update": 10, "transe_l2_loss": 0},
     "TransE_l2": {"gather_rows": 20, "gather_rows_pow_sum": 0,
-                  "group_ids": 20, "group_ids_tiles": 0,
+                  "gather_rows_matvec": 0, "group_ids": 20,
+                  "group_ids_tiles": 0,
                   "sparse_adagrad_rows": 20, "scatter_add_rows": 0,
                   "outer_adagrad_update": 0, "transe_l2_loss": 20},
 }
